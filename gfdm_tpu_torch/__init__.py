@@ -1,0 +1,19 @@
+"""gfdm_tpu_torch: the PyTorch and CUDA port of gfdm_tpu.
+
+The JAX package ``gfdm_tpu`` is the reference; this package imports neither
+it nor JAX. The layout follows the reference, so each module has a
+counterpart of the same name:
+
+- :mod:`.config` - :class:`GfdmConfig` (NumPy float64 host constants);
+- :mod:`.ref` - the NumPy golden-model modules the operators need;
+- :mod:`.ops` - operators (NumPy), planar primitives and the planar link as
+  plain torch ops;
+- :mod:`.kernels` - the fused Tx, receiver and one-kernel link, written in
+  CUDA C++ for Hopper (``csrc/``), each with its plain torch version;
+- :mod:`.entry` - the main-path step, :mod:`.convert` - constants carried
+  over from the JAX package.
+"""
+from .config import GfdmConfig
+
+__all__ = ["GfdmConfig"]
+__version__ = "0.1.0"

@@ -1,0 +1,150 @@
+"""Build and bind the hand-written CUDA kernels of ``gfdm_tpu_torch/csrc``.
+
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with :mod:`ctypes`. The
+library is built on first use into :func:`build_dir` (``build/gfdm_tpu_torch/``
+at the root of a checkout) and rebuilt when a hash of the sources or flags
+changes.
+Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["Dims", "Consts", "library", "build_dir", "build_info"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("tx.cu", "rx.cu", "link.cu")
+HEADERS = ("gfdm_common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+class Dims(ctypes.Structure):
+    """Mirror of ``gfdm::Dims`` in csrc/gfdm_common.cuh (same field order)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "n", "n_data", "timeslots", "subcarriers", "half",
+        "frame_len", "preamble_len", "cp_len", "cs_len",
+        "shift", "n_cnr", "met_w", "ic_iterations", "ic_mode",
+    )]
+
+
+class Consts(ctypes.Structure):
+    """Mirror of ``gfdm::Consts`` in csrc/gfdm_common.cuh: device pointers."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "t_g", "win", "pre", "e_g", "f_g", "bfd_g", "f2_g", "act",
+        "sig_idx", "noise_idx", "demap_idx", "taps", "icop",
+    )]
+
+
+_LIB = None
+_BUILD_INFO: dict = {}
+
+
+def _nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build_dir() -> Path:
+    """Where the library is built: ``$GFDM_TPU_TORCH_BUILD_DIR`` if set, else
+    ``build/gfdm_tpu_torch`` at the root of a source checkout, else (an
+    installed package) ``gfdm_tpu_torch`` under the user's cache directory."""
+    env = os.environ.get("GFDM_TPU_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").exists():
+        return root / "build" / "gfdm_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "gfdm_tpu_torch"
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build() -> Path:
+    out_dir = build_dir()
+    lib_path = out_dir / f"libgfdm_kernels_{_source_hash()}.so"
+    if lib_path.exists():
+        _BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True, log="")
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    (out_dir / f"{lib_path.stem}.log").write_text(log)
+    _BUILD_INFO.update(path=str(lib_path), seconds=seconds, cached=False, log=log)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first call."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = ctypes.CDLL(str(_build()))
+    dims_p, consts_p, vp = ctypes.POINTER(Dims), ctypes.POINTER(Consts), ctypes.c_void_p
+    lib.gfdm_tx.argtypes = [dims_p, consts_p, vp, vp, vp]
+    lib.gfdm_rx.argtypes = [dims_p, consts_p, vp, vp, vp, vp, vp]
+    lib.gfdm_link.argtypes = [dims_p, consts_p, vp, vp, vp, vp]
+    lib.gfdm_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.gfdm_tx, lib.gfdm_rx, lib.gfdm_link, lib.gfdm_struct_sizes):
+        fn.restype = ctypes.c_int
+    lib.gfdm_error_string.argtypes = [ctypes.c_int]
+    lib.gfdm_error_string.restype = ctypes.c_char_p
+    lib.gfdm_rx_smem_bytes.argtypes = [dims_p]
+    lib.gfdm_rx_smem_bytes.restype = ctypes.c_size_t
+    sizes = (ctypes.c_int * 2)()
+    lib.gfdm_struct_sizes(sizes)
+    if (sizes[0], sizes[1]) != (ctypes.sizeof(Dims), ctypes.sizeof(Consts)):
+        raise RuntimeError(
+            f"kernel struct layout mismatch: C {tuple(sizes)} vs ctypes "
+            f"{(ctypes.sizeof(Dims), ctypes.sizeof(Consts))}"
+        )
+    _LIB = lib
+    return lib
+
+
+def build_info() -> dict:
+    """Path, build seconds, whether it was cached, and the nvcc log."""
+    library()
+    return dict(_BUILD_INFO)

@@ -1,0 +1,113 @@
+"""Planar complex arithmetic: complex tensors as stacked real planes.
+
+The port keeps the JAX package's layout (``gfdm_tpu.ops.planar``): a complex
+tensor of shape (..., n) is a real tensor of shape (..., 2, n) - plane 0 the
+real part, plane 1 the imaginary part - so flattening the last two axes gives
+the row [re | im] and a complex matmul y = x @ W is one real matmul against
+the realified operator [[Wr, Wi], [-Wi, Wr]].
+
+The host-side builders (``to_planar``, ``from_planar``, ``real_operator``,
+``gauss_stack``) stay NumPy; the primitives on tensors are torch.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = [
+    "to_planar",
+    "from_planar",
+    "real_operator",
+    "gauss_stack",
+    "pmatmul",
+    "pmul",
+    "pconj",
+    "pdiv",
+    "pabs2",
+]
+
+
+# ---------------------------------------------------------------------------
+# conversions (host side, numpy in / numpy out)
+# ---------------------------------------------------------------------------
+def to_planar(x, dtype=np.float32) -> np.ndarray:
+    """complex (..., n) -> real (..., 2, n)."""
+    x = np.asarray(x)
+    return np.stack([x.real, x.imag], axis=-2).astype(dtype)
+
+
+def from_planar(x) -> np.ndarray:
+    """real (..., 2, n) -> complex (..., n)."""
+    x = np.asarray(x)
+    return x[..., 0, :] + 1j * x[..., 1, :]
+
+
+def real_operator(W, dtype=np.float32) -> np.ndarray:
+    """Realify a complex operator for right-multiplication.
+
+    For y = x @ W (x a row of length n_in, W (n_in, n_out) complex), the
+    planar form is  y2 = x2 @ real_operator(W)  with x2 = [x_re | x_im]:
+
+        [[ Wr,  Wi],
+         [-Wi,  Wr]]    of shape (2*n_in, 2*n_out).
+    """
+    W = np.asarray(W)
+    Wr, Wi = W.real.astype(dtype), W.imag.astype(dtype)
+    top = np.concatenate([Wr, Wi], axis=1)
+    bot = np.concatenate([-Wi, Wr], axis=1)
+    return np.concatenate([top, bot], axis=0)
+
+
+def gauss_stack(W, dtype=np.float32) -> np.ndarray:
+    """Complex operator as the 3-real-matmul (Gauss/Karatsuba) stack.
+
+    For y = x @ W with W (n_in, n_out) complex:
+
+        P1 = x_re @ Wr;  P2 = x_im @ Wi;  P3 = (x_re + x_im) @ (Wr + Wi)
+        y_re = P1 - P2;  y_im = P3 - P1 - P2
+
+    Returns the (3*n_in, n_out) stack [Wr; Wi; Wr+Wi] (the sum is taken in
+    ``dtype``, as in the JAX package).
+    """
+    W = np.asarray(W)
+    Wr, Wi = W.real.astype(dtype), W.imag.astype(dtype)
+    return np.concatenate([Wr, Wi, Wr + Wi], axis=0)
+
+
+# ---------------------------------------------------------------------------
+# tensor primitives (operate on tensors shaped (..., 2, n))
+# ---------------------------------------------------------------------------
+def _pack(r, i):
+    return torch.stack([r, i], dim=-2)
+
+
+def pmatmul(x: torch.Tensor, W_real: torch.Tensor) -> torch.Tensor:
+    """Planar complex matmul: (..., 2, n) @ realified (2n, 2m) -> (..., 2, m)."""
+    flat = x.reshape(x.shape[:-2] + (2 * x.shape[-1],))
+    y = torch.matmul(flat, W_real)
+    return y.reshape(x.shape[:-2] + (2, W_real.shape[-1] // 2))
+
+
+def pmul(a, b):
+    """Elementwise complex multiply."""
+    ar, ai = a[..., 0, :], a[..., 1, :]
+    br, bi = b[..., 0, :], b[..., 1, :]
+    return _pack(ar * br - ai * bi, ar * bi + ai * br)
+
+
+def pconj(a):
+    return _pack(a[..., 0, :], -a[..., 1, :])
+
+
+def pabs2(a):
+    """|a|^2 (real tensor, no plane axis)."""
+    return a[..., 0, :] ** 2 + a[..., 1, :] ** 2
+
+
+def pdiv(a, b, eps: float = 0.0):
+    """Elementwise complex divide a/b (no clamp unless ``eps`` is set)."""
+    d = pabs2(b)
+    if eps:
+        d = torch.clamp(d, min=eps)
+    num = pmul(a, pconj(b))
+    return _pack(num[..., 0, :] / d, num[..., 1, :] / d)

@@ -1,0 +1,16 @@
+"""Golden reference model: the NumPy/float64 modules the port's operators need.
+
+Copies of the matching ``gfdm_tpu.ref`` modules (framework-free). They are
+copied rather than imported because importing ``gfdm_tpu`` imports JAX.
+"""
+from . import (  # noqa: F401
+    channel_estimation,
+    cyclic_prefix,
+    demodulation,
+    filters,
+    mapping,
+    modulation,
+    preamble,
+    utils,
+    zadoff_chu,
+)

@@ -1,0 +1,78 @@
+"""The port's entry step against the JAX entry, and the port's import boundary."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__
+from gfdm_tpu_torch import GfdmConfig
+from gfdm_tpu_torch.entry import entry, planar_payload
+from gfdm_tpu_torch.kernels import fused
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_entry_reproduces_jax_evm_on_cpu():
+    """The clean-loopback EVM floor (0.018) of the JAX entry, within 1e-4."""
+    jax_fn, (jax_data,) = __graft_entry__.entry()
+    evm_jax = float(np.asarray(jax_fn(jax_data)[2]))
+    step, (data,) = entry("cpu")
+    np.testing.assert_array_equal(data.numpy(), jax_data)
+    d_hat, snr, evm = step(data)
+    assert abs(float(evm) - evm_jax) < 1e-4
+    assert 0.017 < float(evm) < 0.019
+    assert d_hat.shape == (64, 2, GfdmConfig().n_data_symbols) and snr.shape == (64,)
+
+
+def test_entry_example_args():
+    step, (data,) = entry(torch.device("cpu"))
+    assert callable(step)
+    assert data.dtype == torch.float32 and data.device.type == "cpu"
+    assert data.shape == (64, 2, GfdmConfig().n_data_symbols)
+    np.testing.assert_array_equal(data.numpy(), planar_payload(GfdmConfig(), 64, 0))
+
+
+def test_port_imports_neither_jax_nor_the_reference_package():
+    code = (
+        "import gfdm_tpu_torch, gfdm_tpu_torch.kernels.fused, gfdm_tpu_torch.entry, "
+        "gfdm_tpu_torch.convert, sys; "
+        "assert 'jax' not in sys.modules and 'gfdm_tpu' not in sys.modules, "
+        "sorted(m for m in sys.modules if m.startswith(('jax', 'gfdm_tpu.')))"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_build_dir_checkout_override_and_installed(monkeypatch, tmp_path):
+    from gfdm_tpu_torch.kernels import cuda_lib
+
+    monkeypatch.delenv("GFDM_TPU_TORCH_BUILD_DIR", raising=False)
+    assert cuda_lib.build_dir() == Path(ROOT) / "build" / "gfdm_tpu_torch"
+    monkeypatch.setenv("GFDM_TPU_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    assert cuda_lib.build_dir() == tmp_path / "b"
+    # an installed package: no pyproject.toml two levels above kernels/
+    monkeypatch.delenv("GFDM_TPU_TORCH_BUILD_DIR")
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    site = tmp_path / "site-packages" / "gfdm_tpu_torch" / "kernels"
+    monkeypatch.setattr(cuda_lib, "__file__", str(site / "cuda_lib.py"))
+    assert cuda_lib.build_dir() == tmp_path / "cache" / "gfdm_tpu_torch"
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_with_unported_option_raises():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100: python3 chip_smoke.py)")
+    cfg = GfdmConfig()
+    bursts = torch.zeros(4, 2, cfg.frame_len, device="cuda")
+    before = dict(fused.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 14"):
+        fused.rx_receiver_fused(cfg, bursts, equalizer="mmse")
+    assert fused.LAUNCHES == before
