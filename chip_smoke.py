@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's main path on one CUDA card and check it.
+"""Run the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # canonical config, B = 65,536 bursts
+    python3 chip_smoke.py    # canonical config: link B = 65,536 bursts,
+                             # service 4,096 chunks x 2,048 samples
 
 Phases, one line each (any failure exits non-zero and prints no result):
 
@@ -10,12 +11,27 @@ Phases, one line each (any failure exits non-zero and prints no result):
 3. check   - each kernel against its plain torch version on the same CUDA
              inputs: the Tx at a ragged batch and shifts (0, 4), the
              receiver on noisy bursts (AWGN 20 dB) and the one-kernel link,
-             both IC modes.
+             both IC modes; both detection kernels on the service's 4,096
+             friendly chunks and on 37 chunks of a T that is not 128-aligned.
 4. main    - the entry step (link_single_fused, matmul IC) and
              link_step_fused (Tx kernel -> receiver kernel) at full batch,
              with the launch counters reset just before; EVM against the
              plain versions and the planar torch-op link.
-5. time    - each kernel and its plain version, CUDA events after warm-up.
+5. time    - each link kernel and its plain version, CUDA events after
+             warm-up.
+6. service - StreamingReceiver(engine="fused") on the synthetic service
+             streams (entry.service_stream, seed 0): friendly (20 dB AWGN,
+             one burst a chunk, k = 1) under DETECT_IMPL "pallas2" (lean
+             detection kernel), "pallas" (front kernel) and "twostage"
+             (torch ops); impaired (8-tap multipath, CFO up to +-0.2, 0-2
+             bursts a chunk, k = 2) under "pallas" and "twostage". Each step
+             runs once under torch's sync debug mode, which fails on any
+             host sync inside it; then once with the launch counters reset
+             just before, through StreamingReceiver.step: found fraction,
+             device-step samples/s (CUDA events), launches, and on the
+             friendly stream the EVM of the found slots against the sent
+             payload; then the detection kernels' times and one serve()
+             loop (batch 256, super-batch 1,024, pipeline depth 2).
 
 Then a JSON line of per-kernel results, the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -41,7 +57,17 @@ TOL = {
     "cnr_rtol": 1e-2,
     "evm": 1e-4,
     "evm_max": 0.025,  # the clean-loopback floor is 0.018 (JAX on CPU)
+    # detection kernels vs plain: the JAX package's Pallas-vs-reference
+    # limits for traces (tests/test_detection.py), peak fields as in
+    # tests/test_torch_detect.py
+    "trace_atol": 3e-5, "trace_rtol": 3e-3,
+    "peak_atol": 1e-6, "peak_rtol": 1e-4,
+    # service: found fraction floor, kernel paths vs the torch-op twostage
+    "found_min": 0.999, "found_vs_twostage": 1e-3, "evm_vs_twostage": 1e-3,
 }
+N_CHUNKS = 4096  # service batch: 8.4 M owned samples a step
+CHUNK_LEN = 2048
+N_RAGGED, RAGGED_TRIM = 37, 5  # chunks of T - 5 samples: not 128-aligned
 SOURCES = {
     "tx": ("tx_frame_fused", "gfdm_tpu_torch/csrc/tx.cu",
            "gfdm_tpu/kernels/fused.py:1662"),
@@ -49,6 +75,10 @@ SOURCES = {
            "gfdm_tpu/kernels/fused.py:343"),
     "link": ("link_single_fused", "gfdm_tpu_torch/csrc/link.cu",
              "gfdm_tpu/kernels/fused.py:1403"),
+    "detect_front": ("detect_front_fused", "gfdm_tpu_torch/csrc/detect.cu",
+                     "gfdm_tpu/kernels/detect.py:71"),
+    "detect_lean": ("detect_bursts_fused", "gfdm_tpu_torch/csrc/detect.cu",
+                    "gfdm_tpu/kernels/detect.py:164"),
 }
 
 
@@ -68,6 +98,11 @@ def _max_rel(a, b) -> float:
     return float(((a - b).abs() / (b.abs() + 1e-12)).max())
 
 
+def _rel_excess(a, b, atol: float, rtol: float) -> float:
+    """max(|a - b| - rtol |b|) / atol: <= 1 where a is within atol + rtol |b|."""
+    return float(((a - b).abs() - rtol * b.abs()).max()) / atol
+
+
 def _time_ms(torch, fn, iters: int = 5) -> float:
     fn()
     fn()
@@ -82,6 +117,195 @@ def _time_ms(torch, fn, iters: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def _reset_launches() -> None:
+    from gfdm_tpu_torch.kernels import detect, fused
+
+    for counts in (fused.LAUNCHES, detect.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _launches() -> dict:
+    from gfdm_tpu_torch.kernels import detect, fused
+
+    return {**fused.LAUNCHES, **detect.LAUNCHES}
+
+
+def _check_traces(got, ref, names, check) -> tuple[list, float]:
+    parts, e = [], 0.0
+    for name, g, r in zip(names, got, ref):
+        if tuple(g.shape) != tuple(r.shape):
+            parts.append(check(f"{name}_shape", 1.0, 0.0))
+            continue
+        e = max(e, _max_abs(g, r))
+        parts.append(check(name, _rel_excess(g, r, TOL["trace_atol"], TOL["trace_rtol"]),
+                           1.0))
+    return parts, e
+
+
+def _check_front(cfg, s, label, check) -> float:
+    """Kernel A through its wrapper against its plain version."""
+    from gfdm_tpu_torch.kernels import detect
+
+    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, CHUNK_LEN)
+    got = detect.detect_front_fused(cfg, s, CHUNK_LEN)
+    ref = detect._detect_front_plain(cfg, s, n_valid)
+    parts, e = _check_traces(got, ref, ("gated", "ac", "energy", "ic"), check)
+    print(f"[3 check] detect_front[{label}] max_abs={e:.3e} (traces: excess over "
+          f"atol {TOL['trace_atol']} + rtol {TOL['trace_rtol']}) " + " ".join(parts),
+          flush=True)
+    return e
+
+
+def _check_lean(torch, cfg, s, label, check, failures) -> float:
+    """Kernel B's traces and its detection dict against the plain versions."""
+    from gfdm_tpu_torch.kernels import detect
+
+    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, CHUNK_LEN)
+    got_tr = detect._detect_lean_cuda(cfg, s, n_valid)
+    ref_tr = detect._detect_lean_plain(cfg, s, n_valid)
+    parts, e = _check_traces(got_tr, ref_tr, ("gated", "ic"), check)
+    got = detect.detect_bursts_fused(cfg, s, CHUNK_LEN)
+    ref = detect._lean_epilogue(cfg, s, *ref_tr)
+    n_diff = int((got["start"] != ref["start"]).sum())
+    parts.append(check("start_mismatch", float(n_diff), 0.0))
+    for key in ("cfo", "scale", "strength", "ac_peak", "noise_floor"):
+        parts.append(check(key, _rel_excess(got[key], ref[key], TOL["peak_atol"],
+                                            TOL["peak_rtol"]), 1.0))
+    if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+        failures.append(f"detect_lean[{label}]: non-finite outputs")
+    print(f"[3 check] detect_lean[{label}] max_abs={e:.3e} " + " ".join(parts),
+          flush=True)
+    return e
+
+
+def _service_phase(torch, cfg, dev, streams, card, check, failures):
+    """Phase 6: the streaming receive service through StreamingReceiver.
+
+    Returns the detection kernels' launch counts from their main-path runs
+    and their (kernel, plain) times at the service's shapes."""
+    from gfdm_tpu_torch.kernels import detect
+    from gfdm_tpu_torch.ops import planar_pipeline as pp
+    from gfdm_tpu_torch.runtime.service import ServiceStats, StreamingReceiver
+
+    default_impl = pp.DETECT_IMPL
+    setups = (("friendly", "pallas2", 1), ("friendly", "pallas", 1),
+              ("friendly", "twostage", 1), ("impaired", "pallas", 2),
+              ("impaired", "twostage", 2))
+    kernel_of = {"pallas2": "detect_lean", "pallas": "detect_front"}
+    res, launches = {}, {}
+    samples = N_CHUNKS * CHUNK_LEN
+    for stream_name, impl, k in setups:
+        chunks, counts, payload = streams[stream_name]
+        pp.DETECT_IMPL = impl
+        rx = StreamingReceiver(cfg, chunk_len=CHUNK_LEN, batch_chunks=N_CHUNKS,
+                               engine="fused", max_bursts_per_chunk=k, device=dev)
+        dev_chunks = torch.from_numpy(chunks).to(dev)
+        rx._step(dev_chunks)  # warm-up: constants, cuBLAS/cuDNN handles
+        torch.cuda.synchronize()
+        # the step must only enqueue work: any host sync in it raises here
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rx._step(dev_chunks)
+        except RuntimeError as exc:
+            failures.append(f"service step [{stream_name}, {impl}] waits for the "
+                            f"card: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = rx.step(chunks)  # the user's entry: copy in, step, fetch
+        host_s = time.perf_counter() - t0
+        run = _launches()
+        ms = _time_ms(torch, lambda: rx._step(dev_chunks))
+        found = float(out["found"].sum()) / float(counts.sum())
+        fmask = out["found"]
+        shapes = out["data"].shape == (N_CHUNKS * k, 2, cfg.n_data_symbols)
+        if not (shapes and np.isfinite(out["data"][fmask]).all()):
+            failures.append(f"service[{stream_name},{impl}]: outputs shapes={shapes}")
+        need = [kernel_of[impl], "rx"] if impl in kernel_of else ["rx"]
+        for key in need:
+            if run[key] < 1:
+                failures.append(f"kernel {key} was not launched on the service path "
+                                f"({stream_name}, {impl})")
+        if impl not in kernel_of and (run["detect_front"] or run["detect_lean"]):
+            failures.append(f"twostage launched a detection kernel: {run}")
+        evm = float("nan")
+        if stream_name == "friendly":
+            d, p = out["data"][fmask], payload[fmask]
+            evm = float(np.sqrt(np.sum((d - p) ** 2) / np.sum(p**2)))
+            if impl in kernel_of:
+                launches[kernel_of[impl]] = run[kernel_of[impl]]
+        res[(stream_name, impl)] = (found, evm)
+        print(f"[6 service] {stream_name} k={k} DETECT_IMPL={impl}: found="
+              f"{int(out['found'].sum())}/{int(counts.sum())}={found:.6f} "
+              + (f"evm_found={evm:.6f} " if stream_name == "friendly" else "")
+              + f"step {ms:.3f} ms = {samples / (ms / 1e3):.4e} samples/s "
+              f"(host step incl. copies {host_s * 1e3:.1f} ms) launches="
+              f"{{detect_front: {run['detect_front']}, detect_lean: "
+              f"{run['detect_lean']}, rx: {run['rx']}}} ({N_CHUNKS} chunks x "
+              f"{CHUNK_LEN}, {card})", flush=True)
+        del dev_chunks, out
+    parts = []
+    for stream_name, impl in (("friendly", "pallas2"), ("friendly", "pallas"),
+                              ("impaired", "pallas")):
+        found, evm = res[(stream_name, impl)]
+        found_ts, evm_ts = res[(stream_name, "twostage")]
+        parts.append(check(f"{stream_name}/{impl}:1-found", 1.0 - found,
+                           1.0 - TOL["found_min"]))
+        parts.append(check(f"|found-twostage|", abs(found - found_ts),
+                           TOL["found_vs_twostage"]))
+        if stream_name == "friendly":
+            parts.append(check("|evm-twostage|", abs(evm - evm_ts),
+                               TOL["evm_vs_twostage"]))
+    print("[6 service] " + " ".join(parts), flush=True)
+
+    # detection kernels vs their plain versions at the service's shapes
+    s = torch.from_numpy(streams["friendly"][0]).to(dev)
+    times = {}
+    for key, kern, plain in (
+        ("detect_front", detect._detect_front_cuda, detect._detect_front_plain),
+        ("detect_lean", detect._detect_lean_cuda, detect._detect_lean_plain),
+    ):
+        p1 = _time_ms(torch, lambda: plain(cfg, s, CHUNK_LEN))
+        k1 = _time_ms(torch, lambda: kern(cfg, s, CHUNK_LEN))
+        k2 = _time_ms(torch, lambda: kern(cfg, s, CHUNK_LEN))
+        p2 = _time_ms(torch, lambda: plain(cfg, s, CHUNK_LEN))
+        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"[6 time] {key}: kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms,"
+              f" kernel {N_CHUNKS * s.shape[-1] / (times[key][0] / 1e3):.4e} samples/s "
+              f"(B={N_CHUNKS}, T={s.shape[-1]}, {card})", flush=True)
+    del s
+
+    # the host loop: serve() over the friendly stream through the lean kernel
+    pp.DETECT_IMPL = "pallas2"
+    chunks = streams["friendly"][0]
+    rx = StreamingReceiver(cfg, chunk_len=CHUNK_LEN, batch_chunks=256,
+                           max_batch_chunks=1024, engine="fused", pipeline_depth=2,
+                           device=dev)
+
+    def source():
+        it = iter(range(0, N_CHUNKS, 1024))
+        return lambda: None if (i := next(it, None)) is None else chunks[i : i + 1024]
+
+    rx.serve(source(), lambda out: None, max_batches=1)  # warm the ladder
+    rx.stats = ServiceStats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = rx.serve(source(), lambda out: None)
+    dt = time.perf_counter() - t0
+    found = stats.bursts_found / N_CHUNKS
+    print(f"[6 serve] DETECT_IMPL=pallas2 batches={stats.batches} chunks={stats.chunks} "
+          f"found={found:.6f} {dt * 1e3:.1f} ms = {samples / dt:.4e} samples/s "
+          f"host loop (batch 256, super-batch 1024, depth 2, {card}) "
+          + check("serve:1-found", 1.0 - found, 1.0 - TOL["found_min"]), flush=True)
+    if stats.chunks != N_CHUNKS:
+        failures.append(f"serve() received {stats.chunks} of {N_CHUNKS} chunks")
+    pp.DETECT_IMPL = default_impl
+    return launches, times
+
+
 def main() -> int:
     import torch
 
@@ -89,7 +313,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from gfdm_tpu_torch import GfdmConfig
-    from gfdm_tpu_torch.entry import entry, planar_payload
+    from gfdm_tpu_torch.entry import entry, planar_payload, service_stream
     from gfdm_tpu_torch.kernels import cuda_lib, fused
     from gfdm_tpu_torch.ops.planar_pipeline import evm, link_step_planar
 
@@ -170,11 +394,27 @@ def main() -> int:
         print(f"[3 check] link[{mode}] " + check("data", e, TOL["data"]), flush=True)
         del d_hat, ref
 
+    # 3. detection kernels vs plain on the service's friendly chunks
+    streams = {
+        name: service_stream(cfg, N_CHUNKS, CHUNK_LEN, 20.0, impaired,
+                             np.random.default_rng(0))
+        for name, impaired in (("friendly", False), ("impaired", True))
+    }
+    friendly_dev = torch.from_numpy(streams["friendly"][0]).to(dev)
+    ragged = friendly_dev[:N_RAGGED, :, : friendly_dev.shape[-1] - RAGGED_TRIM]
+    ragged = ragged.contiguous()
+    err["detect_front"] = err["detect_lean"] = 0.0
+    for label, s_in in ((f"B={N_CHUNKS},T={friendly_dev.shape[-1]}", friendly_dev),
+                        (f"B={N_RAGGED},T={ragged.shape[-1]}", ragged)):
+        err["detect_front"] = max(err["detect_front"],
+                                  _check_front(cfg, s_in, label, check))
+        err["detect_lean"] = max(err["detect_lean"],
+                                 _check_lean(torch, cfg, s_in, label, check, failures))
+
     # 4. the main path at full batch, through the user's entry points
     step, (example,) = entry(dev)
     _d, _s, evm_example = step(example)
-    for k in fused.LAUNCHES:
-        fused.LAUNCHES[k] = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d_hat, snr, evm_link = step(data)
@@ -237,6 +477,12 @@ def main() -> int:
         print(f"[5 time] {name}: kernel {k1:.3f}/{k2:.3f} ms, plain "
               f"{p1:.3f}/{p2:.3f} ms, kernel {rate:.4e} samples/s "
               f"(B={B}, {card})", flush=True)
+
+    # 6. the streaming receive service
+    svc_launches, det_times = _service_phase(torch, cfg, dev, streams, card,
+                                             check, failures)
+    launches.update(svc_launches)
+    times.update(det_times)
 
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -6,12 +6,14 @@ counterpart of the same name:
 
 - :mod:`.config` - :class:`GfdmConfig` (NumPy float64 host constants);
 - :mod:`.ref` - the NumPy golden-model modules the operators need;
-- :mod:`.ops` - operators (NumPy), planar primitives and the planar link as
-  plain torch ops;
-- :mod:`.kernels` - the fused Tx, receiver and one-kernel link, written in
-  CUDA C++ for Hopper (``csrc/``), each with its plain torch version;
-- :mod:`.entry` - the main-path step, :mod:`.convert` - constants carried
-  over from the JAX package.
+- :mod:`.ops` - operators (NumPy), planar primitives, the planar link and
+  the detection/extraction path as plain torch ops;
+- :mod:`.kernels` - the fused Tx, receiver and one-kernel link and the two
+  detection front-end kernels, written in CUDA C++ for Hopper (``csrc/``),
+  each with its plain torch version;
+- :mod:`.runtime` - chunked streams and the streaming receive service;
+- :mod:`.entry` - the main-path step and the service's synthetic stream,
+  :mod:`.convert` - constants carried over from the JAX package.
 """
 from .config import GfdmConfig
 

@@ -4,8 +4,10 @@
 operator matrices, small constants, selection matrices and bf16 IC stack,
 as NumPy arrays - into the port's constant cache: the names, dtypes and
 index forms that ``ops.planar_pipeline._device_mats`` and
-``kernels.fused._kernel_consts`` build. The tests use it to show that both
-packages compute with the same operators, bit for bit.
+``kernels.fused._kernel_consts`` build. ``detect_consts_from_numpy`` does
+the same for the detection kernels, whose banded operators reduce to the
+preamble taps the CUDA kernel reads. The tests use both to show that the
+packages compute with the same constants, bit for bit.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 from .kernels.fused import _QPSK_AMP
 from .ops.planar_pipeline import _to_tensor
 
-__all__ = ["operators_from_numpy"]
+__all__ = ["operators_from_numpy", "detect_consts_from_numpy"]
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -83,3 +85,53 @@ def operators_from_numpy(np_consts: dict, device="cpu") -> dict[str, torch.Tenso
                 M = np.asarray(np_consts["ic_taps"]).shape[-1]
                 _put(out, "act", _tensor(np.repeat(a.astype(np.float32), M), device))
     return out
+
+
+def _band(b: int, w: int, backward: bool = False) -> np.ndarray:
+    """The JAX detection kernels' (2b, b) 0/1 sliding-window operator."""
+    Bm = np.zeros((2 * b, b), dtype=np.float32)
+    for v in range(b):
+        if backward:
+            Bm[b + v - w + 1 : b + v + 1, v] = 1.0
+        else:
+            Bm[v : v + w, v] = 1.0
+    return Bm
+
+
+def detect_consts_from_numpy(c: dict, device="cpu") -> dict:
+    """The JAX detection kernels' constants -> the CUDA detection kernels'.
+
+    ``c`` is ``gfdm_tpu.kernels.detect._consts(cfg)`` (or ``_consts2``,
+    which adds the row-permuted ``xcorr2``). The banded realified xcorr
+    operator (4b, 2b), b = 2K, must hold one preamble column shifted down
+    by one row per output; its column gives ``taps`` (2, 2K) float32, what
+    ``kernels.detect._consts`` uploads. The K, 2K and backward (cp+1)/(cp+1)
+    window operators are checked against their patterns and dropped: the
+    CUDA kernel sums those windows by index. Returns ``taps``, ``K`` and
+    ``cp_len``.
+    """
+    b = int(c["b"])
+    x = np.asarray(c["xcorr"])
+    if x.shape != (4 * b, 2 * b):
+        raise ValueError(f"xcorr: unexpected shape {x.shape}")
+    Kr, Ki = x[: 2 * b, :b], x[: 2 * b, b:]
+    taps = np.stack([Kr[:b, 0], Ki[:b, 0]]).astype(np.float32)
+    want = np.zeros((2, 2 * b, b), dtype=np.float32)
+    for v in range(b):
+        want[:, v : v + b, v] = taps
+    if not (np.array_equal(np.stack([Kr, Ki]), want)
+            and np.array_equal(x[2 * b :, :b], -Ki) and np.array_equal(x[2 * b :, b:], Kr)):
+        raise ValueError("xcorr is not the banded preamble correlation operator")
+    if "xcorr2" in c:
+        perm = np.concatenate([np.arange(0, b), np.arange(2 * b, 3 * b),
+                               np.arange(b, 2 * b), np.arange(3 * b, 4 * b)])
+        if not np.array_equal(np.asarray(c["xcorr2"]), x[perm]):
+            raise ValueError("xcorr2 is not xcorr with its rows in pair order")
+    K = b // 2
+    bcp = np.asarray(c["bandCP"])
+    cp1 = int(np.count_nonzero(bcp[:, 0]))
+    for name, want_band in (("bandK", _band(b, K)), ("band2K", _band(b, 2 * K)),
+                            ("bandCP", _band(b, cp1, backward=True) / cp1)):
+        if not np.array_equal(np.asarray(c[name]), want_band):
+            raise ValueError(f"{name} is not the expected window operator")
+    return {"taps": _tensor(taps, device), "K": K, "cp_len": cp1 - 1}

@@ -1,1 +1,2 @@
-"""Fused GFDM kernels (CUDA C++ for Hopper) with their plain torch versions."""
+"""Fused GFDM kernels and the detection front end (CUDA C++ for Hopper),
+each with its plain torch version."""

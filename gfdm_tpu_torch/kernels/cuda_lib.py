@@ -18,10 +18,12 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["Dims", "Consts", "library", "build_dir", "build_info"]
+import torch
+
+__all__ = ["Dims", "Consts", "DetectDims", "library", "launch", "build_dir", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("tx.cu", "rx.cu", "link.cu")
+SOURCES = ("tx.cu", "rx.cu", "link.cu", "detect.cu")
 HEADERS = ("gfdm_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,6 +47,14 @@ class Consts(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "t_g", "win", "pre", "e_g", "f_g", "bfd_g", "f2_g", "act",
         "sig_idx", "noise_idx", "demap_idx", "taps", "icop",
+    )]
+
+
+class DetectDims(ctypes.Structure):
+    """Mirror of ``gfdm::DetectDims`` in csrc/detect.cu (same field order)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "length", "subcarriers", "cp_len", "n_ac", "n_valid",
     )]
 
 
@@ -127,21 +137,48 @@ def library() -> ctypes.CDLL:
     lib.gfdm_rx.argtypes = [dims_p, consts_p, vp, vp, vp, vp, vp]
     lib.gfdm_link.argtypes = [dims_p, consts_p, vp, vp, vp, vp]
     lib.gfdm_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    for fn in (lib.gfdm_tx, lib.gfdm_rx, lib.gfdm_link, lib.gfdm_struct_sizes):
+    det_p = ctypes.POINTER(DetectDims)
+    for fn in (lib.gfdm_detect_front, lib.gfdm_detect_lean):
+        fn.argtypes = [det_p, vp, vp, vp, vp, vp, vp, vp]
+    lib.gfdm_detect_dims_size.argtypes = []
+    for fn in (lib.gfdm_tx, lib.gfdm_rx, lib.gfdm_link, lib.gfdm_struct_sizes,
+               lib.gfdm_detect_front, lib.gfdm_detect_lean,
+               lib.gfdm_detect_dims_size):
         fn.restype = ctypes.c_int
     lib.gfdm_error_string.argtypes = [ctypes.c_int]
     lib.gfdm_error_string.restype = ctypes.c_char_p
     lib.gfdm_rx_smem_bytes.argtypes = [dims_p]
     lib.gfdm_rx_smem_bytes.restype = ctypes.c_size_t
+    lib.gfdm_detect_smem_bytes.argtypes = [det_p]
+    lib.gfdm_detect_smem_bytes.restype = ctypes.c_size_t
     sizes = (ctypes.c_int * 2)()
     lib.gfdm_struct_sizes(sizes)
-    if (sizes[0], sizes[1]) != (ctypes.sizeof(Dims), ctypes.sizeof(Consts)):
+    c_sizes = (sizes[0], sizes[1], lib.gfdm_detect_dims_size())
+    py_sizes = tuple(ctypes.sizeof(t) for t in (Dims, Consts, DetectDims))
+    if c_sizes != py_sizes:
         raise RuntimeError(
-            f"kernel struct layout mismatch: C {tuple(sizes)} vs ctypes "
-            f"{(ctypes.sizeof(Dims), ctypes.sizeof(Consts))}"
+            f"kernel struct layout mismatch (Dims, Consts, DetectDims): "
+            f"C {c_sizes} vs ctypes {py_sizes}"
         )
     _LIB = lib
     return lib
+
+
+def launch(name: str, args: tuple, device, hint=None) -> None:
+    """Call the C launcher ``name`` on the current stream of ``device``.
+
+    ``args`` precede the stream argument. A nonzero return (a refused
+    launch: too much shared memory, a bad configuration) raises, with
+    ``hint(lib)`` appended when given.
+    """
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.gfdm_error_string(rc).decode()
+        extra = hint(lib) if hint is not None else ""
+        raise RuntimeError(f"{name} kernel failed to launch: {msg} ({rc}){extra}")
 
 
 def build_info() -> dict:

@@ -257,20 +257,15 @@ def _consts(k: dict, pre: torch.Tensor, ic_op: torch.Tensor | None = None,
 def _run(name: str, dims, consts, *ptrs, device) -> None:
     """Launch ``gfdm_<name>`` on the current stream of ``device``; raise if
     the launch is refused (e.g. a config whose tile exceeds shared memory)."""
-    from .cuda_lib import library
+    from .cuda_lib import launch
 
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"gfdm_{name}")(ctypes.byref(dims), ctypes.byref(consts),
-                                           *ptrs, stream)
-    if rc != 0:
-        hint = "" if name == "tx" else (
-            f"; the receiver tile keeps {lib.gfdm_rx_smem_bytes(ctypes.byref(dims))}"
-            " B in shared memory a CTA, so a larger N = M*K waits for the "
-            "factored kernels (ROADMAP.md Queue 2 items 5-7)")
-        msg = lib.gfdm_error_string(rc).decode()
-        raise RuntimeError(f"gfdm_{name} kernel failed to launch: {msg} ({rc}){hint}")
+    def rx_tile(lib):
+        return (f"; the receiver tile keeps {lib.gfdm_rx_smem_bytes(ctypes.byref(dims))}"
+                " B in shared memory a CTA, so a larger N = M*K waits for the "
+                "factored kernels (ROADMAP.md Queue 2 items 5-7)")
+
+    launch(f"gfdm_{name}", (ctypes.byref(dims), ctypes.byref(consts), *ptrs),
+           device, hint=None if name == "tx" else rx_tile)
     LAUNCHES[name] += 1
 
 

@@ -5,12 +5,15 @@ copied rather than imported because importing ``gfdm_tpu`` imports JAX.
 """
 from . import (  # noqa: F401
     channel_estimation,
+    correlation,
     cyclic_prefix,
     demodulation,
     filters,
     mapping,
     modulation,
     preamble,
+    symbolmapping,
+    synchronization,
     utils,
     zadoff_chu,
 )

@@ -132,3 +132,119 @@ def test_convert_rejects_disagreeing_inputs():
     masks[0, 0] = 0.0
     with pytest.raises(ValueError, match="circ_masks"):
         operators_from_numpy({"ic_taps": small["ic_taps"], "circ_masks": masks})
+
+
+# ---------------------------------------------------------------------------
+# detection constants and the sync golden modules
+# ---------------------------------------------------------------------------
+def _same_bits(ours: torch.Tensor, theirs: np.ndarray, name: str):
+    if ours.dtype == torch.bfloat16:
+        np.testing.assert_array_equal(_bits(ours), np.asarray(theirs).view(np.int16),
+                                      err_msg=name)
+    else:
+        assert ours.dtype == torch.float32 and np.asarray(theirs).dtype == np.float32
+        np.testing.assert_array_equal(ours.numpy(), theirs, err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["canonical", "k32m5", "k128"])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_detection_constants_bit_equal(name, dtype_name):
+    """_detect_consts and _poly_consts: the float64 -> float32 / bf16
+    rounding of torch matches numpy's / ml_dtypes' on every entry."""
+    jc, tc = _pair(name)
+    _same_bits(pp._detect_consts(tc, dtype_name), jax_pp._detect_consts(jc, dtype_name),
+               "detect_consts")
+    ours, theirs = pp._poly_consts(tc, dtype_name), jax_pp._poly_consts(jc, dtype_name)
+    assert ours["b"] == theirs["b"] == 2 * tc.subcarriers
+    assert set(ours["bands"]) == set(theirs["bands"])
+    for w, band in ours["bands"].items():
+        _same_bits(band, theirs["bands"][w], f"band{w}")
+    _same_bits(ours["xcorr"], theirs["xcorr"], "xcorr")
+
+
+@pytest.mark.parametrize("name", ["canonical", "k32m5", "k128"])
+@pytest.mark.parametrize("which", ["_consts", "_consts2"])
+def test_detect_kernel_consts_bit_equal_to_converted_jax_arrays(name, which):
+    from gfdm_tpu.kernels import detect as jax_detect
+
+    from gfdm_tpu_torch.convert import detect_consts_from_numpy
+    from gfdm_tpu_torch.kernels import detect
+
+    jc, tc = _pair(name)
+    theirs = detect_consts_from_numpy(getattr(jax_detect, which)(jc))
+    assert (theirs["K"], theirs["cp_len"]) == (tc.subcarriers, tc.cp_len)
+    ours = detect._consts(tc, "cpu")
+    assert ours["taps"].dtype == torch.float32 and torch.equal(ours["taps"], theirs["taps"])
+    # the plain versions' conv weights are the same taps as a complex product
+    assert torch.equal(ours["conv"], pp._detect_consts(tc, "float32"))
+
+
+def test_convert_rejects_a_wrong_detection_operator():
+    from gfdm_tpu.kernels import detect as jax_detect
+
+    from gfdm_tpu_torch.convert import detect_consts_from_numpy
+
+    c = dict(jax_detect._consts2(JaxConfig()))
+    c["bandCP"] = c["bandCP"] * 2.0
+    with pytest.raises(ValueError, match="bandCP"):
+        detect_consts_from_numpy(c)
+    c = dict(jax_detect._consts(JaxConfig()))
+    x = c["xcorr"].copy()
+    x[5, 0] += 1.0
+    c["xcorr"] = x
+    with pytest.raises(ValueError, match="xcorr"):
+        detect_consts_from_numpy(c)
+
+
+def test_sync_golden_copies_equal():
+    """The port's copies of ref.synchronization, ref.correlation and
+    ref.symbolmapping compute what the JAX package's originals compute."""
+    from gfdm_tpu.ref import correlation as jcorr
+    from gfdm_tpu.ref import symbolmapping as jsm
+    from gfdm_tpu.ref import synchronization as jsync
+
+    from gfdm_tpu_torch.ref import correlation as tcorr
+    from gfdm_tpu_torch.ref import symbolmapping as tsm
+    from gfdm_tpu_torch.ref import synchronization as tsync
+
+    for pfa in (1e-2, 1e-5, 0.5):
+        assert tsync.threshold_factor(pfa) == jsync.threshold_factor(pfa)
+    with pytest.raises(ValueError):
+        tsync.threshold_factor(1.0)
+    rng = np.random.default_rng(9)
+    s = rng.standard_normal(900) + 1j * rng.standard_normal(900)
+    p = rng.standard_normal(40) + 1j * rng.standard_normal(40)
+    for fn in ("cross_correlate_valid", "cross_correlate_full"):
+        np.testing.assert_array_equal(getattr(tcorr, fn)(s, p), getattr(jcorr, fn)(s, p))
+    np.testing.assert_array_equal(tcorr.moving_sum(s, 9), jcorr.moving_sum(s, 9))
+    assert tcorr.auto_correlate_halves(s) == jcorr.auto_correlate_halves(s)
+    jc, tc = _pair("canonical")
+    x = np.concatenate([np.zeros(100), tc.full_preambles[0], np.zeros(300)])
+    x = x + 0.01 * (rng.standard_normal(x.size) + 1j * rng.standard_normal(x.size))
+    got = tsync.find_frame_start(x, tc.core_preamble, tc.subcarriers, tc.cp_len)
+    ref = jsync.find_frame_start(x, jc.core_preamble, jc.subcarriers, jc.cp_len)
+    assert (got.frame_start, got.cfo, got.coarse_peak) == (
+        ref.frame_start, ref.cfo, ref.coarse_peak)
+    np.testing.assert_array_equal(got.gated_xcorr, ref.gated_xcorr)
+    np.testing.assert_array_equal(tsync.correct_frequency_offset(s, 0.1, 64),
+                                  jsync.correct_frequency_offset(s, 0.1, 64))
+    for order in (1, 2, 4, 6):
+        np.testing.assert_array_equal(tsm.constellation(order), jsm.constellation(order))
+    pts = tsm.constellation(4)
+    bits = rng.integers(0, 2, 64)
+    sym = tsm.bits_to_symbols(bits, pts)
+    np.testing.assert_array_equal(sym, jsm.bits_to_symbols(bits, pts))
+    np.testing.assert_array_equal(tsm.symbols_to_bits(sym, pts), bits)
+    np.testing.assert_array_equal(tsm.hard_decide(sym + 0.1, pts),
+                                  jsm.hard_decide(sym + 0.1, pts))
+
+
+def test_constellation_points_equal():
+    from gfdm_tpu.ops.rx import constellation_points as jax_points
+
+    from gfdm_tpu_torch.ops.rx import constellation_points
+
+    for name in ("qpsk", "qam16", "qam64"):
+        np.testing.assert_array_equal(constellation_points(name), jax_points(name))
+    with pytest.raises(ValueError, match="constellation"):
+        constellation_points("8psk")

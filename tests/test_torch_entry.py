@@ -41,7 +41,9 @@ def test_entry_example_args():
 def test_port_imports_neither_jax_nor_the_reference_package():
     code = (
         "import gfdm_tpu_torch, gfdm_tpu_torch.kernels.fused, gfdm_tpu_torch.entry, "
-        "gfdm_tpu_torch.convert, sys; "
+        "gfdm_tpu_torch.convert, gfdm_tpu_torch.kernels.detect, gfdm_tpu_torch.ref, "
+        "gfdm_tpu_torch.ops.sync, gfdm_tpu_torch.ops.rx, "
+        "gfdm_tpu_torch.runtime.stream, gfdm_tpu_torch.runtime.service, sys; "
         "assert 'jax' not in sys.modules and 'gfdm_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'gfdm_tpu.')))"
     )

@@ -1,0 +1,245 @@
+"""The port's streaming receive path against the JAX package's, on the CPU.
+
+Same numpy-seeded float32 chunk streams into both packages' stream helpers
+and StreamingReceiver; on the CPU the port's fused engine runs its
+kernels' plain versions (the JAX package's Pallas receiver runs in
+interpret mode). Found slots must agree exactly; payloads within the
+receiver tolerance of tests/test_torch_fused.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench
+from gfdm_tpu import GfdmConfig as JaxConfig
+from gfdm_tpu.ops import planar as jax_planar
+from gfdm_tpu.ops import planar_pipeline as jax_pp
+from gfdm_tpu.ops import tx as jax_tx
+from gfdm_tpu.ref import utils
+from gfdm_tpu.runtime import service as jax_service
+from gfdm_tpu.runtime import stream as jax_stream
+from gfdm_tpu_torch import GfdmConfig
+from gfdm_tpu_torch.entry import service_stream
+from gfdm_tpu_torch.kernels import detect, fused
+from gfdm_tpu_torch.ops import planar_pipeline as pp
+from gfdm_tpu_torch.runtime import service, stream
+
+torch.set_num_threads(1)
+
+JC, TC = JaxConfig(), GfdmConfig()
+CHUNK = 2048
+HALO = TC.frame_len + TC.cp_len
+DATA_ATOL = 1e-4  # tests/test_torch_fused.py: receive_bursts_fused data
+
+
+def _bench_stream(n, impaired, seed=0):
+    return bench._service_stream(JC, n, CHUNK, 20.0, impaired, np.random.default_rng(seed))
+
+
+def _assert_outputs(got, ref):
+    """found and start equal; payloads of found slots within DATA_ATOL.
+    (Slots that are not found hold noise picks, where the ZF divide
+    amplifies float noise without bound.)"""
+    np.testing.assert_array_equal(got["found"], ref["found"])
+    np.testing.assert_array_equal(got["start"], ref["start"])
+    f = ref["found"]
+    np.testing.assert_allclose(got["data"][f], ref["data"][f], atol=DATA_ATOL)
+    np.testing.assert_allclose(got["cfo"], ref["cfo"], atol=1e-6)
+    np.testing.assert_allclose(got["snr_lin"][f], ref["snr_lin"][f], rtol=1e-3)
+
+
+@pytest.mark.parametrize("impaired", [False, True])
+def test_service_stream_matches_bench(impaired):
+    ref, counts_ref = _bench_stream(24, impaired, seed=4)
+    got, counts, payload = service_stream(TC, 24, CHUNK, 20.0, impaired,
+                                          np.random.default_rng(4))
+    np.testing.assert_array_equal(counts, counts_ref)
+    assert got.dtype == np.float32 and got.shape == (24, 2, CHUNK + HALO)
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    assert payload.shape == (counts.sum(), 2, TC.n_data_symbols)
+    assert set(np.unique(payload * np.sqrt(2.0)).round(6)) == {-1.0, 1.0}
+
+
+@pytest.mark.parametrize("engine", ["xla", "fused"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_streaming_receiver_matches_jax(engine, k):
+    chunks, counts = _bench_stream(12, impaired=k > 1, seed=1)
+    kw = dict(chunk_len=CHUNK, batch_chunks=8, engine=engine, max_bursts_per_chunk=k)
+    ref = jax_service.StreamingReceiver(JC, **kw).step(chunks)
+    rx = service.StreamingReceiver(TC, **kw)
+    before = (dict(fused.LAUNCHES), dict(detect.LAUNCHES))
+    got = rx.step(chunks)
+    assert (dict(fused.LAUNCHES), dict(detect.LAUNCHES)) == before
+    assert rx.device.type == "cpu" and got["data"].shape == ref["data"].shape
+    _assert_outputs(got, ref)
+    assert got["found"].sum() == counts.sum()
+    assert rx.stats.chunks == 12 and rx.stats.bursts_found == counts.sum()
+
+
+@pytest.mark.parametrize("impl,k", [("pallas2", 1), ("pallas", 1), ("pallas", 2)])
+def test_fused_engine_under_detection_kernels_matches_jax(impl, k, monkeypatch):
+    monkeypatch.setattr(pp, "DETECT_IMPL", impl)
+    monkeypatch.setattr(jax_pp, "DETECT_IMPL", impl)
+    chunks, counts = _bench_stream(8, impaired=k > 1, seed=2)
+    kw = dict(chunk_len=CHUNK, batch_chunks=8, engine="fused", max_bursts_per_chunk=k)
+    ref = jax_service.StreamingReceiver(JC, **kw).step(chunks)
+    got = service.StreamingReceiver(TC, **kw).step(chunks)
+    _assert_outputs(got, ref)
+    assert got["found"].sum() == counts.sum()
+
+
+def test_service_uses_cfar_rule():
+    """test_detection.py::test_service_uses_cfar_rule on the port: empty
+    chunks rejected, real bursts found; min_strength still overrides."""
+    data = np.stack([utils.random_qpsk(JC.n_data_symbols, seed=500 + i)
+                     for i in range(4)]).astype(np.complex64)
+    bursts = np.asarray(jax_tx.transmit(JC, data))[:, 0, :]
+    sigma = np.sqrt(np.mean(np.abs(bursts) ** 2) / 10 ** 1.5)
+    rng = np.random.default_rng(500 + 7777)
+    burst_chunks = sigma / np.sqrt(2.0) * rng.standard_normal((4, 2, CHUNK + HALO))
+    burst_chunks[:, 0, 300 : 300 + TC.frame_len] += bursts.real
+    burst_chunks[:, 1, 300 : 300 + TC.frame_len] += bursts.imag
+    noise = 0.02 / np.sqrt(2.0) * np.random.default_rng(501).standard_normal(
+        (4, 2, CHUNK + HALO))
+    chunks = np.concatenate([burst_chunks, noise]).astype(np.float32)
+    out = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=8).step(chunks)
+    np.testing.assert_array_equal(out["found"], [True] * 4 + [False] * 4)
+    ref = jax_service.StreamingReceiver(JC, chunk_len=CHUNK, batch_chunks=8).step(chunks)
+    np.testing.assert_array_equal(out["found"], ref["found"])
+    rx2 = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=8, min_strength=10.0)
+    assert not rx2.step(chunks)["found"].any()
+
+
+def test_receive_chunks_and_long_stream_match_jax():
+    data = np.stack([utils.random_qpsk(JC.n_data_symbols, seed=300 + i)
+                     for i in range(3)]).astype(np.complex64)
+    bursts = np.asarray(jax_tx.transmit(JC, data))[:, 0, :]
+    rng = np.random.default_rng(17)
+    rec = 0.005 * (rng.standard_normal(6 * CHUNK) + 1j * rng.standard_normal(6 * CHUNK))
+    for b, off in zip(bursts, [150, 2 * CHUNK + 400, 5 * CHUNK + 50]):
+        rec[off : off + TC.frame_len] += b
+    planar = jax_planar.to_planar(rec.astype(np.complex64))
+    ref_chunks = np.asarray(jax_stream.chunk_with_lookahead(jnp.asarray(planar), CHUNK, HALO))
+    got_chunks = stream.chunk_with_lookahead(torch.from_numpy(planar), CHUNK, HALO)
+    np.testing.assert_array_equal(got_chunks.numpy(), ref_chunks)
+
+    ref = jax_stream.receive_long_stream_planar(JC, jnp.asarray(planar), CHUNK)
+    got = stream.receive_long_stream_planar(TC, torch.from_numpy(planar), CHUNK)
+    f = np.asarray(ref["found"])
+    np.testing.assert_array_equal(got["found"].numpy(), f)
+    assert f.sum() == 3
+    np.testing.assert_array_equal(got["detection"]["start"].numpy(),
+                                  np.asarray(ref["detection"]["start"]))
+    np.testing.assert_allclose(got["data"].numpy()[f], np.asarray(ref["data"])[f],
+                               atol=DATA_ATOL)
+
+    chunks = np.ascontiguousarray(np.moveaxis(ref_chunks, -2, -3))
+    for k in (1, 2):
+        ref = jax_stream.receive_chunks_planar(JC, jnp.asarray(chunks), CHUNK,
+                                               max_bursts_per_chunk=k,
+                                               detect_dtype_name="bfloat16")
+        got = stream.receive_chunks_planar(TC, torch.from_numpy(chunks), CHUNK,
+                                           max_bursts_per_chunk=k,
+                                           detect_dtype_name="bfloat16")
+        f = np.asarray(ref["found"])
+        np.testing.assert_array_equal(got["found"].numpy(), f)
+        assert f.sum() == 3
+        np.testing.assert_allclose(got["data"].numpy()[f], np.asarray(ref["data"])[f],
+                                   atol=DATA_ATOL)
+
+
+class _Ring:
+    """A duck-typed ring: ``pull(n) -> (chunks, base)`` and a drop counter,
+    like the native StreamBuffer."""
+
+    def __init__(self, chunks, chunk_len):
+        self.chunks, self.chunk_len, self.pos, self.dropped = chunks, chunk_len, 0, 3
+
+    def pull(self, n):
+        got = self.chunks[self.pos : self.pos + n]
+        base = self.pos * self.chunk_len
+        self.pos += got.shape[0]
+        self.dropped += 1
+        return got, base
+
+
+@pytest.mark.parametrize("engine", ["xla", "fused"])
+def test_serve_depths_agree(engine):
+    """pipeline_depth 1 and 2 give the same stats and outputs in the same
+    order, from a ring (super-batched) and from a callable source."""
+    chunks, counts = _bench_stream(10, impaired=False, seed=5)
+    runs = []
+    for depth in (1, 2):
+        rx = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=2,
+                                       max_batch_chunks=4, engine=engine,
+                                       pipeline_depth=depth)
+        outs = []
+        stats = rx.serve(_Ring(chunks, CHUNK), outs.append)
+        runs.append((stats, outs))
+    (s1, o1), (s2, o2) = runs
+    assert s1 == s2
+    assert s1.batches == 3 and s1.chunks == 10 and s1.bursts_found == counts.sum()
+    assert s1.dropped_ring == 4  # one per pull, none from before the call
+    assert s1.samples == 10 * CHUNK and s1.mean_snr_db > 10.0
+    for a, b in zip(o1, o2):
+        assert a.keys() == b.keys()
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])
+    starts = np.concatenate([o["start_abs"][o["found"]] for o in o1])
+    direct = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=10,
+                                       engine=engine).step(chunks)
+    np.testing.assert_array_equal(starts, direct["start"] + np.arange(10) * CHUNK)
+
+    it = iter(range(0, 10, 4))
+    rx = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=4, engine=engine)
+    outs = []
+    stats = rx.serve(lambda: (None if (i := next(it, None)) is None
+                              else chunks[i : i + 4]), outs.append, max_batches=2)
+    assert stats.batches == 2 and stats.chunks == 8
+    assert all(o["base_offset"] == -1 for o in outs)
+
+
+def test_batch_ladder_and_host_ranges_match_jax():
+    rx = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=3,
+                                   max_batch_chunks=12)
+    # the port runs on one device: the JAX ladder on a one-device mesh
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("dp", "sp"))
+    jrx = jax_service.StreamingReceiver(JC, chunk_len=CHUNK, batch_chunks=3,
+                                        max_batch_chunks=12, mesh=mesh)
+    for n in range(1, 13):
+        assert rx._padded_batch(n) == jrx._padded_batch(n)
+    np.testing.assert_array_equal(rx._slot_offsets(5), jrx._slot_offsets(5))
+    for total, hosts in ((10, 3), (7, 7), (5, 8)):
+        for h in range(hosts):
+            assert (service.host_chunk_range(total, hosts, h)
+                    == jax_service.host_chunk_range(total, hosts, h))
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
+        service.StreamingReceiver(TC, sp_shards=2, engine="fused")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+        service.StreamingReceiver(TC, fec="conv")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 14"):
+        service.StreamingReceiver(TC, engine="fused", equalizer="mmse")
+    with pytest.raises(ValueError, match="batch_chunks"):
+        service.StreamingReceiver(TC, batch_chunks=0)
+    with pytest.raises(ValueError, match="max_batch_chunks"):
+        service.StreamingReceiver(TC, batch_chunks=4, max_batch_chunks=2)
+    with pytest.raises(ValueError, match="fec"):
+        service.StreamingReceiver(TC, fec="ldpc")
+    rx = service.StreamingReceiver(TC, method="fast")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        rx.step(np.zeros((1, 2, CHUNK + HALO), np.float32))
+
+
+def test_defaults_match_jax():
+    for name in ("chunk_len", "batch_chunks", "max_batch_chunks", "ic_iterations",
+                 "max_bursts_per_chunk", "min_strength", "false_alarm_prob",
+                 "equalizer", "constellation", "fec", "method", "refine_cfo",
+                 "dtype_name", "engine", "sp_shards", "pipeline_depth"):
+        assert (getattr(service.StreamingReceiver, name)
+                == getattr(jax_service.StreamingReceiver, name)), name
+    assert service.StreamingReceiver.dtype_name == "bfloat16"
