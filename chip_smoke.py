@@ -32,6 +32,21 @@ Phases, one line each (any failure exits non-zero and prints no result):
              friendly stream the EVM of the found slots against the sent
              payload; then the detection kernels' times and one serve()
              loop (batch 256, super-batch 1,024, pipeline depth 2).
+7. large K - the factored kernels (entry.large_k_config, the crossover
+             study's M = 9 configs): at K = 512, B = 4,096 the Tx kernel and
+             the receiver kernel with the channel read (estimator="fast"), at
+             K = 128, B = 4,096 the receiver kernel with its own dense
+             estimator, each against its plain version on noisy bursts
+             (AWGN 20 dB); the dense receiver and link kernels at K = 128
+             (their 4-burst tile). Then, with the launch counters reset just
+             before, the large-K link link_step_factored (Tx kernel ->
+             torch-op estimate -> receiver kernel -> demap) at K = 512,
+             B = 4,096 and the estimator="fused" link at K = 128: hard
+             decisions against the payload, EVM against the plain versions'
+             and the torch-op method="fast" chain's. Last, kernel vs plain
+             and the link (kernels, plain versions, torch-op chain) timed at
+             K = 256, 512 (B = 4,096) and 1,024 (B = 2,048), and the
+             estimator="fused" receiver kernel at K = 128.
 
 Then a JSON line of per-kernel results, the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -79,7 +94,18 @@ SOURCES = {
                      "gfdm_tpu/kernels/detect.py:71"),
     "detect_lean": ("detect_bursts_fused", "gfdm_tpu_torch/csrc/detect.cu",
                     "gfdm_tpu/kernels/detect.py:164"),
+    "tx_factored": ("tx_frame_factored", "gfdm_tpu_torch/csrc/factored.cu",
+                    "gfdm_tpu/kernels/fused.py:1847"),
+    "rx_factored": ("rx_receiver_factored(estimator=fused)",
+                    "gfdm_tpu_torch/csrc/factored.cu", "gfdm_tpu/kernels/fused.py:849"),
+    "rx_factored_chan": ("rx_receiver_factored(estimator=fast)",
+                         "gfdm_tpu_torch/csrc/factored.cu",
+                         "gfdm_tpu/kernels/fused.py:862"),
 }
+# phase 7: the crossover study's link points (K, B) and the full-width one;
+# estimator="fused" runs at K = 128, where its dense (4K, 2N) E is 4.7 MB
+LARGE_K = ((256, 4096), (512, 4096), (1024, 2048))
+K_FULL, K_ESTIMATOR, B_LARGE_K = 512, 128, 4096
 
 
 def _card_line() -> str:
@@ -115,6 +141,15 @@ def _time_ms(torch, fn, iters: int = 5) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _noisy(torch, bursts, seed: int, snr_db: float = 20.0):
+    """bursts + AWGN at snr_db (noise drawn with numpy from ``seed``)."""
+    sig_pow = float((bursts**2).sum(dim=1).mean())  # mean |x|^2 per sample
+    sigma = (sig_pow / 10 ** (snr_db / 10) / 2) ** 0.5
+    noise = np.random.default_rng(seed).standard_normal(tuple(bursts.shape),
+                                                        dtype=np.float32)
+    return bursts + sigma * torch.from_numpy(noise).to(bursts.device)
 
 
 def _reset_launches() -> None:
@@ -306,6 +341,155 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
     return launches, times
 
 
+def _factored_link_plain(cfg, data, estimator: str):
+    """The factored link through the kernels' plain versions: Tx, the
+    channel (torch-op estimate, or the dense estimator inside the plain
+    receiver), receiver, demap."""
+    from gfdm_tpu_torch.kernels import fused
+
+    bursts = fused._tx_factored_plain(cfg, data, 0)
+    chan = fused._fast_channel(cfg, bursts) if estimator == "fast" else None
+    _chan, sym = fused._rx_factored_plain(cfg, bursts, chan, 2)
+    return sym[..., fused._factored_consts(cfg, data.device)["demap_idx"]]
+
+
+def _large_k_phase(torch, dev, card, check, failures):
+    """Phase 7: the factored kernels and the large-K link.
+
+    Returns the factored kernels' launch counts from the main-path run,
+    their max errors against the plain versions, the dense receiver and
+    link kernels' errors at K = 128, and (kernel, plain) times at the
+    full-width points."""
+    import ctypes
+
+    from gfdm_tpu_torch.entry import large_k_config, planar_payload
+    from gfdm_tpu_torch.kernels import cuda_lib, fused
+    from gfdm_tpu_torch.ops.planar_pipeline import evm, link_step_planar
+
+    batch = {K_ESTIMATOR: B_LARGE_K, **dict(LARGE_K)}
+    cfgs = {K: large_k_config(K) for K in batch}
+    payload = {K: torch.from_numpy(planar_payload(cfgs[K], batch[K], seed=K)).to(dev)
+               for K in batch}
+    err = {"tx_factored": 0.0, "rx_factored": 0.0, "rx_factored_chan": 0.0,
+           "rx": 0.0, "link": 0.0}
+
+    # 7a. each factored kernel against its plain version on the same inputs
+    for K, estimator in ((K_FULL, "fast"), (K_ESTIMATOR, "fused")):
+        cfg, data = cfgs[K], payload[K]
+        key = "rx_factored_chan" if estimator == "fast" else "rx_factored"
+        bursts = fused.tx_frame_factored(cfg, data)
+        e_tx = _max_abs(bursts, fused._tx_factored_plain(cfg, data, 0))
+        err["tx_factored"] = max(err["tx_factored"], e_tx)
+        noisy = _noisy(torch, bursts, K)
+        chan, sym = fused.rx_receiver_factored(cfg, noisy, estimator=estimator)
+        ref_chan = fused._fast_channel(cfg, noisy) if estimator == "fast" else None
+        rchan, rsym = fused._rx_factored_plain(cfg, noisy, ref_chan, 2)
+        ec, es = _max_abs(chan, rchan), _max_abs(sym, rsym)
+        err[key] = max(ec, es)
+        print(f"[7 check] K={K} B={batch[K]} " + " ".join([
+            check("tx_factored", e_tx, TOL["tx"]),
+            check(f"{key}:chan", ec, TOL["chan"]),
+            check(f"{key}:symbols", es, TOL["symbols"]),
+        ]), flush=True)
+        del bursts, noisy, chan, sym, rchan, rsym
+
+    # 7a. the dense receiver and link kernels at K = 128, where they take a
+    # tile of fewer bursts than the canonical 8
+    cfg, data = cfgs[K_ESTIMATOR], payload[K_ESTIMATOR]
+    B128 = batch[K_ESTIMATOR]
+    tile = cuda_lib.library().gfdm_rx_tile_bursts(ctypes.byref(fused._dims(cfg, B128)))
+    noisy = _noisy(torch, fused.tx_frame_fused(cfg, data), 3).reshape(B128, -1)
+    chan, sym, _met = fused.rx_receiver_fused(cfg, noisy.reshape(B128, 2, -1))
+    rchan, rsym, _rmet = fused._rx_receiver_plain(cfg, noisy, 2, "conv")
+    d_hat, _snr, _evm = fused.link_single_fused(cfg, data)
+    ref, _met = fused._link_single_plain(cfg, data.reshape(B128, -1), 2, "conv")
+    ec = _max_abs(chan.reshape(B128, -1), rchan)
+    es = _max_abs(sym.reshape(B128, -1), rsym)
+    err["rx"], err["link"] = max(ec, es), _max_abs(d_hat.reshape(B128, -1), ref)
+    print(f"[7 check] dense kernels at K={K_ESTIMATOR} B={B128}: tile={tile} bursts "
+          + " ".join([check("tile!=4", float(tile != 4), 0.0),
+                      check("rx:chan", ec, TOL["chan"]),
+                      check("rx:symbols", es, TOL["symbols"]),
+                      check("link:data", err["link"], TOL["data"])]), flush=True)
+    del noisy, chan, sym, rchan, rsym, d_hat, ref
+
+    # 7b. the large-K link through the user's entry points, launches counted
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    links = {(K, est): fused.link_step_factored(cfgs[K], payload[K], estimator=est)
+             for K, est in ((K_FULL, "fast"), (K_ESTIMATOR, "fused"))}
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    run = _launches()
+    launches = {key: run[key] for key in ("tx_factored", "rx_factored", "rx_factored_chan")}
+    for key, v in launches.items():
+        if v < 1:
+            failures.append(f"kernel {key} was not launched on the large-K path")
+    for (K, est), (d_hat, evm_k) in links.items():
+        data = payload[K]
+        evm_k = float(evm_k)
+        evm_plain = float(evm(_factored_link_plain(cfgs[K], data, est), data))
+        parts = [f"evm={evm_k:.6f} plain={evm_plain:.6f}",
+                 check("|d|", abs(evm_k - evm_plain), TOL["evm"])]
+        if est == "fast":
+            evm_chain = float(link_step_planar(cfgs[K], data, method="fast")[2])
+            parts += [f"torch-op fast chain={evm_chain:.6f}",
+                      check("|d_chain|", abs(evm_k - evm_chain), TOL["evm"])]
+        wrong = int((torch.sign(d_hat) != torch.sign(data)).sum())
+        ok = tuple(d_hat.shape) == tuple(data.shape) and bool(torch.isfinite(d_hat).all())
+        if not ok:
+            failures.append(f"large-K link K={K}: outputs shape/finite")
+        print(f"[7 main] K={K} B={batch[K]} estimator={est} "
+              + " ".join(parts + [check("evm", evm_k, TOL["evm_max"]),
+                                  check("wrong_decisions", float(wrong), 0.0)]),
+              flush=True)
+    print(f"[7 main] launches={launches} host {host_s * 1e3:.1f} ms", flush=True)
+    del links
+
+    # 7c. times: kernel vs plain (plain, kernel, kernel, plain) and the link
+    # through the kernels, their plain versions and the torch-op fast chain
+    times = {}
+
+    def timed(fn_k, fn_p):
+        p1, k1, k2, p2 = (_time_ms(torch, f) for f in (fn_p, fn_k, fn_k, fn_p))
+        return (k1 + k2) / 2, (p1 + p2) / 2, f"{k1:.3f}/{k2:.3f}", f"{p1:.3f}/{p2:.3f}"
+
+    for K, Bk in LARGE_K + ((K_ESTIMATOR, B_LARGE_K),):
+        cfg, data = cfgs[K], payload[K]
+        bursts = fused.tx_frame_factored(cfg, data)
+        if K == K_ESTIMATOR:
+            runs = {"rx_factored": (
+                lambda: fused.rx_receiver_factored(cfg, bursts, estimator="fused"),
+                lambda: fused._rx_factored_plain(cfg, bursts, None, 2))}
+        else:
+            chan = fused._fast_channel(cfg, bursts)
+            runs = {
+                "tx_factored": (lambda: fused.tx_frame_factored(cfg, data),
+                                lambda: fused._tx_factored_plain(cfg, data, 0)),
+                "rx_factored_chan": (lambda: fused._rx_factored_cuda(cfg, bursts, chan, 2),
+                                     lambda: fused._rx_factored_plain(cfg, bursts, chan, 2)),
+                "link": (lambda: fused.link_step_factored(cfg, data),
+                         lambda: _factored_link_plain(cfg, data, "fast")),
+            }
+        for name, (fn_k, fn_p) in runs.items():
+            k_ms, p_ms, ks, ps = timed(fn_k, fn_p)
+            if K in (K_FULL, K_ESTIMATOR) and name != "link":
+                times[name] = (k_ms, p_ms)
+            print(f"[7 time] K={K} B={Bk} {name}: kernel {ks} ms, plain {ps} ms "
+                  f"({card})", flush=True)
+            if name == "link":
+                chain = _time_ms(torch, lambda: link_step_planar(cfg, data, method="fast"))
+                est = _time_ms(torch, lambda: fused._fast_channel(cfg, bursts))
+                sps = Bk * cfg.frame_len
+                print(f"[7 time] K={K} B={Bk} link samples/s: kernels "
+                      f"{sps / (k_ms / 1e3):.4e}, plain {sps / (p_ms / 1e3):.4e}, "
+                      f"torch-op fast chain {sps / (chain / 1e3):.4e} ({chain:.3f} ms); "
+                      f"torch-op estimate {est:.3f} ms ({card})", flush=True)
+        del bursts
+    return launches, err, times
+
+
 def main() -> int:
     import torch
 
@@ -364,12 +548,7 @@ def main() -> int:
     parts.append(check(f"tx[B={B},shift=0]", e, TOL["tx"]))
     print("[3 check] " + " ".join(parts), flush=True)
 
-    rng = np.random.default_rng(1)
-    sig_pow = float((bursts**2).sum(dim=1).mean())  # mean |x|^2 per sample
-    sigma = (sig_pow / 10 ** (20 / 10) / 2) ** 0.5
-    noise = rng.standard_normal((B, 2, cfg.frame_len), dtype=np.float32)
-    noisy = bursts + sigma * torch.from_numpy(noise).to(dev)
-    del noise
+    noisy = _noisy(torch, bursts, 1)
     noisy_flat = noisy.reshape(B, -1)
     for mode in ("conv", "matmul"):
         chan, sym, met = fused.rx_receiver_fused(cfg, noisy, ic_mode=mode)
@@ -421,7 +600,7 @@ def main() -> int:
     d_split, snr_split, evm_split = fused.link_step_fused(cfg, data)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launches = dict(fused.LAUNCHES)
+    launches = {key: fused.LAUNCHES[key] for key in ("tx", "rx", "link")}
     ref_link, _ = fused._link_single_plain(cfg, flat, 2, "matmul")
     evm_link_plain = float(evm(ref_link.reshape(data.shape), data))
     sym_plain = fused._rx_receiver_plain(
@@ -483,6 +662,13 @@ def main() -> int:
                                              check, failures)
     launches.update(svc_launches)
     times.update(det_times)
+
+    # 7. the large-K factored path
+    lk_launches, lk_err, lk_times = _large_k_phase(torch, dev, card, check, failures)
+    launches.update(lk_launches)
+    times.update(lk_times)
+    for key, e in lk_err.items():
+        err[key] = max(err.get(key, 0.0), e)
 
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

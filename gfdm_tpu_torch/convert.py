@@ -6,8 +6,10 @@ as NumPy arrays - into the port's constant cache: the names, dtypes and
 index forms that ``ops.planar_pipeline._device_mats`` and
 ``kernels.fused._kernel_consts`` build. ``detect_consts_from_numpy`` does
 the same for the detection kernels, whose banded operators reduce to the
-preamble taps the CUDA kernel reads. The tests use both to show that the
-packages compute with the same constants, bit for bit.
+preamble taps the CUDA kernel reads, and ``factored_consts_from_numpy`` for
+the factored kernels, whose coefficient rows and reorder gathers the CUDA
+kernels compute by index. The tests use them to show that the packages
+compute with the same constants, bit for bit.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from .kernels.fused import _QPSK_AMP
 from .ops.planar_pipeline import _to_tensor
 
-__all__ = ["operators_from_numpy", "detect_consts_from_numpy"]
+__all__ = ["operators_from_numpy", "detect_consts_from_numpy", "factored_consts_from_numpy"]
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -135,3 +137,106 @@ def detect_consts_from_numpy(c: dict, device="cpu") -> dict:
         if not np.array_equal(np.asarray(c[name]), want_band):
             raise ValueError(f"{name} is not the expected window operator")
     return {"taps": _tensor(taps, device), "K": K, "cp_len": cp1 - 1}
+
+
+def _complex_op(w2: np.ndarray) -> np.ndarray:
+    """Realified (2n, 2n) operator -> the complex (n, n) map it holds."""
+    n = w2.shape[0] // 2
+    return w2[:n, :n].astype(np.float64) + 1j * w2[:n, n:].astype(np.float64)
+
+
+def _planar(t: np.ndarray) -> np.ndarray:
+    """(..., 2, n) planar table -> complex (..., n)."""
+    return t[..., 0, :].astype(np.float64) + 1j * t[..., 1, :].astype(np.float64)
+
+
+# the factored kernels' coefficient tables: name -> (sources, exact)
+_FACTORED_PATTERNS = {
+    "mc": (("FM_W", "tw"), False),
+    "ft": (("rx_parts",), True),
+    "iv": (("iFM_W",), True),
+    "reorder": (("tw",), True),
+    "txa": (("FM_W",), True),
+    "ftx": (("tx_parts",), True),
+    "mt": (("iFM_W", "itw"), False),
+    "unreorder": (("tw",), True),
+}
+
+
+def _factored_pattern(name: str, src: dict) -> np.ndarray:
+    """What the JAX factored kernels' table ``name`` holds, by index from
+    the tables the port keeps (the CUDA kernels' index arithmetic)."""
+    M, _, K = src["tw"].shape if "tw" in src else src["itw"].shape
+    N = K * M
+    if name in ("reorder", "unreorder"):
+        t = np.arange(N)
+        if name == "unreorder":  # core sample t = M n2 + n1 <- xt[n1 K + n2]
+            return ((t % M) * K + t // M).astype(np.int32)
+        return (M * (t % K) + t // K).astype(np.int32)  # xt[n1 K + n2] <- M n2 + n1
+    if name in ("ft", "ftx"):
+        parts = src["rx_parts" if name == "ft" else "tx_parts"]
+        L = parts.shape[0]
+        return np.stack([np.tile(_planar(parts[(i + L // 2) % L]), K) for i in range(L)])
+    j = np.arange(M)[:, None]
+    if name in ("iv", "txa"):  # row j at k M + m: the M-point map's entry (m, (m - j) % M)
+        m = np.arange(N)[None, :] % M
+        W = _complex_op(src["iFM_W" if name == "iv" else "FM_W"])  # W[r, c] = F[c, r]
+        return W[(m - j) % M, m]
+    k1 = np.arange(N)[None, :] // K  # row j at k1 K + k2
+    k2 = np.arange(N)[None, :] % K
+    if name == "mc":  # dft_M[k1, n1] tw[n1, k2], n1 = (k1 - j) % M
+        n1 = (k1 - j) % M
+        return _complex_op(src["FM_W"])[n1, k1] * _planar(src["tw"])[n1, k2]
+    # "mt": idft_M[(n1 - j) % M, n1] itw[n1, k2] with n1 the row block index
+    n1 = k1
+    return _complex_op(src["iFM_W"])[n1, (n1 - j) % M] * _planar(src["itw"])[n1, k2]
+
+
+def factored_consts_from_numpy(np_consts: dict, device="cpu") -> dict[str, torch.Tensor]:
+    """The JAX factored kernels' and planar_fast's constants -> the port's.
+
+    ``np_consts`` holds any of ``gfdm_tpu.kernels.fused._factored_consts(cfg)``,
+    ``_tx_factored_consts(cfg)``, ``planar_fast._fft_consts(cfg, "float32")``
+    and ``_est_consts(cfg, "float32")`` (NumPy). Names the port keeps pass
+    through under their names (``FK_W``, ``iFK_W``, ``FM_W``, ``iFM_W``,
+    ``tw``, ``itw``, ``tx_parts``, ``rx_parts`` and the estimator's tables;
+    integers as int32); where two inputs share a name they must agree. The
+    coefficient tables the CUDA kernels compute by index are checked against
+    that index pattern of the kept tables and dropped: the M-stage rows
+    ``mcr``/``mci`` and ``mtr``/``mti`` (a product of two float32 tables,
+    so within 1e-6 of the table rounded once from float64), and exactly the
+    filter rows ``ftr``/``fti``/``ftxr``/``ftxi``, the M-point rows
+    ``ivr``/``ivi``/``txar``/``txai`` and the gathers ``reorder`` and
+    ``unreorder``.
+    """
+    out: dict[str, torch.Tensor] = {}
+    kept, tables = {}, {}
+    for name, a in np_consts.items():
+        a = np.asarray(a)
+        base = name[:-1] if name[:-1] in _FACTORED_PATTERNS and name[-1] in "ri" else name
+        if base in _FACTORED_PATTERNS:
+            tables.setdefault(base, {})[name] = a
+        else:
+            kept[name] = a
+            _put(out, name, _tensor(a, device))
+    for base, parts in tables.items():
+        sources, exact = _FACTORED_PATTERNS[base]
+        missing = [s for s in sources if s not in kept]
+        if missing:
+            raise ValueError(f"{base}: checking it needs {', '.join(missing)} beside it")
+        want = _factored_pattern(base, kept)
+        if base in ("reorder", "unreorder"):
+            ok = np.array_equal(parts[base], want)
+        else:
+            got = parts.get(base + "r"), parts.get(base + "i")
+            if got[0] is None or got[1] is None:
+                raise ValueError(f"{base}: needs both {base}r and {base}i")
+            if exact:
+                ok = (np.array_equal(got[0], want.real.astype(np.float32))
+                      and np.array_equal(got[1], want.imag.astype(np.float32)))
+            else:
+                ok = (np.abs(got[0] - want.real).max() <= 1e-6
+                      and np.abs(got[1] - want.imag).max() <= 1e-6)
+        if not ok:
+            raise ValueError(f"{base} is not the pattern the factored kernels compute by index")
+    return out

@@ -3,11 +3,13 @@
 // Layouts follow the planar convention of the Python package: a complex
 // row of length n is the real row [re | im] of length 2n; a complex operator
 // W (n_in, n_out) is the Gauss stack [Wr; Wi; Wr+Wi] of shape (3 n_in, n_out),
-// row-major. One CTA takes a tile of TB bursts; the tile's activations live
-// in shared memory and each thread owns two adjacent output columns for all
-// TB bursts of the tile (fp32 FMA accumulation in registers). The operator
-// stacks are read straight from global memory; at the canonical config they
-// total about 14 MB and stay resident in the 50 MB L2.
+// row-major. One CTA takes a tile of TB bursts (a template parameter: the
+// receiver picks 8, 4, 2 or 1 by what fits in shared memory, rx_tile_bursts);
+// the tile's activations live in shared memory and each thread owns two
+// adjacent output columns for all TB bursts of the tile (fp32 FMA
+// accumulation in registers). The operator stacks are read straight from
+// global memory; at the canonical config they total about 14 MB and stay
+// resident in the 50 MB L2.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,7 +17,6 @@
 
 namespace gfdm {
 
-constexpr int TB = 8;             // bursts per CTA tile
 constexpr int MAX_THREADS = 512;  // launch bound: at most 128 registers a thread
 
 // Sizes of one call. Field order mirrors kernels/cuda_lib.py::Dims.
@@ -69,7 +70,7 @@ __device__ __forceinline__ float load_w(const uint16_t* p) {
 // rows past the batch hold zeros or finite garbage and the epilogue drops
 // their global writes. Reads only shared x and global g: the caller
 // synchronises before x changes.
-template <typename W, typename Epi>
+template <int TB, typename W, typename Epi>
 __device__ __forceinline__ void gauss_gemm(const float* xr, const float* xi,
                                            int ldx, const W* __restrict__ g,
                                            int n_in, int n_out, Epi epi) {
@@ -114,10 +115,27 @@ __device__ __forceinline__ void gauss_gemm(const float* xr, const float* xi,
   }
 }
 
-// Shared-memory floats of one receiver tile: preamble P (TB x 2 x 2K), then
-// four N-wide planar stages F, C, X, D0 (TB x 2N each), then 2 x TB scalars.
-__host__ __device__ inline size_t rx_smem_floats(const Dims& d) {
-  return static_cast<size_t>(TB) * (2 * d.half + 4 * 2 * d.n) + 2 * TB;
+// Shared-memory floats of one receiver tile of tb bursts: preamble P
+// (tb x 2 x 2K), then four N-wide planar stages F, C, X, D0 (tb x 2N each),
+// then 2 x tb scalars.
+__host__ __device__ inline size_t rx_smem_floats(const Dims& d, int tb) {
+  return static_cast<size_t>(tb) * (2 * d.half + 4 * 2 * d.n) + 2 * tb;
+}
+
+// Bursts a receiver CTA takes: the largest of 8, 4, 2, 1 whose tile fits the
+// current device's opt-in shared memory (8 at the canonical config, 4 at
+// K = 128, 2 at K = 256, 1 at K = 512); 0 when not even one burst fits.
+inline int rx_tile_bursts(const Dims& d) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess) {
+    return 0;
+  }
+  for (int tb = 8; tb >= 1; tb /= 2) {
+    if (sizeof(float) * rx_smem_floats(d, tb) <= static_cast<size_t>(optin)) return tb;
+  }
+  return 0;
 }
 
 // Threads of a CTA: two output columns each over the widest GEMM (N wide).
@@ -129,14 +147,15 @@ inline int block_threads(const Dims& d) {
 
 // Payload tile (TB x 2 n_data in shared memory) -> core frame; epi(b, col,
 // core_re, core_im) places each core sample.
-template <typename Epi>
+template <int TB, typename Epi>
 __device__ __forceinline__ void tx_core(const Dims& d, const Consts& c,
                                         const float* data, Epi epi) {
-  gauss_gemm(data, data + d.n_data, 2 * d.n_data, c.t_g, d.n_data, d.n, epi);
+  gauss_gemm<TB>(data, data + d.n_data, 2 * d.n_data, c.t_g, d.n_data, d.n, epi);
 }
 
 // Copies rows [b0, b0 + nb) of a (B, 2 * len) global array into a TB-row
 // shared tile with row stride 2 * len; rows past nb become zeros.
+template <int TB>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int len,
                                           int nb) {
   const int w = 2 * len;
@@ -154,6 +173,7 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int len,
 //   else 0) -> interference -> D = D0 - interference.
 // Writes chan (if not null) and met rows [snr | cnrs | 0-pad] for b < nb;
 // returns the shared-memory row block (TB x 2N) holding the symbols.
+template <int TB>
 __device__ inline const float* rx_chain(const Dims& d, const Consts& c,
                                         float* smem, int nb, float* chan_out,
                                         float* met_out) {
@@ -167,7 +187,7 @@ __device__ inline const float* rx_chain(const Dims& d, const Consts& c,
   float* cscale = snr + TB;  // (TB) snr_lin / (sig / n_cnr)
 
   // 1. channel estimate
-  gauss_gemm(P, P + half, 2 * half, c.e_g, half, n,
+  gauss_gemm<TB>(P, P + half, 2 * half, c.e_g, half, n,
              [&](int b, int col, float yr, float yi) {
                C[b * w + col] = yr;
                C[b * w + n + col] = yi;
@@ -177,7 +197,7 @@ __device__ inline const float* rx_chain(const Dims& d, const Consts& c,
                }
              });
   // 2. preamble power spectrum, into X as scratch
-  gauss_gemm(P, P + half, 2 * half, c.f2_g, half, half,
+  gauss_gemm<TB>(P, P + half, 2 * half, c.f2_g, half, half,
              [&](int b, int col, float yr, float yi) {
                X[b * half + col] = yr * yr + yi * yi;
              });
@@ -206,7 +226,7 @@ __device__ inline const float* rx_chain(const Dims& d, const Consts& c,
   }
   __syncthreads();
   // 4. block DFT + ZF divide, into X
-  gauss_gemm(F, F + n, w, c.f_g, n, n,
+  gauss_gemm<TB>(F, F + n, w, c.f_g, n, n,
              [&](int b, int col, float xr, float xi) {
                const float hr = C[b * w + col], hi = C[b * w + n + col];
                const float den = fmaxf(hr * hr + hi * hi, 1e-30f);
@@ -215,7 +235,7 @@ __device__ inline const float* rx_chain(const Dims& d, const Consts& c,
              });
   __syncthreads();
   // 5. FD demodulation, into D0
-  gauss_gemm(X, X + n, w, c.bfd_g, n, n,
+  gauss_gemm<TB>(X, X + n, w, c.bfd_g, n, n,
              [&](int b, int col, float yr, float yi) {
                D0[b * w + col] = yr;
                D0[b * w + n + col] = yi;
@@ -233,7 +253,7 @@ __device__ inline const float* rx_chain(const Dims& d, const Consts& c,
     }
     __syncthreads();
     if (d.ic_mode == 1) {
-      gauss_gemm(Q, Q + n, w, c.icop, n, n,
+      gauss_gemm<TB>(Q, Q + n, w, c.icop, n, n,
                  [&](int b, int col, float ir, float ii) {
                    D[b * w + col] = D0[b * w + col] - ir;
                    D[b * w + n + col] = D0[b * w + n + col] - ii;

@@ -17,6 +17,7 @@
 
 namespace gfdm {
 
+template <int TB>
 __global__ void __launch_bounds__(MAX_THREADS)
 link_kernel(Dims d, Consts c, const float* __restrict__ data,
             float* __restrict__ out, float* __restrict__ met) {
@@ -27,7 +28,7 @@ link_kernel(Dims d, Consts c, const float* __restrict__ data,
   float* P = smem;
   float* F = P + TB * 2 * half;
   float* X = F + 2 * TB * w;  // the payload tile is staged in the X stage
-  load_tile(X, data + static_cast<size_t>(b0) * 2 * n_d, n_d, nb);
+  load_tile<TB>(X, data + static_cast<size_t>(b0) * 2 * n_d, n_d, nb);
   for (int i = threadIdx.x; i < TB * 2 * half; i += blockDim.x) {
     const int j = i % (2 * half);
     const int p = j / half, t = j - p * half;
@@ -36,13 +37,13 @@ link_kernel(Dims d, Consts c, const float* __restrict__ data,
   __syncthreads();
   // Tx at shift 0: core sample col sits at framed position cp + col, so the
   // payload window [fs, fs + N) of the burst is core * win[cp:cp + N]
-  tx_core(d, c, X, [&](int b, int col, float cr, float ci) {
+  tx_core<TB>(d, c, X, [&](int b, int col, float cr, float ci) {
     const float wv = c.win[d.cp_len + col];
     F[b * w + col] = cr * wv;
     F[b * w + n + col] = ci * wv;
   });
   __syncthreads();
-  const float* s = rx_chain(d, c, smem, nb, nullptr,
+  const float* s = rx_chain<TB>(d, c, smem, nb, nullptr,
                             met + static_cast<size_t>(b0) * d.met_w);
   float* o = out + static_cast<size_t>(b0) * 2 * n_d;
   for (int i = threadIdx.x; i < nb * 2 * n_d; i += blockDim.x) {
@@ -52,30 +53,50 @@ link_kernel(Dims d, Consts c, const float* __restrict__ data,
   }
 }
 
+template <int TB>
+int launch_link(const Dims* d, const Consts* c, const float* data, float* out,
+                float* met, void* stream) {
+  const size_t smem = sizeof(float) * rx_smem_floats(*d, TB);
+  cudaError_t err = cudaFuncSetAttribute(
+      link_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (d->batch + TB - 1) / TB;
+  link_kernel<TB><<<blocks, block_threads(*d), smem,
+                    static_cast<cudaStream_t>(stream)>>>(*d, *c, data, out, met);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace gfdm
 
+// The receiver's tile (rx_tile_bursts); a config whose one-burst tile
+// exceeds shared memory runs the TB = 1 launch, which the runtime refuses.
 extern "C" int gfdm_link(const gfdm::Dims* d, const gfdm::Consts* c,
                          const float* data, float* out, float* met,
                          void* stream) {
   if (d->batch <= 0) return 0;
-  const size_t smem = sizeof(float) * gfdm::rx_smem_floats(*d);
-  cudaError_t err = cudaFuncSetAttribute(
-      gfdm::link_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (d->batch + gfdm::TB - 1) / gfdm::TB;
-  gfdm::link_kernel<<<blocks, gfdm::block_threads(*d), smem,
-                      static_cast<cudaStream_t>(stream)>>>(*d, *c, data, out,
-                                                           met);
-  return static_cast<int>(cudaGetLastError());
+  switch (gfdm::rx_tile_bursts(*d)) {
+    case 8: return gfdm::launch_link<8>(d, c, data, out, met, stream);
+    case 4: return gfdm::launch_link<4>(d, c, data, out, met, stream);
+    case 2: return gfdm::launch_link<2>(d, c, data, out, met, stream);
+    default: return gfdm::launch_link<1>(d, c, data, out, met, stream);
+  }
 }
 
 extern "C" const char* gfdm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Bursts a receiver / link CTA takes on the current device (0: none fits).
+extern "C" int gfdm_rx_tile_bursts(const gfdm::Dims* d) {
+  return gfdm::rx_tile_bursts(*d);
+}
+
+// Shared memory of the receiver / link launch: the chosen tile, or one
+// burst where none fits.
 extern "C" size_t gfdm_rx_smem_bytes(const gfdm::Dims* d) {
-  return sizeof(float) * gfdm::rx_smem_floats(*d);
+  const int tb = gfdm::rx_tile_bursts(*d);
+  return sizeof(float) * gfdm::rx_smem_floats(*d, tb > 0 ? tb : 1);
 }
 
 extern "C" int gfdm_struct_sizes(int* out) {

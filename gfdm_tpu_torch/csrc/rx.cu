@@ -14,11 +14,13 @@
 // (channel, DFT/ZF, demodulated, IC state) stay in shared memory (156 KB at
 // TB = 8), so nothing but the outputs returns to HBM; the Pallas kernel's
 // global rolls, mask blends and 0/1 selection matmuls become index
-// arithmetic.
+// arithmetic. The tile shrinks to 4, 2 or 1 bursts where a larger N needs
+// it (rx_tile_bursts: K = 128, 256, 512).
 #include "gfdm_common.cuh"
 
 namespace gfdm {
 
+template <int TB>
 __global__ void __launch_bounds__(MAX_THREADS)
 rx_kernel(Dims d, Consts c, const float* __restrict__ bursts,
           float* __restrict__ chan, float* __restrict__ sym,
@@ -44,27 +46,40 @@ rx_kernel(Dims d, Consts c, const float* __restrict__ bursts,
     F[i] = b < nb ? src[static_cast<size_t>(b) * 2 * L + p * L + fs + t] : 0.f;
   }
   __syncthreads();
-  const float* s = rx_chain(d, c, smem, nb,
+  const float* s = rx_chain<TB>(d, c, smem, nb,
                             chan + static_cast<size_t>(b0) * w,
                             met + static_cast<size_t>(b0) * d.met_w);
   float* out = sym + static_cast<size_t>(b0) * w;
   for (int i = threadIdx.x; i < nb * w; i += blockDim.x) out[i] = s[i];
 }
 
+template <int TB>
+int launch_rx(const Dims* d, const Consts* c, const float* bursts, float* chan,
+              float* sym, float* met, void* stream) {
+  const size_t smem = sizeof(float) * rx_smem_floats(*d, TB);
+  cudaError_t err = cudaFuncSetAttribute(
+      rx_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (d->batch + TB - 1) / TB;
+  rx_kernel<TB><<<blocks, block_threads(*d), smem,
+                  static_cast<cudaStream_t>(stream)>>>(*d, *c, bursts, chan,
+                                                       sym, met);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace gfdm
 
+// A config whose one-burst tile exceeds shared memory runs the TB = 1
+// launch, which the runtime refuses.
 extern "C" int gfdm_rx(const gfdm::Dims* d, const gfdm::Consts* c,
                        const float* bursts, float* chan, float* sym,
                        float* met, void* stream) {
   if (d->batch <= 0) return 0;
-  const size_t smem = sizeof(float) * gfdm::rx_smem_floats(*d);
-  cudaError_t err = cudaFuncSetAttribute(
-      gfdm::rx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (d->batch + gfdm::TB - 1) / gfdm::TB;
-  gfdm::rx_kernel<<<blocks, gfdm::block_threads(*d), smem,
-                    static_cast<cudaStream_t>(stream)>>>(*d, *c, bursts, chan,
-                                                         sym, met);
-  return static_cast<int>(cudaGetLastError());
+  switch (gfdm::rx_tile_bursts(*d)) {
+    case 8: return gfdm::launch_rx<8>(d, c, bursts, chan, sym, met, stream);
+    case 4: return gfdm::launch_rx<4>(d, c, bursts, chan, sym, met, stream);
+    case 2: return gfdm::launch_rx<2>(d, c, bursts, chan, sym, met, stream);
+    default: return gfdm::launch_rx<1>(d, c, bursts, chan, sym, met, stream);
+  }
 }

@@ -17,22 +17,24 @@
 
 namespace gfdm {
 
+constexpr int TX_TB = 8;  // bursts per CTA tile
+
 __global__ void __launch_bounds__(MAX_THREADS)
 tx_kernel(Dims d, Consts c, const float* __restrict__ data,
           float* __restrict__ out) {
   extern __shared__ float smem[];
-  const int b0 = blockIdx.x * TB;
-  const int nb = min(TB, d.batch - b0);
+  const int b0 = blockIdx.x * TX_TB;
+  const int nb = min(TX_TB, d.batch - b0);
   const float* src = data + static_cast<size_t>(b0) * 2 * d.n_data;
   float* dst = out + static_cast<size_t>(b0) * 2 * d.frame_len;
-  load_tile(smem, src, d.n_data, nb);
+  load_tile<TX_TB>(smem, src, d.n_data, nb);
   __syncthreads();
 
   const int n = d.n, L = d.frame_len, p_len = d.preamble_len;
   const int lead = d.cp_len + d.shift;  // framed position of core sample 0
   const int head = n - lead;            // core samples >= head also form the CP
   const int tail = d.cs_len - d.shift;  // core samples < tail also form the CS
-  tx_core(d, c, smem, [&](int b, int col, float cr, float ci) {
+  tx_core<TX_TB>(d, c, smem, [&](int b, int col, float cr, float ci) {
     if (b >= nb) return;
     float* row = dst + static_cast<size_t>(b) * 2 * L + p_len;
     const float v[2] = {cr, ci};
@@ -63,12 +65,12 @@ tx_kernel(Dims d, Consts c, const float* __restrict__ data,
 extern "C" int gfdm_tx(const gfdm::Dims* d, const gfdm::Consts* c,
                        const float* data, float* out, void* stream) {
   if (d->batch <= 0) return 0;
-  const size_t smem = sizeof(float) * gfdm::TB * 2 * d->n_data;
+  const size_t smem = sizeof(float) * gfdm::TX_TB * 2 * d->n_data;
   cudaError_t err = cudaFuncSetAttribute(
       gfdm::tx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (d->batch + gfdm::TB - 1) / gfdm::TB;
+  const int blocks = (d->batch + gfdm::TX_TB - 1) / gfdm::TX_TB;
   gfdm::tx_kernel<<<blocks, gfdm::block_threads(*d), smem,
                     static_cast<cudaStream_t>(stream)>>>(*d, *c, data, out);
   return static_cast<int>(cudaGetLastError());

@@ -5,7 +5,8 @@ repository root: its step is the one-kernel link ``link_single_fused`` with
 the matmul IC, the path the JAX package's ``bench.py`` times on its
 accelerator. ``service_stream`` is the counterpart of
 ``bench._service_stream``: the burst-bearing chunk stream the streaming
-receive service is measured on.
+receive service is measured on. ``large_k_config`` is the configuration of
+``benchmarks/largek_crossover.py``, the large-K factored link's.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from .config import GfdmConfig
 from .kernels.fused import link_single_fused
 from .ops.planar_pipeline import prepare, transmit_planar
 
-__all__ = ["entry", "planar_payload", "service_stream"]
+__all__ = ["entry", "large_k_config", "planar_payload", "service_stream"]
 
 
 def planar_payload(cfg: GfdmConfig, batch: int, seed: int = 0) -> np.ndarray:
@@ -24,6 +25,19 @@ def planar_payload(cfg: GfdmConfig, batch: int, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     qpsk = (rng.integers(0, 2, (batch, 2, cfg.n_data_symbols)) * 2 - 1) / np.sqrt(2.0)
     return qpsk.astype(np.float32)
+
+
+def large_k_config(K: int) -> GfdmConfig:
+    """The large-K crossover configuration at K subcarriers: M = 9, the
+    canonical 52/64 active ratio, cp = K/4, cs = K/8 (K = 256, 512, 1024
+    in the crossover study)."""
+    return GfdmConfig(
+        subcarriers=K,
+        active_subcarriers=int(K * 0.78125),
+        timeslots=9,
+        cp_len=K // 4,
+        cs_len=K // 8,
+    )
 
 
 def entry(device):

@@ -1,10 +1,10 @@
 """Build and bind the hand-written CUDA kernels of ``gfdm_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with :mod:`ctypes`. The
-library is built on first use into :func:`build_dir` (``build/gfdm_tpu_torch/``
-at the root of a checkout) and rebuilt when a hash of the sources or flags
-changes.
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+process a source, all started together, and linked into one shared library
+with a plain C interface, loaded with :mod:`ctypes`. The library is built on
+first use into :func:`build_dir` (``build/gfdm_tpu_torch/`` at the root of a
+checkout) and rebuilt when a hash of the sources or flags changes.
 Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -20,15 +20,18 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Dims", "Consts", "DetectDims", "library", "launch", "build_dir", "build_info"]
+__all__ = ["Dims", "Consts", "DetectDims", "FactoredDims", "FactoredConsts",
+           "FACTORED_KINDS", "library", "launch", "build_dir", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("tx.cu", "rx.cu", "link.cu", "detect.cu")
+SOURCES = ("tx.cu", "rx.cu", "link.cu", "detect.cu", "factored.cu")
 HEADERS = ("gfdm_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# csrc/factored.cu's FactoredKind of each factored launcher
+FACTORED_KINDS = {"tx_factored": 0, "rx_factored": 1, "rx_factored_chan": 2}
 
 
 class Dims(ctypes.Structure):
@@ -55,6 +58,24 @@ class DetectDims(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "batch", "length", "subcarriers", "cp_len", "n_ac", "n_valid",
+    )]
+
+
+class FactoredDims(ctypes.Structure):
+    """Mirror of ``gfdm::FactoredDims`` in csrc/factored.cu (same field order)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "n", "timeslots", "subcarriers", "overlap", "n_data",
+        "frame_len", "preamble_len", "cp_len", "shift", "ic_iterations",
+    )]
+
+
+class FactoredConsts(ctypes.Structure):
+    """Mirror of ``gfdm::FactoredConsts`` in csrc/factored.cu: device pointers."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "fk", "tw", "fm", "ifm", "parts", "taps", "act", "map_idx", "win",
+        "pre", "e_w",
     )]
 
 
@@ -105,22 +126,27 @@ def _build() -> Path:
         _BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True, log="")
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [str(Path(tmp) / f"{Path(src).stem}.o") for src in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs = [f"== {src}\n{proc.communicate()[0]}" for src, proc in zip(SOURCES, procs)]
+        failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(logs))
+        tmp_lib = str(Path(tmp) / lib_path.name)
+        link = subprocess.run([nvcc, "-shared", "-o", tmp_lib, *objs],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+        os.replace(tmp_lib, lib_path)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log = "\n".join(logs)
     (out_dir / f"{lib_path.stem}.log").write_text(log)
     _BUILD_INFO.update(path=str(lib_path), seconds=seconds, cached=False, log=log)
     return lib_path
@@ -141,9 +167,17 @@ def library() -> ctypes.CDLL:
     for fn in (lib.gfdm_detect_front, lib.gfdm_detect_lean):
         fn.argtypes = [det_p, vp, vp, vp, vp, vp, vp, vp]
     lib.gfdm_detect_dims_size.argtypes = []
+    fdims_p, fconsts_p = ctypes.POINTER(FactoredDims), ctypes.POINTER(FactoredConsts)
+    lib.gfdm_tx_factored.argtypes = [fdims_p, fconsts_p, vp, vp, vp]
+    for fn in (lib.gfdm_rx_factored, lib.gfdm_rx_factored_chan):
+        fn.argtypes = [fdims_p, fconsts_p, vp, vp, vp, vp, vp]
+    lib.gfdm_factored_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.gfdm_rx_tile_bursts.argtypes = [dims_p]
     for fn in (lib.gfdm_tx, lib.gfdm_rx, lib.gfdm_link, lib.gfdm_struct_sizes,
                lib.gfdm_detect_front, lib.gfdm_detect_lean,
-               lib.gfdm_detect_dims_size):
+               lib.gfdm_detect_dims_size, lib.gfdm_tx_factored,
+               lib.gfdm_rx_factored, lib.gfdm_rx_factored_chan,
+               lib.gfdm_factored_struct_sizes, lib.gfdm_rx_tile_bursts):
         fn.restype = ctypes.c_int
     lib.gfdm_error_string.argtypes = [ctypes.c_int]
     lib.gfdm_error_string.restype = ctypes.c_char_p
@@ -151,14 +185,19 @@ def library() -> ctypes.CDLL:
     lib.gfdm_rx_smem_bytes.restype = ctypes.c_size_t
     lib.gfdm_detect_smem_bytes.argtypes = [det_p]
     lib.gfdm_detect_smem_bytes.restype = ctypes.c_size_t
+    lib.gfdm_factored_smem_bytes.argtypes = [fdims_p, ctypes.c_int]
+    lib.gfdm_factored_smem_bytes.restype = ctypes.c_size_t
     sizes = (ctypes.c_int * 2)()
     lib.gfdm_struct_sizes(sizes)
-    c_sizes = (sizes[0], sizes[1], lib.gfdm_detect_dims_size())
-    py_sizes = tuple(ctypes.sizeof(t) for t in (Dims, Consts, DetectDims))
+    fsizes = (ctypes.c_int * 2)()
+    lib.gfdm_factored_struct_sizes(fsizes)
+    c_sizes = (sizes[0], sizes[1], lib.gfdm_detect_dims_size(), fsizes[0], fsizes[1])
+    py_sizes = tuple(ctypes.sizeof(t) for t in (Dims, Consts, DetectDims, FactoredDims,
+                                                FactoredConsts))
     if c_sizes != py_sizes:
         raise RuntimeError(
-            f"kernel struct layout mismatch (Dims, Consts, DetectDims): "
-            f"C {c_sizes} vs ctypes {py_sizes}"
+            f"kernel struct layout mismatch (Dims, Consts, DetectDims, FactoredDims, "
+            f"FactoredConsts): C {c_sizes} vs ctypes {py_sizes}"
         )
     _LIB = lib
     return lib

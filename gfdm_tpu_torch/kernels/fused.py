@@ -9,6 +9,13 @@ torch version here that computes the same thing the same way: the Gauss
 ``[snr_lin | cnrs | 0-pad]`` and, in ``ic_mode="matmul"``, the bf16
 interference operator upcast to float32.
 
+The large-K factored pair (``_tx_factored_kernel``, ``_rx_factored_kernel``,
+``_rx_factored_chan_kernel``; ``csrc/factored.cu``) carries no dense
+operator: the N-point (I)DFT is K-point DFTs plus a twiddled M-point stage,
+the filter fold / overlap-add are L taps, the per-subcarrier M-point
+transforms are M-point products. Their plain versions are the stages of
+:mod:`..ops.planar_fast` with the kernels' ZF clamp and circulant IC.
+
 Dispatch: a wrapper runs the plain version only for a tensor on the CPU; for
 a CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts the
 kernel launches of each wrapper.
@@ -25,7 +32,8 @@ import numpy as np
 import torch
 
 from ..config import GfdmConfig
-from ..ops import operators
+from ..ops import operators, planar_fast
+from ..ops.planar import pabs2, pconj, pmatmul, pmul, real_operator
 from ..ops.planar_pipeline import _np_gauss_stacks, _small_consts, _to_tensor, evm
 
 __all__ = [
@@ -35,10 +43,14 @@ __all__ = [
     "receive_bursts_fused",
     "link_step_fused",
     "link_single_fused",
+    "tx_frame_factored",
+    "rx_receiver_factored",
+    "link_step_factored",
 ]
 
 # kernel launches per wrapper since the last reset (plain runs do not count)
-LAUNCHES = {"tx": 0, "rx": 0, "link": 0}
+LAUNCHES = {"tx": 0, "rx": 0, "link": 0,
+            "tx_factored": 0, "rx_factored": 0, "rx_factored_chan": 0}
 
 # QPSK symbol amplitude; the IC decisions are +-1 levels and the amplitude
 # is folded into the interference taps / operator
@@ -261,8 +273,8 @@ def _run(name: str, dims, consts, *ptrs, device) -> None:
 
     def rx_tile(lib):
         return (f"; the receiver tile keeps {lib.gfdm_rx_smem_bytes(ctypes.byref(dims))}"
-                " B in shared memory a CTA, so a larger N = M*K waits for the "
-                "factored kernels (ROADMAP.md Queue 2 items 5-7)")
+                " B in shared memory a CTA even at one burst, so a larger "
+                "N = M*K takes rx_receiver_factored")
 
     launch(f"gfdm_{name}", (ctypes.byref(dims), ctypes.byref(consts), *ptrs),
            device, hint=None if name == "tx" else rx_tile)
@@ -424,3 +436,245 @@ def link_single_fused(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 
     out, met = run(cfg, flat, int(ic_iterations), ic_mode)
     d_hat = out.reshape(data.shape)
     return d_hat, met[:, 0], evm(d_hat, data)
+
+
+# ---------------------------------------------------------------------------
+# factored kernels (large K): host constants
+# ---------------------------------------------------------------------------
+@lru_cache(maxsize=16)
+def _factored_np(cfg: GfdmConfig) -> dict:
+    """Host constants of the factored kernels beyond planar_fast's tables.
+
+    ``ftaps`` (2, M): column 0 of the circulant C times the QPSK amplitude,
+    folded in float64 and rounded once, as the JAX package folds its
+    factored kernels' taps (the dense kernels' conv ``taps`` round c to
+    float32 first).
+    ``map_idx`` (N,): frame position -> payload index from the nonzeros of
+    the mapping matrix (n_data, a zero sentinel, elsewhere), as the JAX
+    ``tx_frame_factored`` builds its gather.
+    """
+    c_col = operators._interference_matrix(cfg)[:, 0]
+    ftaps = np.stack([c_col.real * _QPSK_AMP, c_col.imag * _QPSK_AMP]).astype(np.float32)
+    map_idx = np.full(cfg.block_len, cfg.n_data_symbols, dtype=np.int32)
+    rows, cols = np.nonzero(operators.mapping_matrix(cfg).real)
+    map_idx[rows] = cols
+    return {"ftaps": ftaps, "map_idx": map_idx}
+
+
+_FACTORED_CONSTS: dict = {}
+
+
+def _factored_consts(cfg: GfdmConfig, device) -> dict:
+    """Constants of the factored kernels and their plain versions on
+    ``device``, built once per (config, device): planar_fast's K- and
+    M-point tables, twiddles and filter parts, the IC taps, the Tx map,
+    window and preambles. No O(N^2) operator; the dense estimator ``E_W``
+    of ``estimator="fused"`` is added on first use (:func:`_estimator_op`)."""
+    device = torch.device(device)
+    key = (cfg, str(device))
+    hit = _FACTORED_CONSTS.get(key)
+    if hit is not None:
+        return hit
+    small = _small_consts(cfg, "float32")
+    arrays = {**_factored_np(cfg), **{name: small[name] for name in (
+        "win", "preambles", "cp_idx", "demap_idx",
+    )}}
+    arrays["act"] = np.repeat(small["active"].astype(np.float32), cfg.timeslots)
+    k = {name: _to_tensor(a, device) for name, a in arrays.items()}
+    k.update(planar_fast.fast_consts(cfg, "float32", device))
+    _FACTORED_CONSTS[key] = k
+    return k
+
+
+def _estimator_op(cfg: GfdmConfig, device) -> torch.Tensor:
+    """The dense (4K, 2N) realified channel estimator of estimator="fused"
+    (4.7 MB at K = 128, 302 MB at K = 1024), built on first use."""
+    k = _factored_consts(cfg, device)
+    if "E_W" not in k:
+        E = real_operator(operators.channel_estimation_operator(cfg).T, np.float32)
+        k["E_W"] = _to_tensor(E, device)
+    return k["E_W"]
+
+
+# ---------------------------------------------------------------------------
+# factored kernels: plain torch versions, stage by stage
+# ---------------------------------------------------------------------------
+def _zf_clamped(X: torch.Tensor, chan: torch.Tensor) -> torch.Tensor:
+    """ZF divide X / chan with |chan|^2 clamped at 1e-30 (planar (..., 2, N));
+    ``planar_fast.demod_fast`` divides unclamped."""
+    den = torch.clamp(pabs2(chan), min=1e-30)[..., None, :]
+    return pmul(X, pconj(chan)) / den
+
+
+def _ic_factored(cfg: GfdmConfig, k: dict, d0: torch.Tensor, ic_iterations: int):
+    """Circulant QPSK IC on (B, 2, N) symbols: ``ic_iterations`` of
+    d = d0 - interference(+-1 decisions on active symbols)."""
+    B, n = d0.shape[0], cfg.block_len
+    d0r, d0i = d0[:, 0], d0[:, 1]
+    dr, di = d0r, d0i
+    for _ in range(ic_iterations):
+        qr = torch.where(dr >= 0, 1.0, -1.0) * k["act"]
+        qi = torch.where(di >= 0, 1.0, -1.0) * k["act"]
+        ir, ii = _conv_ic(qr, qi, k["ftaps"], cfg.subcarriers, cfg.timeslots)
+        dr, di = d0r - ir, d0i - ii
+    return torch.stack([dr.reshape(B, n), di.reshape(B, n)], dim=1)
+
+
+def _rx_factored_plain(cfg: GfdmConfig, bursts: torch.Tensor, chan, ic_iterations: int):
+    """(B, 2, frame_len) bursts [+ (B, 2, N) channel] -> chan, symbols (B, 2, N).
+
+    chan=None estimates it with the dense E_W (the in-kernel estimator)."""
+    k = _factored_consts(cfg, bursts.device)
+    B, n, K = bursts.shape[0], cfg.block_len, cfg.subcarriers
+    if chan is None:
+        pre2 = bursts[..., cfg.cp_len : cfg.cp_len + 2 * K].reshape(B, 4 * K)
+        chan = (pre2 @ _estimator_op(cfg, bursts.device)).reshape(B, 2, n)
+    fs = cfg.preamble_len + cfg.cp_len
+    X = planar_fast.fast_fft_n(cfg, bursts[..., fs : fs + n], k)  # natural order
+    S = planar_fast._fold_rx(cfg, _zf_clamped(X, chan), k)  # (B, K, 2, M)
+    d0 = pmatmul(S, k["iFM_W"])  # per-subcarrier M-point IFFT
+    d0 = torch.movedim(d0, -2, -3).reshape(B, 2, n)
+    return chan, _ic_factored(cfg, k, d0, ic_iterations)
+
+
+def _tx_factored_plain(cfg: GfdmConfig, data: torch.Tensor, shift_index: int):
+    """(B, 2, n_data) payload -> (B, 2, frame_len) bursts."""
+    k = _factored_consts(cfg, data.device)
+    zero = torch.zeros(data.shape[:-1] + (1,), dtype=data.dtype, device=data.device)
+    grid = torch.cat([data, zero], dim=-1)[..., k["map_idx"]]
+    core = planar_fast.modulate_core_fast(cfg, grid, k)
+    framed = core[..., k["cp_idx"][shift_index]] * k["win"]
+    pre = k["preambles"][shift_index].expand(data.shape[0], 2, cfg.preamble_len)
+    return torch.cat([pre, framed], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# factored kernels: CUDA launches
+# ---------------------------------------------------------------------------
+def _factored_dims(cfg: GfdmConfig, batch: int, shift: int = 0, ic_iterations: int = 0):
+    from .cuda_lib import FactoredDims
+
+    return FactoredDims(
+        batch=batch, n=cfg.block_len, timeslots=cfg.timeslots,
+        subcarriers=cfg.subcarriers, overlap=cfg.overlap,
+        n_data=cfg.n_data_symbols, frame_len=cfg.frame_len,
+        preamble_len=cfg.preamble_len, cp_len=cfg.cp_len, shift=shift,
+        ic_iterations=ic_iterations,
+    )
+
+
+def _factored_ptrs(k: dict, tx: bool, shift_index: int = 0, e_w=None):
+    from .cuda_lib import FactoredConsts
+
+    return FactoredConsts(
+        fk=k["iFK_W" if tx else "FK_W"].data_ptr(),
+        tw=k["itw" if tx else "tw"].data_ptr(),
+        fm=k["FM_W"].data_ptr(), ifm=k["iFM_W"].data_ptr(),
+        parts=k["tx_parts" if tx else "rx_parts"].data_ptr(),
+        taps=k["ftaps"].data_ptr(), act=k["act"].data_ptr(),
+        map_idx=k["map_idx"].data_ptr(), win=k["win"].data_ptr(),
+        pre=k["preambles"][shift_index].data_ptr(),
+        e_w=None if e_w is None else e_w.data_ptr(),
+    )
+
+
+def _run_factored(name: str, dims, consts, *ptrs, device) -> None:
+    """Launch ``gfdm_<name>``; a refused launch raises, naming the kernel and
+    the shared memory its one-burst CTA needs."""
+    from .cuda_lib import FACTORED_KINDS, launch
+
+    def tile(lib):
+        nbytes = lib.gfdm_factored_smem_bytes(ctypes.byref(dims), FACTORED_KINDS[name])
+        return (f"; the {name} kernel keeps {nbytes} B in shared memory a CTA "
+                f"(one burst, K={dims.subcarriers}, M={dims.timeslots})")
+
+    launch(f"gfdm_{name}", (ctypes.byref(dims), ctypes.byref(consts), *ptrs),
+           device, hint=tile)
+    LAUNCHES[name] += 1
+
+
+def _tx_factored_cuda(cfg: GfdmConfig, data: torch.Tensor, shift_index: int):
+    k = _factored_consts(cfg, data.device)
+    out = torch.empty(data.shape[0], 2, cfg.frame_len, dtype=torch.float32,
+                      device=data.device)
+    dims = _factored_dims(cfg, data.shape[0], shift=int(cfg.cyclic_shifts[shift_index]))
+    _run_factored("tx_factored", dims, _factored_ptrs(k, True, shift_index),
+                  data.data_ptr(), out.data_ptr(), device=data.device)
+    return out
+
+
+def _rx_factored_cuda(cfg: GfdmConfig, bursts: torch.Tensor, chan, ic_iterations: int):
+    k = _factored_consts(cfg, bursts.device)
+    B, n = bursts.shape[0], cfg.block_len
+    opts = dict(dtype=torch.float32, device=bursts.device)
+    sym = torch.empty(B, 2, n, **opts)
+    dims = _factored_dims(cfg, B, ic_iterations=ic_iterations)
+    if chan is None:
+        chan = torch.empty(B, 2, n, **opts)
+        consts = _factored_ptrs(k, False, e_w=_estimator_op(cfg, bursts.device))
+        _run_factored("rx_factored", dims, consts, bursts.data_ptr(), None,
+                      chan.data_ptr(), sym.data_ptr(), device=bursts.device)
+    else:
+        _run_factored("rx_factored_chan", dims, _factored_ptrs(k, False),
+                      bursts.data_ptr(), chan.data_ptr(), None, sym.data_ptr(),
+                      device=bursts.device)
+    return chan, sym
+
+
+# ---------------------------------------------------------------------------
+# factored kernels: public wrappers
+# ---------------------------------------------------------------------------
+def tx_frame_factored(cfg: GfdmConfig, data: torch.Tensor, shift_index: int = 0):
+    """Factorized one-kernel Tx for large K.
+
+    data: (B, 2, n_data) planar payload -> (B, 2, frame_len) planar burst,
+    the contract of tx_frame_fused, but no dense Tx operator exists at any
+    K: the map, the modulator (per-subcarrier M-FFT, L-tap overlap-add,
+    Cooley-Tukey N-IFFT), the output reorder, CP/CS, window and preamble
+    all run in the kernel.
+    """
+    cuda = _on_cuda(data, cfg.n_data_symbols, "tx_frame_factored")
+    run = _tx_factored_cuda if cuda else _tx_factored_plain
+    return run(cfg, data, shift_index)
+
+
+def rx_receiver_factored(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: int = 2,
+                         estimator: str = "fused"):
+    """Factorized one-kernel receiver (channel est + ZF + demod + QPSK IC).
+
+    bursts: (B, 2, frame_len) planar -> (channel (B, 2, N), symbols
+    (B, 2, N)). The block DFT runs as K-point DFTs plus a twiddled M-point
+    stage, the FD demod as an L-tap fold plus per-subcarrier M-point IFFTs.
+
+    estimator:
+      "fused" - channel estimated inside the kernel via the dense (4K, 2N)
+                operator (K <= ~128: 302 MB at K = 1024);
+      "fast"  - channel estimated outside by the O(K^2) factorized torch-op
+                estimator (ops.planar_fast.estimate_channel_fast) and read
+                by the kernel; no dense operator of any kind.
+    """
+    if estimator not in ("fused", "fast"):
+        raise ValueError(f"estimator must be 'fused' or 'fast', got {estimator!r}")
+    cuda = _on_cuda(bursts, cfg.frame_len, "rx_receiver_factored")
+    chan = _fast_channel(cfg, bursts) if estimator == "fast" else None
+    run = _rx_factored_cuda if cuda else _rx_factored_plain
+    return run(cfg, bursts, chan, int(ic_iterations))
+
+
+def _fast_channel(cfg: GfdmConfig, bursts: torch.Tensor) -> torch.Tensor:
+    """The channel estimator="fast" hands the receiver kernel: the
+    factorized torch-op estimate from the bursts' preamble, (B, 2, N)."""
+    pre = bursts[..., cfg.cp_len : cfg.cp_len + 2 * cfg.subcarriers]
+    fc = planar_fast.fast_consts(cfg, "float32", bursts.device)
+    return planar_fast.estimate_channel_fast(cfg, pre, fc).contiguous()
+
+
+def link_step_factored(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 2,
+                       estimator: str = "fast"):
+    """Large-K link: payload -> factored Tx kernel -> factored receiver ->
+    demap. Returns (data_hat (B, 2, n_data), evm); with estimator="fast" the
+    link of ``benchmarks/largek_crossover.py``'s link mode."""
+    bursts = tx_frame_factored(cfg, data)
+    _chan, sym = rx_receiver_factored(cfg, bursts, ic_iterations, estimator=estimator)
+    d_hat = sym[..., _factored_consts(cfg, data.device)["demap_idx"]]
+    return d_hat, evm(d_hat, data)

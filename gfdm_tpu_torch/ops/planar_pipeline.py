@@ -10,7 +10,10 @@ are held against this module's results in the tests.
 Operators are built once per (config, dtype) in NumPy float64 from the
 golden model and uploaded once per device (:func:`prepare`). The kernels'
 Gauss stacks (:func:`_np_gauss_stacks`) are built here too but uploaded
-only by the kernels' own cache.
+only by the kernels' own cache. ``method="fast"`` runs the factorized
+stages of :mod:`.planar_fast` and loads only the small-operator set
+(:func:`_np_mats_fast`): no O(N^2) matrix, so K >= 1024 configs stay
+practical.
 
 The sync section is the service's detection and extraction: the dense,
 two-stage and top-k detectors over halo-extended chunks, barrel
@@ -51,6 +54,38 @@ qpsk_constellation = np.array([1 + 1j, 1 - 1j, -1 + 1j, -1 - 1j]) / np.sqrt(2.0)
 # ---------------------------------------------------------------------------
 # operator matrices: NumPy once per config, tensors once per device
 # ---------------------------------------------------------------------------
+@lru_cache(maxsize=16)
+def _np_mats_fast(cfg: GfdmConfig, dtype_name: str):
+    """Small-operator set for method='fast': no O(N^2) matrices anywhere
+    (the factorized stages carry only K- and M-point matrices,
+    :mod:`.planar_fast`)."""
+    dt = np.dtype(dtype_name)
+    return {
+        "C_W": real_operator(operators._interference_matrix(cfg).T, dt),
+        "CNRI_T": np.ascontiguousarray(
+            operators.cnr_interpolation_operator(cfg).T.astype(dt)
+        ),
+    }
+
+
+@lru_cache(maxsize=16)
+def _tx_map_idx(cfg: GfdmConfig) -> np.ndarray:
+    """(N,) direct index form of the resource-mapper scatter for
+    method='fast': frame position -> payload index, n_data (a zero
+    sentinel) off the mapped positions."""
+    n_data = cfg.n_data_symbols
+    map_idx = np.full(cfg.block_len, n_data, dtype=np.int32)
+    smap = cfg.subcarrier_map
+    M = cfg.timeslots
+    for j in range(n_data):
+        if cfg.per_timeslot:
+            tidx, aidx = divmod(j, smap.size)
+        else:
+            aidx, tidx = divmod(j, M)
+        map_idx[M * smap[aidx] + tidx] = j
+    return map_idx
+
+
 @lru_cache(maxsize=16)
 def _np_mats(cfg: GfdmConfig, dtype_name: str):
     dt = np.dtype(dtype_name)
@@ -118,16 +153,28 @@ def _small_consts(cfg: GfdmConfig, dtype_name: str):
 _DEVICE_MATS_CACHE: dict = {}
 
 
-def _device_mats(cfg: GfdmConfig, dtype_name: str = "float32", device="cpu"):
+def _device_mats(cfg: GfdmConfig, dtype_name: str = "float32", device="cpu",
+                 method: str = "dense"):
     """The planar path's operators and small constants as tensors on
-    ``device``, built once per (config, dtype, device). Index arrays become
-    int32 tensors."""
+    ``device``, built once per (config, dtype, device, method). Index arrays
+    become int32 tensors. method="fast" loads the small-operator set
+    (:func:`_np_mats_fast`, plus the Tx map index ``map_idx``) and the
+    factorized stages' constants (:func:`.planar_fast.fast_consts`)."""
+    if method not in ("dense", "fast"):
+        raise ValueError(f"unknown method {method!r}")
     device = torch.device(device)
-    key = (cfg, dtype_name, str(device))
+    key = (cfg, dtype_name, str(device), method)
     hit = _DEVICE_MATS_CACHE.get(key)
     if hit is not None:
         return hit
-    arrays = {**_np_mats(cfg, dtype_name), **_small_consts(cfg, dtype_name)}
+    if method == "fast":
+        from . import planar_fast
+
+        planar_fast.fast_consts(cfg, dtype_name, device)
+        arrays = {**_np_mats_fast(cfg, dtype_name), "map_idx": _tx_map_idx(cfg)}
+    else:
+        arrays = _np_mats(cfg, dtype_name)
+    arrays = {**arrays, **_small_consts(cfg, dtype_name)}
     mats = {name: _to_tensor(a, device) for name, a in arrays.items()}
     _DEVICE_MATS_CACHE[key] = mats
     return mats
@@ -141,14 +188,19 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def prepare(cfg: GfdmConfig, dtype_name: str = "float32", device="cpu") -> None:
-    """Eagerly build and upload all operators for ``device``."""
-    _device_mats(cfg, dtype_name, device)
+def prepare(cfg: GfdmConfig, dtype_name: str = "float32", device="cpu", *,
+            method: str = "dense") -> None:
+    """Eagerly build and upload all operators of ``method`` for ``device``."""
+    _device_mats(cfg, dtype_name, device, method)
 
 
-def _mats_for(cfg: GfdmConfig, x: torch.Tensor) -> dict:
-    """The operator cache for the dtype and device of ``x``."""
-    return _device_mats(cfg, str(x.dtype).removeprefix("torch."), x.device)
+def _dtype_name(x: torch.Tensor) -> str:
+    return str(x.dtype).removeprefix("torch.")
+
+
+def _mats_for(cfg: GfdmConfig, x: torch.Tensor, method: str = "dense") -> dict:
+    """The operator cache of ``method`` for the dtype and device of ``x``."""
+    return _device_mats(cfg, _dtype_name(x), x.device, method)
 
 
 def _check_planar(x: torch.Tensor, n: int, fn: str, what: str) -> None:
@@ -162,18 +214,38 @@ def _check_planar(x: torch.Tensor, n: int, fn: str, what: str) -> None:
 # ---------------------------------------------------------------------------
 # Tx
 # ---------------------------------------------------------------------------
-def transmit_planar(cfg: GfdmConfig, data: torch.Tensor) -> torch.Tensor:
+def transmit_planar(cfg: GfdmConfig, data: torch.Tensor,
+                    method: str = "dense") -> torch.Tensor:
     """(..., 2, n_data) planar payload -> (..., n_shifts, 2, frame_len).
 
-    Computes in the payload's dtype on the payload's device.
+    Computes in the payload's dtype on the payload's device. method="fast"
+    modulates via the factorized per-subcarrier FFT pipeline.
     """
     _check_planar(data, cfg.n_data_symbols, "transmit_planar",
                   "timeslots*active_subcarriers")
+    if method == "fast":
+        return _transmit_fast(cfg, data)
     mats = _mats_for(cfg, data)
     TF_W = mats["TF_W"]  # (n_shifts, 2*n_data, 2*window_len)
     flat = data.reshape(data.shape[:-2] + (2 * data.shape[-1],))
     framed = torch.einsum("...i,sij->...sj", flat, TF_W)
     framed = framed.reshape(framed.shape[:-1] + (2, cfg.window_len))
+    pre = mats["preambles"].expand(framed.shape[:-2] + mats["preambles"].shape[-2:])
+    return torch.cat([pre, framed], dim=-1)
+
+
+def _transmit_fast(cfg: GfdmConfig, data: torch.Tensor) -> torch.Tensor:
+    """method="fast" Tx: index-form resource map, factorized modulator,
+    CP gather and window for every shift, preambles prepended."""
+    from . import planar_fast
+
+    mats = _mats_for(cfg, data, "fast")
+    fc = planar_fast.fast_consts(cfg, _dtype_name(data), data.device)
+    zero = torch.zeros(data.shape[:-1] + (1,), dtype=data.dtype, device=data.device)
+    grid = torch.cat([data, zero], dim=-1)[..., mats["map_idx"]]
+    core = planar_fast.modulate_core_fast(cfg, grid, fc)
+    framed = core[..., mats["cp_idx"]] * mats["win"]  # (..., 2, n_shifts, W)
+    framed = torch.movedim(framed, -2, -3)  # (..., n_shifts, 2, W)
     pre = mats["preambles"].expand(framed.shape[:-2] + mats["preambles"].shape[-2:])
     return torch.cat([pre, framed], dim=-1)
 
@@ -236,18 +308,21 @@ def receive_bursts_planar(
     constellation=qpsk_constellation,
     phase_compensation: bool = False,
     equalizer: str = "zf",
+    method: str = "dense",
 ):
     """Planar receiver chain: (..., 2, >=frame_len) -> dict of planar outputs.
 
     bursts are aligned at the full-preamble start; the chain computes in
-    their dtype on their device. equalizer="mmse"
+    their dtype on their device. method="fast" uses the factorized channel
+    estimate, SNR power and Cooley-Tukey demodulation of
+    :mod:`.planar_fast` instead of the dense operators. equalizer="mmse"
     regularizes the per-bin inversion with the estimated SNR;
     equalizer="mmse_cnr" uses the per-subcarrier CNR vector interpolated to
     every FD bin. Returns data, symbols, channel, snr_lin and cnrs.
     """
     if equalizer not in ("zf", "mmse", "mmse_cnr"):
         raise ValueError(f"unknown equalizer {equalizer!r}")
-    mats = _mats_for(cfg, bursts)
+    mats = _mats_for(cfg, bursts, method)
     K, M = cfg.subcarriers, cfg.timeslots
     points = np.asarray(constellation)
     points_pl = _points_tensor(points, bursts)  # (P, 2)
@@ -255,9 +330,16 @@ def receive_bursts_planar(
     n_active = cfg.subcarrier_map.size
 
     rx_pre = bursts[..., cfg.cp_len : cfg.cp_len + 2 * K]
-    channel = pmatmul(rx_pre, mats["E_W"])  # (..., 2, N)
-    # SNR from the 2K preamble FFT
-    p = pabs2(pmatmul(rx_pre, mats["F2_W"]))
+    if method == "fast":
+        from . import planar_fast
+
+        fc = planar_fast.fast_consts(cfg, _dtype_name(bursts), bursts.device)
+        channel = planar_fast.estimate_channel_fast(cfg, rx_pre, fc)
+        p = planar_fast.snr_power_fast(cfg, rx_pre, fc)
+    else:
+        channel = pmatmul(rx_pre, mats["E_W"])  # (..., 2, N)
+        # SNR from the 2K preamble FFT
+        p = pabs2(pmatmul(rx_pre, mats["F2_W"]))
     cnrs = p[..., mats["sig_idx"]]
     sym = torch.sum(cnrs, dim=-1)
     noise = torch.sum(p[..., mats["noise_idx"]], dim=-1)
@@ -279,13 +361,17 @@ def receive_bursts_planar(
     else:
         channel_eff = channel
 
-    X = pmatmul(frame, mats["F_W"])
-    if equalize:
-        X = pdiv(X, channel_eff)
-    S = pmatmul(X, mats["Bfd_W"])  # (..., 2, N) symbol estimates
+    if method == "fast":
+        # (..., K, 2, M) directly in IC layout
+        d0 = planar_fast.demod_fast(cfg, frame, channel_eff, fc, equalize=equalize)
+    else:
+        X = pmatmul(frame, mats["F_W"])
+        if equalize:
+            X = pdiv(X, channel_eff)
+        S = pmatmul(X, mats["Bfd_W"])  # (..., 2, N) symbol estimates
+        d0 = S.reshape(S.shape[:-1] + (K, M)).movedim(-3, -2)
     # IC in (..., K, 2, M) layout: d_{k+1} = d0 - neighbors_k @ C with
     # C = idft_M . diag(ic_taps) . dft_M, one small planar matmul
-    d0 = S.reshape(S.shape[:-1] + (K, M)).movedim(-3, -2)
     active_mask = mats["active"][:, None, None]  # over K
 
     def cancel(d0_ref, hard):
@@ -825,8 +911,10 @@ def evm(data_hat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(err / ref)
 
 
-def link_step_planar(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 2):
+def link_step_planar(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 2,
+                     method: str = "dense"):
     """Planar end-to-end: payload -> Tx -> Rx -> (data_hat, snr, evm)."""
-    bursts = transmit_planar(cfg, data)[..., 0, :, :]
-    out = receive_bursts_planar(cfg, bursts, ic_iterations=ic_iterations)
+    bursts = transmit_planar(cfg, data, method=method)[..., 0, :, :]
+    out = receive_bursts_planar(cfg, bursts, ic_iterations=ic_iterations,
+                                method=method)
     return out["data"], out["snr_lin"], evm(out["data"], data)

@@ -91,6 +91,8 @@ class StreamingReceiver:
     equalizer: str = "zf"  # "zf" | "mmse" | "mmse_cnr"
     constellation: str = "qpsk"  # "qpsk" | "qam16" | "qam64"
     fec: str = "none"  # "none"; "conv" is ROADMAP.md Queue 1 item 5
+    # receiver of the xla engine: "dense" operators or the factorized
+    # "fast" stages; the fused engine runs the dense receiver kernel
     method: str = "dense"
     # two-stage CFO: refine the coarse preamble estimate with the payload
     # block's N-lag CP correlation after extraction
@@ -143,7 +145,7 @@ class StreamingReceiver:
         else:
             from ..ops.planar_pipeline import prepare
 
-            prepare(self.cfg, "float32", self.device)
+            prepare(self.cfg, "float32", self.device, method=self.method)
             self._step = self._xla_step
 
     def _xla_step(self, chunks: torch.Tensor) -> dict:

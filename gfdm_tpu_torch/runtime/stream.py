@@ -80,16 +80,12 @@ def receive_chunks_planar(
     ``dtype_name``). ``refine_cfo`` re-estimates the residual CFO from the
     payload block's CP after the coarse correction at extraction.
 
-    The receiver runs in float32 with the dense operators; ``method="fast"``
-    waits for ROADMAP.md Queue 1 item 7.
+    The receiver runs in float32, with the dense operators or, with
+    ``method="fast"``, the factorized stages of ops.planar_fast.
     """
     from ..ops import planar_pipeline as pp
     from ..ops.rx import constellation_points
 
-    if method != "dense":
-        raise NotImplementedError(
-            f"method={method!r}: the factored receiver is ROADMAP.md Queue 1 item 7"
-        )
     if dtype_name != "float32":
         raise NotImplementedError(
             f"dtype_name={dtype_name!r}: the port's receiver runs in float32 "
@@ -114,7 +110,7 @@ def receive_chunks_planar(
         bursts, _ = pp.refine_cfo_planar(cfg, bursts)
     out = pp.receive_bursts_planar(
         cfg, bursts, ic_iterations=ic_iterations, equalizer=equalizer,
-        constellation=constellation_points(constellation),
+        constellation=constellation_points(constellation), method=method,
     )
     out["detection"] = det
     out["found"] = _found_mask(det, chunk_len, min_strength, false_alarm_prob)

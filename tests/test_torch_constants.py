@@ -86,6 +86,67 @@ def test_planar_cache_bit_equal_to_converted_jax_arrays(name):
 
 
 @pytest.mark.parametrize("name", ["canonical", "k32m5"])
+def test_fast_planar_cache_bit_equal_to_converted_jax_arrays(name):
+    """method="fast": the small-operator set (no O(N^2) matrix) and the
+    small constants, plus the Tx map index of the JAX _tx_fast_fn loop."""
+    jc, tc = _pair(name)
+    ours = dict(pp._device_mats(tc, "float32", "cpu", "fast"))
+    theirs = operators_from_numpy(
+        {**jax_pp._np_mats_fast(jc, "float32"), **jax_pp._small_consts(jc, "float32")}
+    )
+    map_idx = ours.pop("map_idx")
+    assert set(ours) <= set(theirs)
+    for key, t in ours.items():
+        assert t.dtype == theirs[key].dtype and torch.equal(t, theirs[key]), key
+    want = np.full(jc.block_len, jc.n_data_symbols)
+    rows, cols = np.nonzero(jax_ops.mapping_matrix(jc).real)
+    want[rows] = cols
+    assert map_idx.dtype == torch.int32
+    np.testing.assert_array_equal(map_idx.numpy(), want)
+
+
+def _jax_factored_np(jc):
+    from gfdm_tpu.ops import planar_fast as jax_pf
+
+    return {**jax_fused._factored_consts(jc), **jax_fused._tx_factored_consts(jc),
+            **jax_pf._fft_consts(jc, "float32"), **jax_pf._est_consts(jc, "float32")}
+
+
+@pytest.mark.parametrize("name", ["canonical", "k32m5", "k128"])
+def test_factored_consts_bit_equal_to_converted_jax_arrays(name):
+    """The factored kernels' cache against the JAX factored kernels' and
+    planar_fast's tables: kept tables bit-equal, coefficient rows and
+    gathers checked against the index patterns the CUDA kernels compute."""
+    from gfdm_tpu_torch.convert import factored_consts_from_numpy
+
+    jc, tc = _pair(name)
+    theirs = factored_consts_from_numpy(_jax_factored_np(jc))
+    assert not {"mcr", "ftr", "ivr", "reorder", "txar", "ftxr", "mtr", "unreorder"} & set(theirs)
+    small = operators_from_numpy(dict(jax_pp._small_consts(jc, "float32")))
+    ours = fused._factored_consts(tc, "cpu")
+    for key, t in ours.items():
+        if key in ("ftaps", "map_idx", "act"):  # test_torch_factored.py pins these
+            continue
+        ref = theirs[key] if key in theirs else small[key]
+        assert t.dtype == ref.dtype and torch.equal(t, ref), key
+    assert set(theirs) <= set(ours)
+
+
+def test_convert_rejects_a_wrong_factored_table():
+    from gfdm_tpu_torch.convert import factored_consts_from_numpy
+
+    c = _jax_factored_np(JaxConfig())
+    for name, delta in (("mcr", 1e-4), ("ftr", 1e-7), ("reorder", 1)):
+        bad = dict(c)
+        bad[name] = c[name].copy()
+        bad[name].flat[5] += delta
+        with pytest.raises(ValueError, match=name[:-1] if name != "reorder" else name):
+            factored_consts_from_numpy(bad)
+    with pytest.raises(ValueError, match="needs FM_W"):
+        factored_consts_from_numpy({k: c[k] for k in ("mcr", "mci", "tw")})
+
+
+@pytest.mark.parametrize("name", ["canonical", "k32m5"])
 def test_kernel_consts_bit_equal_to_converted_jax_arrays(name):
     jc, tc = _pair(name)
     ours = dict(fused._kernel_consts(tc, "cpu"))

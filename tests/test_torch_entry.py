@@ -42,7 +42,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     code = (
         "import gfdm_tpu_torch, gfdm_tpu_torch.kernels.fused, gfdm_tpu_torch.entry, "
         "gfdm_tpu_torch.convert, gfdm_tpu_torch.kernels.detect, gfdm_tpu_torch.ref, "
-        "gfdm_tpu_torch.ops.sync, gfdm_tpu_torch.ops.rx, "
+        "gfdm_tpu_torch.ops.sync, gfdm_tpu_torch.ops.rx, gfdm_tpu_torch.ops.planar_fast, "
+        "gfdm_tpu_torch.kernels.cuda_lib, "
         "gfdm_tpu_torch.runtime.stream, gfdm_tpu_torch.runtime.service, sys; "
         "assert 'jax' not in sys.modules and 'gfdm_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'gfdm_tpu.')))"
@@ -51,6 +52,23 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("K", [256, 512, 1024])
+def test_large_k_config_is_the_crossover_benchmarks(K):
+    """benchmarks/largek_crossover.py:49-55 builds this config."""
+    from gfdm_tpu import GfdmConfig as JaxConfig
+
+    from gfdm_tpu_torch.entry import large_k_config
+
+    jc = JaxConfig(subcarriers=K, active_subcarriers=int(K * 0.78125), timeslots=9,
+                   cp_len=K // 4, cs_len=K // 8)
+    tc = large_k_config(K)
+    for attr in ("subcarriers", "active_subcarriers", "timeslots", "cp_len", "cs_len",
+                 "block_len", "frame_len", "n_data_symbols"):
+        assert getattr(tc, attr) == getattr(jc, attr), attr
+    np.testing.assert_array_equal(tc.subcarrier_map, jc.subcarrier_map)
+    assert tc.block_len == 9 * K
 
 
 def test_build_dir_checkout_override_and_installed(monkeypatch, tmp_path):

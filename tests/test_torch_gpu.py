@@ -83,22 +83,131 @@ def test_link_kernel_matches_plain(ic_mode, name):
     assert 0.0 < float(evm) < 0.025
 
 
-def test_receiver_tile_too_large_for_shared_memory_raises():
-    """N = 1152 (K=128) needs ~310 KB of shared memory for an 8-burst tile:
-    the launch is refused and the wrapper raises; the Tx kernel still runs."""
+def _rx_tile_bursts(cfg, batch):
+    import ctypes
+
+    from gfdm_tpu_torch.kernels import cuda_lib
+
+    return cuda_lib.library().gfdm_rx_tile_bursts(ctypes.byref(fused._dims(cfg, batch)))
+
+
+@pytest.mark.parametrize("K,tile", [(128, 4), (256, 2)])
+def test_rx_and_link_kernels_at_large_n_match_plain(K, tile):
+    """N = 1152 and 2304 take a 4- and a 2-burst tile (the JAX package runs
+    its dense kernels there too); the ragged last tile is masked."""
+    from gfdm_tpu_torch.entry import large_k_config
+
     dev = _cuda()
-    cfg = GfdmConfig(subcarriers=128, active_subcarriers=100, timeslots=9,
-                     cp_len=32, cs_len=16)
+    cfg = large_k_config(K)
+    assert _rx_tile_bursts(cfg, B) == tile
     data = _payload(cfg, 90, dev)
     bursts = fused.tx_frame_fused(cfg, data)
-    assert _max_err(bursts, fused._tx_frame_plain(cfg, data.reshape(B, -1), 0)) < 3e-5
+    gen = torch.Generator(dev).manual_seed(1)
+    bursts = bursts + 0.01 * torch.randn(bursts.shape, device=dev, generator=gen)
     before = dict(fused.LAUNCHES)
-    with pytest.raises(RuntimeError, match="gfdm_rx kernel failed to launch"):
-        fused.rx_receiver_fused(cfg, bursts)
-    with pytest.raises(RuntimeError, match="gfdm_link kernel failed to launch"):
-        fused.link_single_fused(cfg, data)
-    assert fused.LAUNCHES["rx"] == before["rx"]
-    assert fused.LAUNCHES["link"] == before["link"]
+    chan, sym, _met = fused.rx_receiver_fused(cfg, bursts)
+    d_hat, _snr, evm = fused.link_single_fused(cfg, data)
+    assert fused.LAUNCHES["rx"] == before["rx"] + 1
+    assert fused.LAUNCHES["link"] == before["link"] + 1
+    rchan, rsym, _rmet = fused._rx_receiver_plain(cfg, bursts.reshape(B, -1), 2, "conv")
+    assert _max_err(chan, rchan) < 2e-4
+    assert _max_err(sym, rsym) < 5e-4
+    ref, _met = fused._link_single_plain(cfg, data.reshape(B, -1), 2, "conv")
+    assert _max_err(d_hat, ref) < 1e-4
+    assert 0.0 < float(evm) < 0.025
+
+
+def test_rx_and_link_kernels_refuse_k1024():
+    """N = 9216 needs ~311 KB of shared memory even for a one-burst tile:
+    the launch is refused and each wrapper raises, naming the bytes and the
+    factored receiver."""
+    from gfdm_tpu_torch.entry import large_k_config
+
+    dev = _cuda()
+    cfg = large_k_config(1024)
+    assert _rx_tile_bursts(cfg, 4) == 0
+    before = dict(fused.LAUNCHES)
+    with pytest.raises(RuntimeError, match="gfdm_rx kernel failed to launch.*"
+                                           "311[0-9]{3} B.*rx_receiver_factored"):
+        fused.rx_receiver_fused(cfg, torch.zeros(4, 2, cfg.frame_len, device=dev))
+    with pytest.raises(RuntimeError, match="gfdm_link kernel failed to launch.*"
+                                           "rx_receiver_factored"):
+        fused.link_single_fused(cfg, torch.zeros(4, 2, cfg.n_data_symbols, device=dev))
+    assert fused.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# factored (large-K) kernels
+# ---------------------------------------------------------------------------
+B_FACTORED = 37  # ragged: one CTA a burst
+
+
+def _factored_bursts(cfg, dev, seed):
+    import numpy as np
+
+    data = torch.from_numpy(planar_payload(cfg, B_FACTORED, seed)).to(dev)
+    bursts = fused._tx_factored_plain(cfg, data, 0)
+    rng = np.random.default_rng(seed + 1)
+    noise = rng.standard_normal(tuple(bursts.shape)).astype(np.float32)
+    return data, bursts + 0.01 * torch.from_numpy(noise).to(dev)
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_rx_factored_kernel_with_estimator_matches_plain(K):
+    from gfdm_tpu_torch.entry import large_k_config
+
+    dev = _cuda()
+    cfg = CONFIGS["canonical"] if K == 64 else large_k_config(K)
+    _data, bursts = _factored_bursts(cfg, dev, 100 + K)
+    before = dict(fused.LAUNCHES)
+    chan, sym = fused.rx_receiver_factored(cfg, bursts, estimator="fused")
+    assert fused.LAUNCHES["rx_factored"] == before["rx_factored"] + 1
+    assert fused.LAUNCHES["rx_factored_chan"] == before["rx_factored_chan"]
+    rchan, rsym = fused._rx_factored_plain(cfg, bursts, None, 2)
+    assert _max_err(chan, rchan) < 2e-4
+    assert _max_err(sym, rsym) < 5e-4
+
+
+@pytest.mark.parametrize("K", [256, 1024])
+def test_factored_tx_and_fast_receiver_kernels_match_plain(K):
+    from gfdm_tpu_torch.entry import large_k_config
+
+    dev = _cuda()
+    cfg = large_k_config(K)
+    data, bursts = _factored_bursts(cfg, dev, 200 + K)
+    before = dict(fused.LAUNCHES)
+    tx = fused.tx_frame_factored(cfg, data)
+    assert fused.LAUNCHES["tx_factored"] == before["tx_factored"] + 1
+    assert _max_err(tx, fused._tx_factored_plain(cfg, data, 0)) < 2e-5
+    chan, sym = fused.rx_receiver_factored(cfg, bursts, estimator="fast")
+    assert fused.LAUNCHES["rx_factored_chan"] == before["rx_factored_chan"] + 1
+    assert fused.LAUNCHES["rx_factored"] == before["rx_factored"]
+    rchan, rsym = fused._rx_factored_plain(cfg, bursts, chan, 2)
+    assert torch.equal(chan, rchan)
+    assert _max_err(sym, rsym) < 5e-4
+    # the clean link through both kernels gives every hard decision back
+    d_hat, evm = fused.link_step_factored(cfg, data)
+    assert torch.equal(torch.sign(d_hat), torch.sign(data))
+    assert 0.0 < float(evm) < 0.025
+
+
+def test_factored_kernels_refuse_k2048():
+    """K = 2048 needs 311 KB (Tx) and 459 KB (receiver) of shared memory for
+    one burst: each launch is refused and its wrapper raises, naming the
+    kernel and the bytes."""
+    from gfdm_tpu_torch.entry import large_k_config
+
+    dev = _cuda()
+    cfg = large_k_config(2048)
+    before = dict(fused.LAUNCHES)
+    with pytest.raises(RuntimeError, match="gfdm_tx_factored kernel failed to launch"
+                                           ".*the tx_factored kernel keeps 311296 B"):
+        fused.tx_frame_factored(cfg, torch.zeros(2, 2, cfg.n_data_symbols, device=dev))
+    bursts = torch.zeros(2, 2, cfg.frame_len, device=dev)
+    with pytest.raises(RuntimeError, match="gfdm_rx_factored_chan kernel failed to launch"
+                                           ".*the rx_factored_chan kernel keeps 458752 B"):
+        fused.rx_receiver_factored(cfg, bursts, estimator="fast")
+    assert fused.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------

@@ -230,9 +230,24 @@ def test_unported_options_raise():
         service.StreamingReceiver(TC, batch_chunks=4, max_batch_chunks=2)
     with pytest.raises(ValueError, match="fec"):
         service.StreamingReceiver(TC, fec="ldpc")
-    rx = service.StreamingReceiver(TC, method="fast")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        rx.step(np.zeros((1, 2, CHUNK + HALO), np.float32))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_streaming_receiver_fast_method_matches_jax(k):
+    """engine="xla", method="fast": the factorized receiver behind the
+    service step, on 16 chunks of the bench stream (friendly for k = 1,
+    impaired for k = 2), against the JAX service."""
+    chunks, counts = _bench_stream(16, impaired=k > 1, seed=6)
+    kw = dict(chunk_len=CHUNK, batch_chunks=16, engine="xla", method="fast",
+              max_bursts_per_chunk=k)
+    ref = jax_service.StreamingReceiver(JC, **kw).step(chunks)
+    got = service.StreamingReceiver(TC, **kw).step(chunks)
+    _assert_outputs(got, ref)
+    assert got["found"].sum() == counts.sum()
+    dense = service.StreamingReceiver(TC, **{**kw, "method": "dense"}).step(chunks)
+    f = dense["found"]
+    np.testing.assert_array_equal(got["found"], f)
+    np.testing.assert_allclose(got["data"][f], dense["data"][f], atol=DATA_ATOL)
 
 
 def test_defaults_match_jax():
