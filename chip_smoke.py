@@ -48,7 +48,32 @@ Phases, one line each (any failure exits non-zero and prints no result):
              K = 256, 512 (B = 4,096) and 1,024 (B = 2,048), and the
              estimator="fused" receiver kernel at K = 128.
 
-Then a JSON line of per-kernel results, the card line, and as the last line
+8. options - the receiver kernel against its plain version at B = 16,384
+             noisy bursts for each option combination the JAX package's
+             tests cover: (mmse, qpsk), (mmse_cnr, qpsk), (mmse_cnr, qam16),
+             (mmse, qam64), phase compensation on a 0.1 rad rotation of the
+             data section, qam16 under the matmul IC. Bursts whose IC
+             decisions differ between kernel and plain version (a decision
+             within float rounding of a level boundary; found by running
+             both at 0 and 1 IC iterations) are counted and left out of the
+             max-abs check. The link kernel at qam16, qam64 and bf16 stacks.
+             Then, with the launch counters reset just before, the service
+             (fused engine vs the torch-op xla engine) on 4,096-chunk qam16
+             (mmse_cnr, 30 dB) and qam64 (mmse, 36 dB) streams.
+9. cdd, variants - tx_cdd_fused against its plain version at B = 65,536
+             with shifts (0, 2) and at a ragged B with (0, 3, 7); with the
+             counters reset, the two-antenna CDD link (entry.cdd_link: the
+             example's taps) at 34 dB, no symbol error allowed, and at 28 dB
+             beside its plain version; each superseded receiver (rx_core,
+             rx_ic, rx_full, rx_hybrid) against its plain version at
+             B = 65,536, launched once with the counters reset; then kernel
+             and plain times of the CDD Tx and the four receivers.
+
+Then a JSON line of per-kernel results (launches on the main paths, error
+against the plain version, kernel and plain ms, the bound: the larger of
+the operations over 67 TFLOP/s of fp32 FMA and the bytes, each input read
+once and each output written once, over 3.35 TB/s, at the timed shapes),
+the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -79,13 +104,32 @@ TOL = {
     "peak_atol": 1e-6, "peak_rtol": 1e-4,
     # service: found fraction floor, kernel paths vs the torch-op twostage
     "found_min": 0.999, "found_vs_twostage": 1e-3, "evm_vs_twostage": 1e-3,
+    # options: the share of bursts whose IC decisions differ between kernel
+    # and plain version (each must start from a decision within 1e-5 of a
+    # level boundary: float rounding, not a fault; qam64 measured 2.4e-4 at
+    # 20 dB and on the clean link, so 1e-3); the service's fused vs xla
+    # engines on found slots whose last IC decisions agree, and the share
+    # that differ
+    "excluded_share": 1e-3, "boundary": 1e-5, "engines_data": 2e-3,
+    "engines_flipped_share": 1e-2,
+    # bf16 stacks: float32 sums in another order can leave an activation on
+    # the other side of a bf16 rounding boundary, which moves its burst's
+    # outputs by up to ~5e-3 (CPU: the plain version against JAX's)
+    "bf16_data": 1e-2,
+    # ... and so moves a decision up to ~2e-2 level units from a boundary to
+    # the other side, in a burst of a few hundred (the CPU's one in eight
+    # bursts of JAX vs plain); those bursts are left out, at most 2%
+    "bf16_boundary": 2e-2, "bf16_excluded_share": 2e-2,
 }
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 FMA (no TF32), HBM3
 N_CHUNKS = 4096  # service batch: 8.4 M owned samples a step
 CHUNK_LEN = 2048
 N_RAGGED, RAGGED_TRIM = 37, 5  # chunks of T - 5 samples: not 128-aligned
 SOURCES = {
     "tx": ("tx_frame_fused", "gfdm_tpu_torch/csrc/tx.cu",
            "gfdm_tpu/kernels/fused.py:1662"),
+    "tx_cdd": ("tx_cdd_fused", "gfdm_tpu_torch/csrc/tx.cu",
+               "gfdm_tpu/kernels/fused.py:1709"),
     "rx": ("rx_receiver_fused", "gfdm_tpu_torch/csrc/rx.cu",
            "gfdm_tpu/kernels/fused.py:343"),
     "link": ("link_single_fused", "gfdm_tpu_torch/csrc/link.cu",
@@ -101,7 +145,17 @@ SOURCES = {
     "rx_factored_chan": ("rx_receiver_factored(estimator=fast)",
                          "gfdm_tpu_torch/csrc/factored.cu",
                          "gfdm_tpu/kernels/fused.py:862"),
+    "rx_core": ("rx_core_fused", "gfdm_tpu_torch/csrc/rx.cu",
+                "gfdm_tpu/kernels/fused.py:143"),
+    "rx_ic": ("rx_ic_fused", "gfdm_tpu_torch/csrc/rx.cu",
+              "gfdm_tpu/kernels/fused.py:206"),
+    "rx_full": ("rx_full_fused", "gfdm_tpu_torch/csrc/rx.cu",
+                "gfdm_tpu/kernels/fused.py:684"),
+    "rx_hybrid": ("rx_receiver_hybrid", "gfdm_tpu_torch/csrc/rx.cu",
+                  "gfdm_tpu/kernels/fused.py:1074"),
 }
+B_OPTIONS = 16384  # phase 8's receiver checks
+N_RAGGED_CDD = 4099
 # phase 7: the crossover study's link points (K, B) and the full-width one;
 # estimator="fused" runs at K = 128, where its dense (4K, 2N) E is 4.7 MB
 LARGE_K = ((256, 4096), (512, 4096), (1024, 2048))
@@ -141,6 +195,13 @@ def _time_ms(torch, fn, iters: int = 5) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _timed(torch, fn_k, fn_p):
+    """Kernel and plain times in turns (plain, kernel, kernel, plain):
+    (kernel ms, plain ms, "k1/k2", "p1/p2")."""
+    p1, k1, k2, p2 = (_time_ms(torch, f) for f in (fn_p, fn_k, fn_k, fn_p))
+    return (k1 + k2) / 2, (p1 + p2) / 2, f"{k1:.3f}/{k2:.3f}", f"{p1:.3f}/{p2:.3f}"
 
 
 def _noisy(torch, bursts, seed: int, snr_db: float = 20.0):
@@ -303,12 +364,10 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
         ("detect_front", detect._detect_front_cuda, detect._detect_front_plain),
         ("detect_lean", detect._detect_lean_cuda, detect._detect_lean_plain),
     ):
-        p1 = _time_ms(torch, lambda: plain(cfg, s, CHUNK_LEN))
-        k1 = _time_ms(torch, lambda: kern(cfg, s, CHUNK_LEN))
-        k2 = _time_ms(torch, lambda: kern(cfg, s, CHUNK_LEN))
-        p2 = _time_ms(torch, lambda: plain(cfg, s, CHUNK_LEN))
-        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"[6 time] {key}: kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms,"
+        k_ms, p_ms, ks, ps = _timed(torch, lambda: kern(cfg, s, CHUNK_LEN),
+                                    lambda: plain(cfg, s, CHUNK_LEN))
+        times[key] = (k_ms, p_ms)
+        print(f"[6 time] {key}: kernel {ks} ms, plain {ps} ms,"
               f" kernel {N_CHUNKS * s.shape[-1] / (times[key][0] / 1e3):.4e} samples/s "
               f"(B={N_CHUNKS}, T={s.shape[-1]}, {card})", flush=True)
     del s
@@ -451,10 +510,6 @@ def _large_k_phase(torch, dev, card, check, failures):
     # through the kernels, their plain versions and the torch-op fast chain
     times = {}
 
-    def timed(fn_k, fn_p):
-        p1, k1, k2, p2 = (_time_ms(torch, f) for f in (fn_p, fn_k, fn_k, fn_p))
-        return (k1 + k2) / 2, (p1 + p2) / 2, f"{k1:.3f}/{k2:.3f}", f"{p1:.3f}/{p2:.3f}"
-
     for K, Bk in LARGE_K + ((K_ESTIMATOR, B_LARGE_K),):
         cfg, data = cfgs[K], payload[K]
         bursts = fused.tx_frame_factored(cfg, data)
@@ -473,7 +528,7 @@ def _large_k_phase(torch, dev, card, check, failures):
                          lambda: _factored_link_plain(cfg, data, "fast")),
             }
         for name, (fn_k, fn_p) in runs.items():
-            k_ms, p_ms, ks, ps = timed(fn_k, fn_p)
+            k_ms, p_ms, ks, ps = _timed(torch, fn_k, fn_p)
             if K in (K_FULL, K_ESTIMATOR) and name != "link":
                 times[name] = (k_ms, p_ms)
             print(f"[7 time] K={K} B={Bk} {name}: kernel {ks} ms, plain {ps} ms "
@@ -490,6 +545,429 @@ def _large_k_phase(torch, dev, card, check, failures):
     return launches, err, times
 
 
+def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
+          T: int = 0, n_valid: int = 0) -> tuple[float, float]:
+    """(fp32 operations, bytes) of one call of kernel ``key`` at these
+    shapes: the kernel's sums as written (a real MAC is 2 operations, a
+    complex MAC 8; a Gauss product of an (a, b) operator 3 a b real MACs),
+    each input read once (constants included) and each output written once."""
+    from gfdm_tpu_torch.kernels import fused
+
+    n, nd, K, M, L = (cfg.block_len, cfg.n_data_symbols, cfg.subcarriers,
+                      cfg.timeslots, cfg.overlap)
+    half, fl, f4 = 2 * K, cfg.frame_len, 4
+    met_w = fused._met_layout(cfg)[1]
+
+    def g(a, b):  # operations and bytes of a float32 Gauss product
+        return 6.0 * a * b, 12.0 * a * b
+
+    conv_ic = 2 * 8.0 * M * n  # 2 iterations, M complex taps an output
+    ic = (2 * g(n, n)[0], 6.0 * n * n) if ic_mode == "matmul" else (conv_ic, 8.0 * M)
+    est, dft2, dft, bfd, tx = g(half, n), g(half, half), g(n, n), g(n, n), g(nd, n)
+    rx_ops = est[0] + dft2[0] + dft[0] + bfd[0] + ic[0]
+    rx_const = est[1] + dft2[1] + dft[1] + bfd[1] + ic[1]
+    if key in ("tx", "tx_cdd"):
+        return batch * tx[0], f4 * batch * (2 * nd + ports * 2 * fl) + tx[1]
+    if key == "rx":
+        return batch * rx_ops, f4 * batch * (2 * fl + 4 * n + met_w) + rx_const
+    if key == "link":
+        return batch * (tx[0] + rx_ops), f4 * batch * (4 * nd + met_w) + tx[1] + rx_const
+    if key in ("rx_core", "rx_ic"):
+        ops = dft[0] + bfd[0] + (conv_ic if key == "rx_ic" else 0.0)
+        return batch * ops, f4 * batch * 6 * n + dft[1] + bfd[1]
+    if key == "rx_full":
+        ops = est[0] + dft[0] + bfd[0] + conv_ic
+        return batch * ops, f4 * batch * (2 * fl + 2 * n) + est[1] + dft[1] + bfd[1]
+    if key == "rx_hybrid":
+        ops = est[0] + dft[0] + 8.0 * n * (L + M) + conv_ic
+        return batch * ops, f4 * batch * (2 * fl + 4 * n) + est[1] + dft[1]
+    if key in ("rx_factored", "rx_factored_chan"):
+        ops = 8.0 * M * K * K + 8.0 * n * (2 * M + L) + conv_ic
+        io = 2 * fl + 4 * n  # bursts in; chan in or out; symbols out
+        if key == "rx_factored":
+            return batch * (ops + 16.0 * K * n), f4 * batch * io + 32.0 * K * n
+        return batch * ops, f4 * batch * io
+    if key == "tx_factored":
+        return batch * (8.0 * M * K * K + 8.0 * n * (2 * M + L)), f4 * batch * (2 * nd + 2 * fl)
+    if key in ("detect_front", "detect_lean"):
+        # per position: K-lag autocorrelation (K complex MACs), 2K energy
+        # (2K real |.|^2), 2K-tap cross-correlation (2K complex MACs)
+        n_ac = T - 2 * K
+        pos = n_ac if key == "detect_front" else n_valid
+        out = 4 * n_ac + n_valid if key == "detect_front" else 2 * n_valid
+        return batch * pos * 32.0 * K, f4 * batch * (2 * T + out)
+    raise KeyError(key)
+
+
+def _bound(key: str, cfg, batch: int, **kw) -> tuple[float, str]:
+    """The least time (ms) the card could take, and what bounds it."""
+    ops, nbytes = _work(key, cfg, batch, **kw)
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _points_payload(torch, cfg, name: str, batch: int, seed: int, dev):
+    """(batch, 2, n_data) planar payload of the constellation's points."""
+    from gfdm_tpu_torch.ops.rx import constellation_points
+
+    pts = constellation_points(name)
+    idx = np.random.default_rng(seed).integers(0, pts.size, (batch, cfg.n_data_symbols))
+    sym = np.stack([pts[idx].real, pts[idx].imag], axis=1).astype(np.float32)
+    return torch.from_numpy(sym).to(dev)
+
+
+def _rotate_data(torch, bursts, start: int, phi: float):
+    """The burst's samples from ``start`` on rotated by ``phi`` (a common
+    phase offset of the data section; the preamble estimate absorbs a
+    rotation of the whole burst)."""
+    c, s = np.cos(phi), np.sin(phi)
+    out = bursts.clone()
+    re, im = bursts[:, 0, start:], bursts[:, 1, start:]
+    out[:, 0, start:] = c * re - s * im
+    out[:, 1, start:] = s * re + c * im
+    return out
+
+
+def _levels(torch, x, name: str):
+    """Per-axis decision levels of planar symbols (torch or numpy): the
+    nearest point of the square Gray constellation ``name``."""
+    from gfdm_tpu_torch.kernels import fused
+
+    t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
+    return fused._ic_level(t, name)
+
+
+def _boundary_distance(u, name: str):
+    """Distance of each decision input to its nearest level boundary, in
+    level units (QPSK: |u|; qam: of (u scale - 1) / 2 to a half-integer)."""
+    from gfdm_tpu_torch.kernels import fused
+
+    if name == "qpsk":
+        return u.abs()
+    scale, _lim = fused._QAM_LEVELS[name]
+    t = (u * scale - 1.0) / 2.0
+    return (t - t.floor() - 0.5).abs()
+
+
+def _flipped_bursts(runs, name: str, near_tol: float, mask=None, phase: bool = False):
+    """Bursts whose IC decisions differ between kernel and plain version.
+
+    ``runs``: (kernel rows, plain rows) after 0 and after 1 of the 2 IC
+    iterations, (B, 2 n) each; ``mask`` (2 n) zeroes the inactive symbols.
+    The output is d0 minus the interference of the last iteration's
+    decisions (made on the rows after 1 iteration), so a burst is flipped
+    where those differ, or, with phase compensation (whose rotation the
+    first decisions set), where the first ones do. Returns the flipped mask
+    and whether each flipped burst is explained by decisions within
+    ``near_tol`` of a level boundary, at the last iteration or at the first
+    (whose flip moves the inputs of the last)."""
+    from gfdm_tpu_torch.kernels import fused
+
+    diff, expl = [], []
+    for s_k, s_p in runs:
+        d = fused._ic_level(s_k, name) != fused._ic_level(s_p, name)
+        if mask is not None:
+            d &= mask != 0
+        diff.append(d.any(dim=1))
+        expl.append((~d | (_boundary_distance(s_k, name) < near_tol)).all(dim=1))
+    flipped = diff[1] | diff[0] if phase else diff[1]
+    explained = (diff[1] & expl[1]) | (diff[0] & expl[0]) | ~flipped
+    return flipped, bool(explained.all())
+
+
+def _options_phase(torch, cfg, dev, card, check, failures):
+    """Phase 8: every receiver and link option through the kernels, and the
+    fused-engine service at qam16 / qam64. Returns the rx and link errors
+    and the rx launches of the service run."""
+    from gfdm_tpu_torch.entry import service_stream
+    from gfdm_tpu_torch.kernels import fused
+    from gfdm_tpu_torch.runtime.service import StreamingReceiver
+
+    Bo = B_OPTIONS
+    act = fused._kernel_consts(cfg, dev)["act"]
+    act2 = torch.cat([act, act])
+    err = {"rx": 0.0, "link": 0.0}
+    cases = (("mmse", "qpsk", False, "conv"), ("mmse_cnr", "qpsk", False, "conv"),
+             ("mmse_cnr", "qam16", False, "conv"), ("mmse", "qam64", False, "conv"),
+             ("zf", "qpsk", True, "conv"), ("zf", "qam16", False, "matmul"))
+    for ci, (eq, name, phase, mode) in enumerate(cases):
+        data = _points_payload(torch, cfg, name, Bo, 80 + ci, dev)
+        bursts = fused.tx_frame_fused(cfg, data)
+        if phase:
+            bursts = _rotate_data(torch, bursts, cfg.preamble_len, 0.1)
+        noisy = _noisy(torch, bursts, 90 + ci).contiguous()
+        flat = noisy.reshape(Bo, -1)
+        kw = dict(constellation=name, equalizer=eq, phase_compensation=phase)
+        chan, sym, met = fused.rx_receiver_fused(cfg, noisy, ic_mode=mode, **kw)
+        rchan, rsym, rmet = fused._rx_receiver_plain(cfg, flat, 2, mode, **kw)
+        # bursts whose decisions of iteration 0 or 1 differ
+        runs = [(fused.rx_receiver_fused(cfg, noisy, ic_iterations=it, ic_mode=mode,
+                                         **kw)[1].reshape(Bo, -1),
+                 fused._rx_receiver_plain(cfg, flat, it, mode, **kw)[1]) for it in (0, 1)]
+        differ, explained = _flipped_bursts(runs, name, TOL["boundary"], act2, phase)
+        del runs
+        keep = ~differ
+        n_ex = int(differ.sum())
+        if not explained:
+            failures.append(f"rx[{eq},{name}]: a decision differs away from a boundary")
+        ec = _max_abs(chan.reshape(Bo, -1), rchan)
+        es = _max_abs(sym.reshape(Bo, -1)[keep], rsym[keep])
+        err["rx"] = max(err["rx"], ec, es)
+        label = f"{eq},{name}" + (",phase 0.1 rad" if phase else "") + f",{mode}"
+        print(f"[8 check] rx[{label}] B={Bo} excluded={n_ex} " + " ".join([
+            check("excluded_share", n_ex / Bo, TOL["excluded_share"]),
+            check("chan", ec, TOL["chan"]),
+            check("symbols", es, TOL["symbols"]),
+            check("snr_rel", _max_rel(met[:, 0], rmet[:, 0]), TOL["snr_rtol"]),
+        ]), flush=True)
+        if phase:  # the correction must matter: off, the symbols stay rotated
+            idx = fused._kernel_consts(cfg, dev)["demap_idx"]
+            e = {}
+            for on in (True, False):
+                d = fused.rx_receiver_fused(cfg, bursts, ic_mode=mode, constellation=name,
+                                            equalizer=eq, phase_compensation=on)[1]
+                e[on] = float((d[..., idx] - data).abs().max())
+            print(f"[8 check] phase compensation on the clean rotated bursts: max "
+                  f"|d - payload| on {e[True]:.4f} off {e[False]:.4f} "
+                  + check("on/off", e[True] / e[False], 0.5), flush=True)
+        del noisy, flat, chan, sym, rchan, rsym
+    for name, dtype_name in (("qam16", "float32"), ("qam64", "float32"),
+                             ("qpsk", "bfloat16"), ("qam16", "bfloat16")):
+        data = _points_payload(torch, cfg, name, Bo, 70, dev)
+        flat = data.reshape(Bo, -1)
+        lkw = dict(constellation=name, dtype_name=dtype_name)
+        d_hat, _snr, evm_k = fused.link_single_fused(cfg, data, ic_mode="matmul", **lkw)
+        ref, _met = fused._link_single_plain(cfg, flat, 2, "matmul", name,
+                                             dtype_name=dtype_name)
+        runs = [(fused.link_single_fused(cfg, data, ic_iterations=it, ic_mode="matmul",
+                                         **lkw)[0].reshape(Bo, -1),
+                 fused._link_single_plain(cfg, flat, it, "matmul", name,
+                                          dtype_name=dtype_name)[0]) for it in (0, 1)]
+        bf16 = dtype_name == "bfloat16"
+        differ, explained = _flipped_bursts(
+            runs, name, TOL["bf16_boundary"] if bf16 else TOL["boundary"])
+        del runs
+        keep = ~differ
+        n_ex = int(differ.sum())
+        if not explained:
+            failures.append(f"link[{name},{dtype_name}]: a decision differs away from a "
+                            "boundary")
+        e = _max_abs(d_hat.reshape(Bo, -1)[keep], ref[keep])
+        err["link"] = max(err["link"], e)
+        evm_p = float(((ref - flat) ** 2).sum() / (flat**2).sum()) ** 0.5
+        tol = TOL["data"] if dtype_name == "float32" else TOL["bf16_data"]
+        # the clean loopback's own decision errors (qam64 has a floor): the
+        # kernel's must be the plain version's
+        wrong = int((_levels(torch, d_hat, name) != _levels(torch, data, name)).sum())
+        wrong_p = int((_levels(torch, ref.reshape(data.shape), name)
+                       != _levels(torch, data, name)).sum())
+        over = int(((d_hat.reshape(Bo, -1) - ref).abs().amax(dim=1) > TOL["data"]).sum())
+        print(f"[8 check] link[{name},{dtype_name},matmul] B={Bo} evm={float(evm_k):.6f} "
+              f"plain={evm_p:.6f} excluded={n_ex} bursts over {TOL['data']}: {over} "
+              f"wrong decisions {wrong} plain {wrong_p} "
+              + " ".join([check("excluded_share", n_ex / Bo,
+                                TOL["bf16_excluded_share" if bf16 else "excluded_share"]),
+                          check("data", e, tol),
+                          check("|d_evm|", abs(float(evm_k) - evm_p), TOL["evm"]),
+                          check("|d_wrong|", float(abs(wrong - wrong_p)),
+                                0.01 * wrong_p + 2)]), flush=True)
+        del data, flat, d_hat, ref
+
+    # option costs at B_OPTIONS (plain, kernel, kernel, plain): the receiver
+    # at mmse_cnr / qam16 beside zf / qpsk, the link with bf16 stacks beside
+    # float32
+    data = _points_payload(torch, cfg, "qam16", Bo, 60, dev)
+    noisy = _noisy(torch, fused.tx_frame_fused(cfg, data), 61).contiguous()
+    flat, nflat = data.reshape(Bo, -1), noisy.reshape(Bo, -1)
+    runs = {
+        "rx[zf,qpsk]": (lambda: fused.rx_receiver_fused(cfg, noisy),
+                        lambda: fused._rx_receiver_plain(cfg, nflat, 2, "conv")),
+        "rx[mmse_cnr,qam16]": (
+            lambda: fused.rx_receiver_fused(cfg, noisy, equalizer="mmse_cnr",
+                                            constellation="qam16"),
+            lambda: fused._rx_receiver_plain(cfg, nflat, 2, "conv", equalizer="mmse_cnr",
+                                             constellation="qam16")),
+        "link[float32,matmul]": (
+            lambda: fused.link_single_fused(cfg, data, ic_mode="matmul"),
+            lambda: fused._link_single_plain(cfg, flat, 2, "matmul")),
+        "link[bfloat16,matmul]": (
+            lambda: fused.link_single_fused(cfg, data, ic_mode="matmul", dtype_name="bfloat16"),
+            lambda: fused._link_single_plain(cfg, flat, 2, "matmul", dtype_name="bfloat16")),
+    }
+    for label, (fn_k, fn_p) in runs.items():
+        _k, _p, ks, ps = _timed(torch, fn_k, fn_p)
+        print(f"[8 time] {label}: kernel {ks} ms, plain {ps} ms (B={Bo}, {card})", flush=True)
+    del data, noisy, flat, nflat, runs
+
+    # the service at qam16 / qam64: fused engine vs the torch-op xla engine
+    rx_launches, samples = 0, N_CHUNKS * CHUNK_LEN
+    for name, eq, snr_db in (("qam16", "mmse_cnr", 30.0), ("qam64", "mmse", 36.0)):
+        chunks, counts, payload = service_stream(cfg, N_CHUNKS, CHUNK_LEN, snr_db, False,
+                                                 np.random.default_rng(0), name)
+        kw = dict(chunk_len=CHUNK_LEN, batch_chunks=N_CHUNKS, equalizer=eq,
+                  constellation=name, device=dev)
+        fused_rx = StreamingReceiver(cfg, engine="fused", **kw)
+        xla_rx = StreamingReceiver(cfg, engine="xla", **kw)
+        # the last IC decisions are made on the symbols after one iteration:
+        # slots where the engines decide differently there are left out
+        last = [StreamingReceiver(cfg, engine=engine, ic_iterations=1, **kw).step(
+            chunks)["data"] for engine in ("fused", "xla")]
+        dev_chunks = torch.from_numpy(chunks).to(dev)
+        fused_rx._step(dev_chunks)  # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        out = fused_rx.step(chunks)
+        run = _launches()
+        rx_launches = run["rx"]
+        if run["rx"] < 1:
+            failures.append(f"kernel rx was not launched on the service path ({name})")
+        ref = xla_rx.step(chunks)
+        ms = _time_ms(torch, lambda: fused_rx._step(dev_chunks))
+        ms_x = _time_ms(torch, lambda: xla_rx._step(dev_chunks))
+        f = out["found"]
+        found = float(f.sum()) / float(counts.sum())
+        both = f & ref["found"]
+        lv_f = _levels(torch, last[0][both], name)
+        lv_x = _levels(torch, last[1][both], name)
+        agree = ~(lv_f != lv_x).reshape(lv_f.shape[0], -1).any(dim=1).numpy()
+        flipped = float((~agree).sum()) / max(int(both.sum()), 1)
+        e = float(np.abs(out["data"][both][agree] - ref["data"][both][agree]).max())
+        # the payload's decisions: the fused engine no worse than the xla one
+        wrong = int((_levels(torch, out["data"][f], name)
+                     != _levels(torch, payload[f], name)).sum())
+        wrong_x = int((_levels(torch, ref["data"][ref["found"]], name)
+                       != _levels(torch, payload[ref["found"]], name)).sum())
+        if not np.isfinite(out["data"][f]).all():
+            failures.append(f"service[{name}]: non-finite found-slot data")
+        print(f"[8 service] {name} {eq} {snr_db:.0f} dB: found={int(f.sum())}/"
+              f"{int(counts.sum())} step {ms:.3f} ms = {samples / (ms / 1e3):.4e} "
+              f"samples/s (xla engine {ms_x:.3f} ms) launches={{rx: {run['rx']}}} "
+              f"wrong decisions fused {wrong} xla {wrong_x} of {int(f.sum()) * 2 * cfg.n_data_symbols} "
+              + " ".join([check("1-found", 1.0 - found, 1.0 - TOL["found_min"]),
+                          check("found!=xla", float((f != ref["found"]).sum()), 0.0),
+                          check("flipped_share", flipped, TOL["engines_flipped_share"]),
+                          check("data_vs_xla", e, TOL["engines_data"]),
+                          check("wrong-xla", float(wrong - wrong_x),
+                                0.01 * wrong_x + 2)])
+              + f" ({N_CHUNKS} chunks x {CHUNK_LEN}, {card})", flush=True)
+        del dev_chunks, out, ref
+    return err, rx_launches
+
+
+def _cdd_variants_phase(torch, cfg, dev, data, noisy, card, check, failures):
+    """Phase 9: the CDD transmitter and two-antenna link, and the four
+    superseded receivers. Returns launches, errors and (kernel, plain) ms."""
+    from gfdm_tpu_torch import GfdmConfig
+    from gfdm_tpu_torch.entry import cdd_channel, cdd_link
+    from gfdm_tpu_torch.kernels import fused
+
+    Bc = data.shape[0]
+    flat = data.reshape(Bc, -1)
+    cfg_c = GfdmConfig(cyclic_shifts=(0, 2))
+    err, launches, times = {}, {}, {}
+    got = fused.tx_cdd_fused(cfg_c, data)
+    e1 = _max_abs(got.reshape(Bc, -1), fused._tx_cdd_plain(cfg_c, flat).reshape(Bc, -1))
+    cfg_r = GfdmConfig(cyclic_shifts=(0, 3, 7))
+    small = data[:N_RAGGED_CDD].contiguous()
+    got_r = fused.tx_cdd_fused(cfg_r, small)
+    e2 = _max_abs(got_r.reshape(N_RAGGED_CDD, -1),
+                  fused._tx_cdd_plain(cfg_r, small.reshape(N_RAGGED_CDD, -1))
+                  .reshape(N_RAGGED_CDD, -1))
+    err["tx_cdd"] = max(e1, e2)
+    print(f"[9 check] " + " ".join([check(f"tx_cdd[B={Bc},shifts=(0,2)]", e1, TOL["tx"]),
+                                    check(f"tx_cdd[B={N_RAGGED_CDD},shifts=(0,3,7)]", e2,
+                                          TOL["tx"])]), flush=True)
+    del got, got_r
+
+    # the two-antenna link through the user's entry point, launches counted
+    _reset_launches()
+    torch.cuda.synchronize()
+    d34 = cdd_link(cfg_c, data, 34.0, 9)
+    torch.cuda.synchronize()
+    run = _launches()
+    launches["tx_cdd"] = run["tx_cdd"]
+    for key in ("tx_cdd", "rx"):
+        if run[key] < 1:
+            failures.append(f"kernel {key} was not launched on the CDD link")
+    wrong34 = int((torch.sign(d34) != torch.sign(data)).sum())
+    ok = tuple(d34.shape) == tuple(data.shape) and bool(torch.isfinite(d34).all())
+    if not ok:
+        failures.append("CDD link: outputs shape/finite")
+    # 28 dB (the example's SNR): the kernels' path and the plain versions'
+    # on the same channel and noise
+    rx_k = cdd_channel(fused.tx_cdd_fused(cfg_c, data), 28.0, 10)
+    d_k = fused.receive_bursts_fused(cfg_c, rx_k, ic_iterations=4)["data"]
+    rx_p = cdd_channel(fused._tx_cdd_plain(cfg_c, flat).reshape(Bc, 2, 2, -1), 28.0, 10)
+    sym_p = fused._rx_receiver_plain(cfg_c, rx_p.reshape(Bc, -1), 4, "conv")[1]
+    idx = fused._kernel_consts(cfg_c, dev)["demap_idx"]
+    n = cfg_c.block_len
+    d_p = torch.stack([sym_p[:, :n][:, idx], sym_p[:, n:][:, idx]], dim=1)
+    wrong_k = int((torch.sign(d_k) != torch.sign(data)).sum())
+    wrong_p = int((torch.sign(d_p) != torch.sign(data)).sum())
+    print(f"[9 main] CDD link B={Bc} shifts=(0,2) taps of examples/cdd_two_antenna.py "
+          f"launches={{tx_cdd: {run['tx_cdd']}, rx: {run['rx']}}} | 34 dB "
+          + check("symbol_errors", float(wrong34), 0.0)
+          + f" | 28 dB symbol errors kernels {wrong_k} plain {wrong_p} of "
+          f"{data.numel()} " + check("|d_errors|", float(abs(wrong_k - wrong_p)),
+                                     0.01 * wrong_p + 2), flush=True)
+    del d34, rx_k, d_k, rx_p, sym_p, d_p
+
+    # the superseded receivers, each launched once with the counters reset
+    fs, n = cfg.preamble_len + cfg.cp_len, cfg.block_len
+    nflat = noisy.reshape(Bc, -1)
+    chan = fused._rx_receiver_plain(cfg, nflat, 0, "conv")[0]
+    frames = noisy[..., fs : fs + n].contiguous()
+    fflat, chan3 = frames.reshape(Bc, -1), chan.reshape(Bc, 2, n)
+    amp = 2.0**-0.5
+    kern = {
+        "rx_core": lambda: fused.rx_core_fused(cfg, frames, chan3),
+        "rx_ic": lambda: fused.rx_ic_fused(cfg, frames, chan3),
+        "rx_full": lambda: fused.rx_full_fused(cfg, noisy),
+        "rx_hybrid": lambda: fused.rx_receiver_hybrid(cfg, noisy),
+    }
+    plain = {
+        "rx_core": lambda: fused._rx_variant_plain("rx_core", cfg, fflat, chan, 0, amp),
+        "rx_ic": lambda: fused._rx_variant_plain("rx_ic", cfg, fflat, chan, 2, amp),
+        "rx_full": lambda: fused._rx_variant_plain("rx_full", cfg, nflat, None, 2, amp),
+        "rx_hybrid": lambda: fused._rx_variant_plain("rx_hybrid", cfg, nflat, None, 2, amp),
+    }
+    _reset_launches()
+    torch.cuda.synchronize()
+    outs = {key: fn() for key, fn in kern.items()}
+    torch.cuda.synchronize()
+    run = _launches()
+    parts = []
+    for key, out in outs.items():
+        launches[key] = run[key]
+        if run[key] < 1:
+            failures.append(f"kernel {key} was not launched")
+        ref_chan, ref_sym = plain[key]()
+        if key == "rx_hybrid":
+            ec = _max_abs(out[0].reshape(Bc, -1), ref_chan)
+            parts.append(check(f"{key}:chan", ec, TOL["chan"]))
+            out = out[1]
+        else:
+            ec = 0.0
+        es = _max_abs(out.reshape(Bc, -1), ref_sym)
+        err[key] = max(ec, es)
+        parts.append(check(f"{key}:symbols", es, TOL["symbols"]))
+        if not bool(torch.isfinite(out).all()):
+            failures.append(f"{key}: non-finite symbols")
+    print(f"[9 check] B={Bc} launches={ {k: run[k] for k in kern} } " + " ".join(parts),
+          flush=True)
+    del outs
+
+    # times (plain, kernel, kernel, plain)
+    runs = {"tx_cdd": (lambda: fused.tx_cdd_fused(cfg_c, data),
+                       lambda: fused._tx_cdd_plain(cfg_c, flat))}
+    runs.update({key: (kern[key], plain[key]) for key in kern})
+    for key, (fn_k, fn_p) in runs.items():
+        k_ms, p_ms, ks, ps = _timed(torch, fn_k, fn_p)
+        times[key] = (k_ms, p_ms)
+        print(f"[9 time] {key}: kernel {ks} ms, plain {ps} ms (B={Bc}, {card})", flush=True)
+    return launches, err, times
+
+
 def main() -> int:
     import torch
 
@@ -497,7 +975,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from gfdm_tpu_torch import GfdmConfig
-    from gfdm_tpu_torch.entry import entry, planar_payload, service_stream
+    from gfdm_tpu_torch.entry import entry, large_k_config, planar_payload, service_stream
     from gfdm_tpu_torch.kernels import cuda_lib, fused
     from gfdm_tpu_torch.ops.planar_pipeline import evm, link_step_planar
 
@@ -647,15 +1125,11 @@ def main() -> int:
     }
     times = {}
     for name, (kern, plain) in runs.items():
-        p1 = _time_ms(torch, plain)
-        k1 = _time_ms(torch, kern)
-        k2 = _time_ms(torch, kern)
-        p2 = _time_ms(torch, plain)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        rate = B * cfg.frame_len / (times[name][0] / 1e3)
-        print(f"[5 time] {name}: kernel {k1:.3f}/{k2:.3f} ms, plain "
-              f"{p1:.3f}/{p2:.3f} ms, kernel {rate:.4e} samples/s "
-              f"(B={B}, {card})", flush=True)
+        k_ms, p_ms, ks, ps = _timed(torch, kern, plain)
+        times[name] = (k_ms, p_ms)
+        rate = B * cfg.frame_len / (k_ms / 1e3)
+        print(f"[5 time] {name}: kernel {ks} ms, plain {ps} ms, kernel {rate:.4e} "
+              f"samples/s (B={B}, {card})", flush=True)
 
     # 6. the streaming receive service
     svc_launches, det_times = _service_phase(torch, cfg, dev, streams, card,
@@ -670,17 +1144,51 @@ def main() -> int:
     for key, e in lk_err.items():
         err[key] = max(err.get(key, 0.0), e)
 
+    # 8. receiver and link options, the service at qam16 / qam64
+    opt_err, svc_rx = _options_phase(torch, cfg, dev, card, check, failures)
+    for key, e in opt_err.items():
+        err[key] = max(err[key], e)
+
+    # 9. the CDD transmitter and link, the superseded receivers
+    cv_launches, cv_err, cv_times = _cdd_variants_phase(torch, cfg, dev, data, noisy, card,
+                                                        check, failures)
+    launches.update(cv_launches)
+    err.update(cv_err)
+    times.update(cv_times)
+
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
+    # the bound at each kernel's timed shapes
+    lk = {K: large_k_config(K) for K in (K_FULL, K_ESTIMATOR)}
+    shapes = {
+        "tx": (cfg, B, {}), "tx_cdd": (GfdmConfig(cyclic_shifts=(0, 2)), B, {"ports": 2}),
+        "rx": (cfg, B, {}), "link": (cfg, B, {"ic_mode": "matmul"}),
+        "detect_front": (cfg, N_CHUNKS, {"T": CHUNK_LEN + cfg.frame_len + cfg.cp_len,
+                                         "n_valid": CHUNK_LEN}),
+        "detect_lean": (cfg, N_CHUNKS, {"T": CHUNK_LEN + cfg.frame_len + cfg.cp_len,
+                                        "n_valid": CHUNK_LEN}),
+        "tx_factored": (lk[K_FULL], B_LARGE_K, {}),
+        "rx_factored": (lk[K_ESTIMATOR], B_LARGE_K, {}),
+        "rx_factored_chan": (lk[K_FULL], B_LARGE_K, {}),
+        "rx_core": (cfg, B, {}), "rx_ic": (cfg, B, {}), "rx_full": (cfg, B, {}),
+        "rx_hybrid": (cfg, B, {}),
+    }
     kernels = []
     for key, (name, source, replaces) in SOURCES.items():
+        kcfg, kb, kw = shapes[key]
+        bound_ms, bound_by = _bound(key, kcfg, kb, **kw)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": err[key], "ms": times[key][0],
-            "plain_ms": times[key][1],
+            "plain_ms": times[key][1], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
         })
+        print(f"[bound] {key}: {bound_ms:.3f} ms ({bound_by}) at B={kb}; kernel "
+              f"{times[key][0]:.3f} ms = {bound_ms / times[key][0]:.1%} of the bound "
+              f"({card})", flush=True)
+    print(f"[8 main] service launches rx={svc_rx}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

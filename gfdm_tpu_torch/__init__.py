@@ -8,9 +8,11 @@ counterpart of the same name:
 - :mod:`.ref` - the NumPy golden-model modules the operators need;
 - :mod:`.ops` - operators (NumPy), planar primitives, the planar link and
   the detection/extraction path as plain torch ops;
-- :mod:`.kernels` - the fused Tx, receiver and one-kernel link and the two
-  detection front-end kernels, written in CUDA C++ for Hopper (``csrc/``),
-  each with its plain torch version;
+- :mod:`.kernels` - a counterpart of every Pallas kernel of the reference:
+  the fused Tx (one port or every CDD port), the receiver with every option,
+  the one-kernel link, the superseded receivers, the large-K factored
+  kernels and the two detection front-end kernels, written in CUDA C++ for
+  Hopper (``csrc/``), each with its plain torch version;
 - :mod:`.runtime` - chunked streams and the streaming receive service;
 - :mod:`.entry` - the main-path step and the service's synthetic stream,
   :mod:`.convert` - constants carried over from the JAX package.

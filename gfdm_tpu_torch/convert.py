@@ -43,17 +43,38 @@ def _put(out: dict, name: str, t: torch.Tensor) -> None:
     out[name] = t
 
 
-def operators_from_numpy(np_consts: dict, device="cpu") -> dict[str, torch.Tensor]:
+def _circulant_blocks(c: np.ndarray, K: int) -> np.ndarray:
+    """(N, N) block diagonal of K circulant (M, M) blocks in row convention:
+    entry (k M + m', k M + m) = c[(m - m') mod M]."""
+    M = c.size
+    j = (np.arange(M)[None, :] - np.arange(M)[:, None]) % M
+    return np.kron(np.eye(K), c[j])
+
+
+def operators_from_numpy(np_consts: dict, device="cpu",
+                         amp: float = _QPSK_AMP) -> dict[str, torch.Tensor]:
     """JAX-package constants (NumPy) -> the port's constant cache on ``device``.
 
     Arrays pass through under their names (integers as int32, ml_dtypes
-    bf16 as torch.bfloat16). These names are translated:
+    bf16 as torch.bfloat16: the bf16 Gauss stacks of the link's
+    ``dtype_name="bfloat16"`` come across bit for bit). These names are
+    translated, ``amp`` being the IC amplitude folded into the IC constants
+    (the QPSK one by default; ``_IC_AMPS`` of qam16 / qam64 or a
+    ``qpsk_amp`` override):
 
     - ``met_selection`` (2K, met_w) -> ``sig_idx`` and ``noise_idx``;
     - ``demap_selection`` (N, n_data) -> ``demap_idx``;
-    - ``ic_matmul_stack`` (3N, N) bf16 -> ``icop``;
-    - ``C_W`` -> also ``taps`` (2, M), column 0 of the circulant times the
-      QPSK amplitude (the conv-mode IC taps);
+    - ``ic_matmul_stack`` (3N, N) bf16, built at ``amp`` -> ``icop``;
+    - ``C_W`` -> also ``taps`` (2, M), column 0 of the circulant times
+      ``amp`` (the conv-mode IC taps, what the superseded receivers' IC
+      reads in place of the realified C_W product);
+    - ``block_diag_C`` (BDr, BDi), the (N, N) block-diagonal circulant of
+      ``_rx_ic_kernel``, is checked against the circulant of ``C_W``'s row
+      0 to 1e-6 (needs ``C_W`` beside it) and dropped: the kernels read the
+      taps;
+    - ``cnri_pad`` (pad_n, N), the mmse_cnr operator with zero rows padded
+      to a sublane multiple -> ``CNRI_T`` (n_cnr, N), the zero rows checked
+      and dropped (n_cnr from ``met_selection`` or ``CNRI_T`` beside it);
     - ``active`` (K,) -> also ``act`` (N,), the per-symbol mask (needs
       ``ic_taps`` beside it, as ``_small_consts`` gives both);
     - ``circ_masks`` (M-1, N) is checked against ``(col % M) < j`` and
@@ -61,8 +82,24 @@ def operators_from_numpy(np_consts: dict, device="cpu") -> dict[str, torch.Tenso
     """
     out: dict[str, torch.Tensor] = {}
     for name, a in np_consts.items():
+        if name == "block_diag_C":
+            bd = np.asarray(a[0], dtype=np.float64) + 1j * np.asarray(a[1], dtype=np.float64)
+            cw = np.asarray(np_consts["C_W"])
+            M = cw.shape[0] // 2
+            c = cw[0, :M].astype(np.float64) + 1j * cw[0, M:].astype(np.float64)
+            # the float64 product idft diag dft is circulant only to rounding:
+            # its float32 entries along one diagonal may differ by an ulp
+            if np.abs(bd - _circulant_blocks(c, bd.shape[0] // M)).max() > 1e-6:
+                raise ValueError("block_diag_C is not the block circulant of C_W's row 0")
+            continue
         a = np.asarray(a)
-        if name == "met_selection":
+        if name == "cnri_pad":
+            n_cnr = (int(np.asarray(np_consts["met_selection"])[:, 0].sum())
+                     if "met_selection" in np_consts else np.asarray(np_consts["CNRI_T"]).shape[0])
+            if np.any(a[n_cnr:]):
+                raise ValueError("cnri_pad: the rows past n_cnr are not zero padding")
+            _put(out, "CNRI_T", _tensor(np.ascontiguousarray(a[:n_cnr]), device))
+        elif name == "met_selection":
             n_cnr = int(a[:, 0].sum())
             _put(out, "sig_idx", _tensor(_columns_of(a[:, 2 : 2 + n_cnr]), device))
             _put(out, "noise_idx", _tensor(np.nonzero(a[:, 1])[0], device))
@@ -81,7 +118,7 @@ def operators_from_numpy(np_consts: dict, device="cpu") -> dict[str, torch.Tenso
             if name == "C_W":  # realified (2M, 2M): row 0 is [c.real | c.imag]
                 M = a.shape[0] // 2
                 c = np.stack([a[0, :M], a[0, M:]]).astype(np.float32)
-                taps = (c.astype(np.float64) * _QPSK_AMP).astype(np.float32)
+                taps = (c.astype(np.float64) * amp).astype(np.float32)
                 _put(out, "taps", _tensor(taps, device))
             elif name == "active":  # with its _small_consts sibling ic_taps (2, M)
                 M = np.asarray(np_consts["ic_taps"]).shape[-1]

@@ -33,8 +33,7 @@
 // and reorder gathers are index arithmetic. The constants are planar_fast's:
 // the realified K- and M-point operators (the twiddle table is row 1 of the
 // K-point one), the (M, 2, K) twiddles and the (L, 2, M) filter parts.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gfdm_common.cuh"  // cmla, op_entry, planar_at
 
 namespace gfdm {
 
@@ -88,26 +87,6 @@ inline int factored_threads(const FactoredDims& d) {
   int t = (groups * d.subcarriers + 31) / 32 * 32;
   if (t < 64) t = 64;
   return t > FAC_MAX_THREADS ? FAC_MAX_THREADS : t;
-}
-
-// acc + a * b
-__device__ __forceinline__ float2 cmla(float2 acc, float2 a, float2 b) {
-  acc.x = fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x));
-  acc.y = fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y));
-  return acc;
-}
-
-// Entry (r, c) of the n x n complex map y = x @ W held as its realified
-// (2n, 2n) operator: Re W[r, c] at [r, c], Im W[r, c] at [r, n + c].
-__device__ __forceinline__ float2 op_entry(const float* w2, int n, int r, int c) {
-  const float* row = w2 + static_cast<size_t>(r) * 2 * n;
-  return make_float2(__ldg(row + c), __ldg(row + n + c));
-}
-
-// Element c of row r of a (rows, 2, n) planar table.
-__device__ __forceinline__ float2 planar_at(const float* t, int n, int r, int c) {
-  const float* row = t + static_cast<size_t>(r) * 2 * n;
-  return make_float2(__ldg(row + c), __ldg(row + n + c));
 }
 
 // K-point DFTs of the M rows of `in` (M x K in shared memory):

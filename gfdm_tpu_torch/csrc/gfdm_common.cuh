@@ -1,25 +1,34 @@
-// Shared device code of the fused GFDM kernels (tx.cu, rx.cu, link.cu).
+// Shared device code of the GFDM kernels (tx.cu, rx.cu, link.cu, factored.cu).
 //
 // Layouts follow the planar convention of the Python package: a complex
 // row of length n is the real row [re | im] of length 2n; a complex operator
 // W (n_in, n_out) is the Gauss stack [Wr; Wi; Wr+Wi] of shape (3 n_in, n_out),
-// row-major. One CTA takes a tile of TB bursts (a template parameter: the
-// receiver picks 8, 4, 2 or 1 by what fits in shared memory, rx_tile_bursts);
-// the tile's activations live in shared memory and each thread owns two
-// adjacent output columns for all TB bursts of the tile (fp32 FMA
-// accumulation in registers). The operator stacks are read straight from
-// global memory; at the canonical config they total about 14 MB and stay
-// resident in the 50 MB L2.
+// row-major, in float32 or (the link's dtype "bfloat16") as bf16 bits. One
+// CTA takes a tile of TB bursts (a template parameter: the receiver picks 8,
+// 4, 2 or 1 by what fits in shared memory, rx_tile_bursts); the tile's
+// activations live in shared memory and each thread owns two adjacent output
+// columns for all TB bursts of the tile (fp32 FMA accumulation in
+// registers). The operator stacks are read straight from global memory; at
+// the canonical config they total about 14 MB and stay resident in the 50 MB
+// L2.
+//
+// Receiver options are runtime fields of Dims (equalizer, dec_kind,
+// phase_comp, ic_mode): each branches once a stage, outside the GEMM inner
+// loops, uniformly over the CTA. What changes an inner loop is a template
+// parameter: the tile TB, the stacks' element type W and, with bf16
+// stacks, the rounding of each activation to bf16 (RND).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace gfdm {
 
 constexpr int MAX_THREADS = 512;  // launch bound: at most 128 registers a thread
+constexpr int MAX_WARPS = MAX_THREADS / 32;
 
-// Sizes of one call. Field order mirrors kernels/cuda_lib.py::Dims.
+// Sizes and options of one call. Field order mirrors kernels/cuda_lib.py::Dims.
 struct Dims {
   int batch;          // B, any value >= 0 (the last tile is masked)
   int n;              // N = M * K
@@ -31,28 +40,38 @@ struct Dims {
   int preamble_len;
   int cp_len;
   int cs_len;
-  int shift;          // cyclic shift of the Tx chain
+  int n_ports;        // Tx ports written from one core (CDD); shifts in Consts
   int n_cnr;          // CNR count (= number of signal / noise bins)
   int met_w;          // metrics row width [snr | cnrs | 0-pad]
   int ic_iterations;
   int ic_mode;        // 0: circulant convolution, 1: bf16 operator matmul
+  int dec_kind;       // IC decisions: 0 QPSK signs, 1 qam16, 2 qam64 levels
+  int equalizer;      // 0 ZF, 1 MMSE (snr), 2 MMSE (per-bin CNR)
+  int phase_comp;     // 1: one-shot common-phase correction before the IC
+  int n_act;          // active symbols (active subcarriers x M): the phase mean
+  int overlap;        // L filter parts (the hybrid receiver's fold)
+  int bf16;           // 1: the five Gauss stacks are bf16 (the link only)
 };
 
 // Device pointers of the constants. Field order mirrors cuda_lib.py::Consts.
 struct Consts {
-  const float* t_g;        // (3 n_data, N) payload -> core frame
+  const void* t_g;         // (3 n_data, N) payload -> core frame
   const float* win;        // (N + cp + cs) CP/CS window
-  const float* pre;        // (2, preamble_len) preamble of this shift
-  const float* e_g;        // (3 * 2K, N) channel estimator
-  const float* f_g;        // (3N, N) N-point DFT
-  const float* bfd_g;      // (3N, N) FD demodulator
-  const float* f2_g;       // (3 * 2K, 2K) 2K-point DFT
+  const float* pre;        // (n_ports, 2, preamble_len) preambles of the ports
+  const int* shifts;       // (n_ports) cyclic shift of each Tx port
+  const void* e_g;         // (3 * 2K, N) channel estimator
+  const void* f_g;         // (3N, N) N-point DFT
+  const void* bfd_g;       // (3N, N) FD demodulator
+  const void* f2_g;        // (3 * 2K, 2K) 2K-point DFT
   const float* act;        // (N) 1 on active subcarriers' symbols, else 0
   const int* sig_idx;      // (n_cnr) signal bins of the preamble DFT
   const int* noise_idx;    // (n_cnr) noise bins of the preamble DFT
   const int* demap_idx;    // (n_data) frame position of each data symbol
   const float* taps;       // (2, M) circulant IC taps, amplitude folded in
-  const uint16_t* icop;    // (3N, N) bf16 bits of the IC operator
+  const uint16_t* icop;    // (3N, N) bf16 bits of the IC operator, amplitude in
+  const float* cnri;       // (n_cnr, N) CNR -> per-bin interpolation (mmse_cnr)
+  const float* parts;      // (L, 2, M) receive filter parts (hybrid demod)
+  const float* ifm;        // (2M, 2M) realified M-point IDFT (hybrid demod)
 };
 
 __device__ __forceinline__ float load_w(const float* p) { return __ldg(p); }
@@ -62,15 +81,47 @@ __device__ __forceinline__ float load_w(const uint16_t* p) {
   return __uint_as_float(static_cast<uint32_t>(__ldg(p)) << 16);
 }
 
+// x rounded to bf16 (round to nearest even), back in f32
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename W>
+__device__ __forceinline__ const W* stack(const void* p) {
+  return static_cast<const W*>(p);
+}
+
+// acc + a * b (complex, float2 = (re, im))
+__device__ __forceinline__ float2 cmla(float2 acc, float2 a, float2 b) {
+  acc.x = fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x));
+  acc.y = fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y));
+  return acc;
+}
+
+// Entry (r, c) of the n x n complex map y = x @ W held as its realified
+// (2n, 2n) operator: Re W[r, c] at [r, c], Im W[r, c] at [r, n + c].
+__device__ __forceinline__ float2 op_entry(const float* w2, int n, int r, int c) {
+  const float* row = w2 + static_cast<size_t>(r) * 2 * n;
+  return make_float2(__ldg(row + c), __ldg(row + n + c));
+}
+
+// Element c of row r of a (rows, 2, n) planar table.
+__device__ __forceinline__ float2 planar_at(const float* t, int n, int r, int c) {
+  const float* row = t + static_cast<size_t>(r) * 2 * n;
+  return make_float2(__ldg(row + c), __ldg(row + n + c));
+}
+
 // Complex product of the TB rows held in shared memory with a Gauss stack:
 //   P1 = xr @ Wr,  P2 = xi @ Wi,  P3 = (xr + xi) @ (Wr + Wi)
 //   yr = P1 - P2,  yi = P3 - P1 - P2
 // Row b's real part is xr[b * ldx + k], its imaginary part xi[b * ldx + k].
-// epi(b, col, yr, yi) runs for every tile row b < TB and column col < n_out;
-// rows past the batch hold zeros or finite garbage and the epilogue drops
-// their global writes. Reads only shared x and global g: the caller
-// synchronises before x changes.
-template <int TB, typename W, typename Epi>
+// RND rounds xr, xi and their sum to bf16 before the products, as the JAX
+// package's _gdot casts activations to a bf16 stack's type (f32
+// accumulation either way). epi(b, col, yr, yi) runs for every tile row
+// b < TB and column col < n_out; rows past the batch hold zeros or finite
+// garbage and the epilogue drops their global writes. Reads only shared x
+// and global g: the caller synchronises before x changes.
+template <int TB, bool RND = false, typename W, typename Epi>
 __device__ __forceinline__ void gauss_gemm(const float* xr, const float* xi,
                                            int ldx, const W* __restrict__ g,
                                            int n_in, int n_out, Epi epi) {
@@ -96,9 +147,16 @@ __device__ __forceinline__ void gauss_gemm(const float* xr, const float* xi,
       const float w3b = two ? load_w(g3 + off + 1) : 0.f;
 #pragma unroll
       for (int b = 0; b < TB; ++b) {
-        const float a = xr[b * ldx + k];
-        const float c = xi[b * ldx + k];
-        const float s = a + c;
+        float a = xr[b * ldx + k];
+        float c = xi[b * ldx + k];
+        float s;
+        if constexpr (RND) {
+          a = bf16_round(a);
+          c = bf16_round(c);
+          s = bf16_round(a + c);
+        } else {
+          s = a + c;
+        }
         p1[b][0] = fmaf(a, w1a, p1[b][0]);
         p1[b][1] = fmaf(a, w1b, p1[b][1]);
         p2[b][0] = fmaf(c, w2a, p2[b][0]);
@@ -115,11 +173,20 @@ __device__ __forceinline__ void gauss_gemm(const float* xr, const float* xi,
   }
 }
 
+// gauss_gemm over one of the five stacks of Consts, held as W (float, or
+// bf16 bits rounding the activations as well)
+template <int TB, typename W, typename Epi>
+__device__ __forceinline__ void stack_gemm(const float* xr, const float* xi, int ldx,
+                                           const void* g, int n_in, int n_out, Epi epi) {
+  constexpr bool kBf16 = sizeof(W) == 2;
+  gauss_gemm<TB, kBf16>(xr, xi, ldx, stack<W>(g), n_in, n_out, epi);
+}
+
 // Shared-memory floats of one receiver tile of tb bursts: preamble P
 // (tb x 2 x 2K), then four N-wide planar stages F, C, X, D0 (tb x 2N each),
-// then 2 x tb scalars.
+// then 2 x tb scalars and the tb x n_cnr clamped CNRs.
 __host__ __device__ inline size_t rx_smem_floats(const Dims& d, int tb) {
-  return static_cast<size_t>(tb) * (2 * d.half + 4 * 2 * d.n) + 2 * tb;
+  return static_cast<size_t>(tb) * (2 * d.half + 4 * 2 * d.n + 2 + d.n_cnr);
 }
 
 // Bursts a receiver CTA takes: the largest of 8, 4, 2, 1 whose tile fits the
@@ -147,10 +214,10 @@ inline int block_threads(const Dims& d) {
 
 // Payload tile (TB x 2 n_data in shared memory) -> core frame; epi(b, col,
 // core_re, core_im) places each core sample.
-template <int TB, typename Epi>
+template <int TB, typename W, typename Epi>
 __device__ __forceinline__ void tx_core(const Dims& d, const Consts& c,
                                         const float* data, Epi epi) {
-  gauss_gemm<TB>(data, data + d.n_data, 2 * d.n_data, c.t_g, d.n_data, d.n, epi);
+  stack_gemm<TB, W>(data, data + d.n_data, 2 * d.n_data, c.t_g, d.n_data, d.n, epi);
 }
 
 // Copies rows [b0, b0 + nb) of a (B, 2 * len) global array into a TB-row
@@ -165,44 +232,59 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int len,
   }
 }
 
-// The receiver on a tile whose preamble window P (TB x [re | im] of 2K) and
-// payload block F (TB x [re | im] of N) are in shared memory:
-//   channel estimate C = P @ E; SNR/CNR from |P @ F2|^2 over the signal and
-//   noise bins; Y = ZF(F @ DFT, C) with |C|^2 clamped at 1e-30;
-//   D0 = Y @ Bfd; ic_iterations of: QPSK decisions (+-1 on active symbols,
-//   else 0) -> interference -> D = D0 - interference.
-// Writes chan (if not null) and met rows [snr | cnrs | 0-pad] for b < nb;
-// returns the shared-memory row block (TB x 2N) holding the symbols.
+// The receiver tile's shared memory (rx_smem_floats).
 template <int TB>
-__device__ inline const float* rx_chain(const Dims& d, const Consts& c,
-                                        float* smem, int nb, float* chan_out,
-                                        float* met_out) {
-  const int n = d.n, half = d.half, w = 2 * n;
-  float* P = smem;
-  float* F = P + TB * 2 * half;
-  float* C = F + TB * w;
-  float* X = C + TB * w;
-  float* D0 = X + TB * w;
-  float* snr = D0 + TB * w;  // (TB) snr_lin
-  float* cscale = snr + TB;  // (TB) snr_lin / (sig / n_cnr)
+struct RxTile {
+  float* P;       // (TB, 2, 2K) preamble window
+  float* F;       // (TB, 2N) payload block; later fold / IC state / scratch
+  float* C;       // (TB, 2N) channel
+  float* X;       // (TB, 2N) preamble power, then DFT + ZF; later decisions
+  float* D0;      // (TB, 2N) demodulated symbols
+  float* snr;     // (TB) snr_lin
+  float* cscale;  // (TB) snr_lin / (sig / n_cnr)
+  float* cn;      // (TB, n_cnr) max(scaled CNR, 0)
+  __device__ RxTile(const Dims& d, float* smem) {
+    const int w = 2 * d.n;
+    P = smem;
+    F = P + TB * 2 * d.half;
+    C = F + TB * w;
+    X = C + TB * w;
+    D0 = X + TB * w;
+    snr = D0 + TB * w;
+    cscale = snr + TB;
+    cn = cscale + TB;
+  }
+};
 
-  // 1. channel estimate
-  gauss_gemm<TB>(P, P + half, 2 * half, c.e_g, half, n,
-             [&](int b, int col, float yr, float yi) {
-               C[b * w + col] = yr;
-               C[b * w + n + col] = yi;
-               if (chan_out != nullptr && b < nb) {
-                 chan_out[static_cast<size_t>(b) * w + col] = yr;
-                 chan_out[static_cast<size_t>(b) * w + n + col] = yi;
-               }
-             });
-  // 2. preamble power spectrum, into X as scratch
-  gauss_gemm<TB>(P, P + half, 2 * half, c.f2_g, half, half,
-             [&](int b, int col, float yr, float yi) {
-               X[b * half + col] = yr * yr + yi * yi;
-             });
+// Channel estimate C = P @ E; also written to chan_out (if not null) for b < nb.
+template <int TB, typename W>
+__device__ inline void estimate_channel(const Dims& d, const Consts& c,
+                                        const RxTile<TB>& t, int nb, float* chan_out) {
+  const int n = d.n, w = 2 * n, half = d.half;
+  stack_gemm<TB, W>(t.P, t.P + half, 2 * half, c.e_g, half, n,
+                    [&](int b, int col, float yr, float yi) {
+                      t.C[b * w + col] = yr;
+                      t.C[b * w + n + col] = yi;
+                      if (chan_out != nullptr && b < nb) {
+                        chan_out[static_cast<size_t>(b) * w + col] = yr;
+                        chan_out[static_cast<size_t>(b) * w + n + col] = yi;
+                      }
+                    });
+}
+
+// SNR / CNR from |P @ F2|^2 over the signal and noise bins (index sums in
+// place of the selection matmul), into snr, cscale, cn and the met rows
+// [snr | cnrs | 0-pad] for b < nb. Uses X as scratch; ends on a barrier.
+template <int TB, typename W>
+__device__ inline void preamble_metrics(const Dims& d, const Consts& c,
+                                        const RxTile<TB>& t, int nb, float* met_out) {
+  const int half = d.half;
+  float* X = t.X;
+  stack_gemm<TB, W>(t.P, t.P + half, 2 * half, c.f2_g, half, half,
+                    [&](int b, int col, float yr, float yi) {
+                      X[b * half + col] = yr * yr + yi * yi;
+                    });
   __syncthreads();
-  // 3. SNR / CNR metrics (index sums in place of the selection matmul)
   for (int b = threadIdx.x; b < TB; b += blockDim.x) {
     float sig = 0.f, noise = 0.f;
     for (int j = 0; j < d.n_cnr; ++j) {
@@ -210,54 +292,210 @@ __device__ inline const float* rx_chain(const Dims& d, const Consts& c,
       noise += X[b * half + c.noise_idx[j]];
     }
     const float s = (sig - noise) / noise;
-    snr[b] = s;
-    cscale[b] = s / (sig / static_cast<float>(d.n_cnr));
+    t.snr[b] = s;
+    t.cscale[b] = s / (sig / static_cast<float>(d.n_cnr));
   }
   __syncthreads();
+  for (int i = threadIdx.x; i < TB * d.n_cnr; i += blockDim.x) {
+    const int b = i / d.n_cnr, j = i - b * d.n_cnr;
+    t.cn[i] = fmaxf(X[b * half + c.sig_idx[j]] * t.cscale[b], 0.f);
+  }
   for (int i = threadIdx.x; i < nb * d.met_w; i += blockDim.x) {
     const int b = i / d.met_w, j = i - b * d.met_w;
     float v = 0.f;
     if (j == 0) {
-      v = snr[b];
+      v = t.snr[b];
     } else if (j <= d.n_cnr) {
-      v = X[b * half + c.sig_idx[j - 1]] * cscale[b];
+      v = X[b * half + c.sig_idx[j - 1]] * t.cscale[b];
     }
     met_out[static_cast<size_t>(b) * d.met_w + j] = v;
   }
   __syncthreads();
-  // 4. block DFT + ZF divide, into X
-  gauss_gemm<TB>(F, F + n, w, c.f_g, n, n,
-             [&](int b, int col, float xr, float xi) {
-               const float hr = C[b * w + col], hi = C[b * w + n + col];
-               const float den = fmaxf(hr * hr + hi * hi, 1e-30f);
-               X[b * w + col] = (xr * hr + xi * hi) / den;
-               X[b * w + n + col] = (xi * hr - xr * hi) / den;
-             });
+}
+
+// Block DFT of F, ZF divide by C (|C|^2 clamped at 1e-30) and the
+// equalizer's per-bin weight, into X:
+//   mmse:     w = den / (den + 1 / max(snr, 1e-6))
+//   mmse_cnr: w = cb / (cb + 1), cb = max(sum_j cn[j] cnri[j, col], 1e-6)
+// Ends on a barrier.
+template <int TB, typename W>
+__device__ inline void dft_zf(const Dims& d, const Consts& c, const RxTile<TB>& t) {
+  const int n = d.n, w = 2 * n;
+  stack_gemm<TB, W>(t.F, t.F + n, w, c.f_g, n, n,
+                    [&](int b, int col, float xr, float xi) {
+                      const float hr = t.C[b * w + col], hi = t.C[b * w + n + col];
+                      const float den = fmaxf(hr * hr + hi * hi, 1e-30f);
+                      float yr = (xr * hr + xi * hi) / den;
+                      float yi = (xi * hr - xr * hi) / den;
+                      if (d.equalizer == 1) {
+                        const float wt = den / (den + 1.f / fmaxf(t.snr[b], 1e-6f));
+                        yr *= wt;
+                        yi *= wt;
+                      } else if (d.equalizer == 2) {
+                        const float* cn = t.cn + b * d.n_cnr;
+                        float cb = 0.f;
+                        for (int j = 0; j < d.n_cnr; ++j) {
+                          cb = fmaf(cn[j], __ldg(c.cnri + static_cast<size_t>(j) * n + col), cb);
+                        }
+                        cb = fmaxf(cb, 1e-6f);
+                        const float wt = cb / (cb + 1.f);
+                        yr *= wt;
+                        yi *= wt;
+                      }
+                      t.X[b * w + col] = yr;
+                      t.X[b * w + n + col] = yi;
+                    });
   __syncthreads();
-  // 5. FD demodulation, into D0
-  gauss_gemm<TB>(X, X + n, w, c.bfd_g, n, n,
-             [&](int b, int col, float yr, float yi) {
-               D0[b * w + col] = yr;
-               D0[b * w + n + col] = yi;
-             });
+}
+
+// FD demodulation X @ Bfd into D0. Ends on a barrier.
+template <int TB, typename W>
+__device__ inline void demod_dense(const Dims& d, const Consts& c, const RxTile<TB>& t) {
+  const int n = d.n, w = 2 * n;
+  stack_gemm<TB, W>(t.X, t.X + n, w, c.bfd_g, n, n,
+                    [&](int b, int col, float yr, float yi) {
+                      t.D0[b * w + col] = yr;
+                      t.D0[b * w + n + col] = yi;
+                    });
   __syncthreads();
-  // 6. interference cancellation: decisions Q in X, state D in F
-  const float* cur = D0;
-  float* Q = X;
-  float* D = F;
-  const int M = d.timeslots, K = d.subcarriers;
+}
+
+// The hybrid demodulator in place of the Bfd product: the L-tap fold of the
+// natural-order spectrum X into F,
+//   S[k M + m] = sum_i parts[(i + L/2) % L][m] X[((k + i - L/2) mod K) M + m],
+// then the per-subcarrier M-point IDFTs into D0,
+//   d0[k M + m] = sum_j iFM[m, j] S[k M + j].
+// Ends on a barrier.
+template <int TB>
+__device__ inline void demod_hybrid(const Dims& d, const Consts& c, const RxTile<TB>& t) {
+  const int n = d.n, w = 2 * n, M = d.timeslots, K = d.subcarriers, L = d.overlap;
+  for (int i = threadIdx.x; i < TB * n; i += blockDim.x) {
+    const int b = i / n, col = i - b * n;
+    const int k = col / M, m = col - k * M;
+    const float* y = t.X + b * w;
+    float2 s = make_float2(0.f, 0.f);
+    for (int l = 0; l < L; ++l) {
+      int kk = k + l - L / 2;
+      kk = kk < 0 ? kk + K : (kk >= K ? kk - K : kk);
+      s = cmla(s, make_float2(y[kk * M + m], y[n + kk * M + m]),
+               planar_at(c.parts, M, (l + L / 2) % L, m));
+    }
+    t.F[b * w + col] = s.x;
+    t.F[b * w + n + col] = s.y;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < TB * n; i += blockDim.x) {
+    const int b = i / n, col = i - b * n;
+    const int k = col / M, m = col - k * M;
+    const float* s = t.F + b * w + k * M;
+    float2 x = make_float2(0.f, 0.f);
+    for (int j = 0; j < M; ++j) x = cmla(x, make_float2(s[j], s[n + j]), op_entry(c.ifm, M, j, m));
+    t.D0[b * w + col] = x.x;
+    t.D0[b * w + n + col] = x.y;
+  }
+  __syncthreads();
+}
+
+// IC decision level of u (the amplitude is folded into the taps / operator):
+// QPSK: >= 0 -> +1, else -1; qam16 / qam64: the odd level nearest to
+// u * scale, clip(2 rint((u * scale - 1) / 2) + 1, -lim, lim). rintf rounds
+// half to even like jnp.round / torch.round; the _rn intrinsics keep the
+// compiler from contracting u * scale - 1 into one FMA.
+__device__ __forceinline__ float ic_level(float u, int kind) {
+  if (kind == 0) return u >= 0.f ? 1.f : -1.f;
+  const float scale = kind == 1 ? 3.16227766016837952f : 6.48074069840786023f;
+  const float lim = kind == 1 ? 3.f : 7.f;
+  const float v = __fsub_rn(__fmul_rn(u, scale), 1.f) / 2.f;
+  return fminf(fmaxf(2.f * rintf(v) + 1.f, -lim), lim);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One-shot common-phase correction of D0 from the decisions Q on the
+// unrotated D0 (advanced_receiver_kernel_cc.cc:56-91, JAX fused.py:428-448):
+// delta = A&S 4.4.49 arctan of clip(Im / max(Re, 1e-20), -1, 1) of
+// q conj(d0) on active entries, phi = sum(delta) / n_act per burst (one
+// block-wide sum), then D0 rotated by phi with Taylor cos / sin. The
+// polynomials are the JAX kernel's, not atanf / sincosf, so the kernel and
+// its plain version agree to float rounding. scratch holds
+// MAX_WARPS * TB + TB floats. Ends on a barrier.
+template <int TB>
+__device__ inline void phase_correct(const Dims& d, const Consts& c, const RxTile<TB>& t,
+                                     const float* Q, float* scratch) {
+  const int n = d.n, w = 2 * n;
+  float part[TB];
+#pragma unroll
+  for (int b = 0; b < TB; ++b) part[b] = 0.f;
+  for (int col = threadIdx.x; col < n; col += blockDim.x) {
+    const float a = c.act[col];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      const float qr = Q[b * w + col], qi = Q[b * w + n + col];
+      const float dr = t.D0[b * w + col], di = t.D0[b * w + n + col];
+      const float re = qr * dr + qi * di;
+      const float im = qi * dr - qr * di;
+      const float u = fminf(fmaxf(im / fmaxf(re, 1e-20f), -1.f), 1.f);
+      const float u2 = u * u;
+      const float delta = u * (0.9998660f + u2 * (-0.3302995f + u2 * (0.1801410f
+                              + u2 * (-0.0851330f + 0.0208351f * u2))));
+      part[b] += delta * a;
+    }
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int b = 0; b < TB; ++b) {
+    const float v = warp_sum(part[b]);
+    if (lane == 0) scratch[warp * TB + b] = v;
+  }
+  __syncthreads();
+  float* phi = scratch + MAX_WARPS * TB;
+  for (int b = threadIdx.x; b < TB; b += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < static_cast<int>(blockDim.x) / 32; ++k) s += scratch[k * TB + b];
+    phi[b] = s / static_cast<float>(d.n_act);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < TB * n; i += blockDim.x) {
+    const int b = i / n, col = i - b * n;
+    const float p = phi[b], p2 = p * p;
+    const float cph = 1.f - p2 * (0.5f - p2 * (1.f / 24.f - p2 / 720.f));
+    const float sph = p * (1.f - p2 * (1.f / 6.f - p2 * (1.f / 120.f - p2 / 5040.f)));
+    const float dr = t.D0[b * w + col], di = t.D0[b * w + n + col];
+    t.D0[b * w + col] = cph * dr - sph * di;
+    t.D0[b * w + n + col] = sph * dr + cph * di;
+  }
+  __syncthreads();
+}
+
+// Decision-directed interference cancellation from D0: ic_iterations of
+// Q = level(D) on active symbols (0 elsewhere) -> interference -> D = D0 -
+// interference, the first iteration deciding on D0 and, with phase_comp,
+// correcting D0's phase from those decisions before it subtracts. Decisions
+// live in X, the state in F. Returns the rows holding the symbols.
+template <int TB>
+__device__ inline const float* cancel_interference(const Dims& d, const Consts& c,
+                                                   const RxTile<TB>& t) {
+  const int n = d.n, w = 2 * n, M = d.timeslots, K = d.subcarriers;
+  const float* cur = t.D0;
+  float* Q = t.X;
+  float* D = t.F;
   for (int it = 0; it < d.ic_iterations; ++it) {
     for (int i = threadIdx.x; i < TB * w; i += blockDim.x) {
       const int col = i % n;
-      Q[i] = (cur[i] >= 0.f ? 1.f : -1.f) * c.act[col];
+      Q[i] = ic_level(cur[i], d.dec_kind) * c.act[col];
     }
     __syncthreads();
+    if (it == 0 && d.phase_comp) phase_correct<TB>(d, c, t, Q, D);
     if (d.ic_mode == 1) {
       gauss_gemm<TB>(Q, Q + n, w, c.icop, n, n,
-                 [&](int b, int col, float ir, float ii) {
-                   D[b * w + col] = D0[b * w + col] - ir;
-                   D[b * w + n + col] = D0[b * w + n + col] - ii;
-                 });
+                     [&](int b, int col, float ir, float ii) {
+                       D[b * w + col] = t.D0[b * w + col] - ir;
+                       D[b * w + n + col] = t.D0[b * w + n + col] - ii;
+                     });
     } else {
       // neighbour subcarriers k-1, k+1 (mod K), then the M-tap circulant
       // within the M-block: tap j multiplies timeslot (m - j) mod M
@@ -277,14 +515,31 @@ __device__ inline const float* rx_chain(const Dims& d, const Consts& c,
           ir = ir + tr * sr - ti * si;
           ii = ii + tr * si + ti * sr;
         }
-        D[b * w + col] = D0[b * w + col] - ir;
-        D[b * w + n + col] = D0[b * w + n + col] - ii;
+        D[b * w + col] = t.D0[b * w + col] - ir;
+        D[b * w + n + col] = t.D0[b * w + n + col] - ii;
       }
     }
     __syncthreads();
     cur = D;
   }
   return cur;
+}
+
+// The receiver on a tile whose preamble window P (TB x [re | im] of 2K) and
+// payload block F (TB x [re | im] of N) are in shared memory: channel
+// estimate, SNR/CNR metrics, block DFT + ZF + equalizer weight, FD demod,
+// phase correction and IC. Writes chan (if not null) and met rows for
+// b < nb; returns the shared-memory row block (TB x 2N) holding the symbols.
+template <int TB, typename W>
+__device__ inline const float* rx_chain(const Dims& d, const Consts& c,
+                                        float* smem, int nb, float* chan_out,
+                                        float* met_out) {
+  const RxTile<TB> t(d, smem);
+  estimate_channel<TB, W>(d, c, t, nb, chan_out);
+  preamble_metrics<TB, W>(d, c, t, nb, met_out);
+  dft_zf<TB, W>(d, c, t);
+  demod_dense<TB, W>(d, c, t);
+  return cancel_interference<TB>(d, c, t);
 }
 
 }  // namespace gfdm

@@ -2,22 +2,26 @@
 //
 // Replaces the Pallas kernel gfdm_tpu/kernels/fused.py::_link_kernel
 // (wrapper link_single_fused): payload (B, 2 n_data) -> the transmitter of
-// tx.cu at cyclic shift 0 -> the receiver of rx.cu (ZF, QPSK decisions,
-// either IC mode) -> demap -> data estimate (B, 2 n_data) and metrics
-// (B, met_w). EVM is reduced outside the kernel.
+// tx.cu at cyclic shift 0 -> the receiver of rx.cu (ZF; QPSK, qam16 or qam64
+// IC decisions; either IC mode) -> demap -> data estimate (B, 2 n_data) and
+// metrics (B, met_w). EVM is reduced outside the kernel. With dtype
+// "bfloat16" (Dims::bf16) the five Gauss stacks are bf16 and every
+// activation is rounded to bf16 before its product, the sum plane's
+// xr + xi too (the JAX package's _gdot); accumulation stays f32. That is the
+// W = uint16_t instantiation.
 //
 // Bound: the sum of the two chains, 3.1 M fp32 MACs a burst plus 1.0 M per
 // matmul-mode IC iteration, against 3.7 KB read and 4.2 KB written: FMA-bound,
-// with about 14 MB of operator stacks streamed from L2 once per tile.
-// Design: the burst never reaches HBM. The Tx epilogue writes the windowed
-// core straight into the receiver's payload window in shared memory, and the
-// receiver's preamble window is the transmitted preamble itself; the demap
-// is a gather in place of the 0/1 selection matmul.
+// with about 14 MB of operator stacks (7 MB in bf16) streamed from L2 once
+// per tile. Design: the burst never reaches HBM. The Tx epilogue writes the
+// windowed core straight into the receiver's payload window in shared
+// memory, and the receiver's preamble window is the transmitted preamble
+// itself; the demap is a gather in place of the 0/1 selection matmul.
 #include "gfdm_common.cuh"
 
 namespace gfdm {
 
-template <int TB>
+template <int TB, typename W>
 __global__ void __launch_bounds__(MAX_THREADS)
 link_kernel(Dims d, Consts c, const float* __restrict__ data,
             float* __restrict__ out, float* __restrict__ met) {
@@ -37,13 +41,13 @@ link_kernel(Dims d, Consts c, const float* __restrict__ data,
   __syncthreads();
   // Tx at shift 0: core sample col sits at framed position cp + col, so the
   // payload window [fs, fs + N) of the burst is core * win[cp:cp + N]
-  tx_core<TB>(d, c, X, [&](int b, int col, float cr, float ci) {
+  tx_core<TB, W>(d, c, X, [&](int b, int col, float cr, float ci) {
     const float wv = c.win[d.cp_len + col];
     F[b * w + col] = cr * wv;
     F[b * w + n + col] = ci * wv;
   });
   __syncthreads();
-  const float* s = rx_chain<TB>(d, c, smem, nb, nullptr,
+  const float* s = rx_chain<TB, W>(d, c, smem, nb, nullptr,
                             met + static_cast<size_t>(b0) * d.met_w);
   float* o = out + static_cast<size_t>(b0) * 2 * n_d;
   for (int i = threadIdx.x; i < nb * 2 * n_d; i += blockDim.x) {
@@ -53,18 +57,29 @@ link_kernel(Dims d, Consts c, const float* __restrict__ data,
   }
 }
 
-template <int TB>
+template <int TB, typename W>
 int launch_link(const Dims* d, const Consts* c, const float* data, float* out,
                 float* met, void* stream) {
   const size_t smem = sizeof(float) * rx_smem_floats(*d, TB);
   cudaError_t err = cudaFuncSetAttribute(
-      link_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      link_kernel<TB, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (d->batch + TB - 1) / TB;
-  link_kernel<TB><<<blocks, block_threads(*d), smem,
-                    static_cast<cudaStream_t>(stream)>>>(*d, *c, data, out, met);
+  link_kernel<TB, W><<<blocks, block_threads(*d), smem,
+                       static_cast<cudaStream_t>(stream)>>>(*d, *c, data, out, met);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename W>
+int launch_link_tile(const Dims* d, const Consts* c, const float* data, float* out,
+                     float* met, void* stream) {
+  switch (rx_tile_bursts(*d)) {
+    case 8: return launch_link<8, W>(d, c, data, out, met, stream);
+    case 4: return launch_link<4, W>(d, c, data, out, met, stream);
+    case 2: return launch_link<2, W>(d, c, data, out, met, stream);
+    default: return launch_link<1, W>(d, c, data, out, met, stream);
+  }
 }
 
 }  // namespace gfdm
@@ -75,12 +90,8 @@ extern "C" int gfdm_link(const gfdm::Dims* d, const gfdm::Consts* c,
                          const float* data, float* out, float* met,
                          void* stream) {
   if (d->batch <= 0) return 0;
-  switch (gfdm::rx_tile_bursts(*d)) {
-    case 8: return gfdm::launch_link<8>(d, c, data, out, met, stream);
-    case 4: return gfdm::launch_link<4>(d, c, data, out, met, stream);
-    case 2: return gfdm::launch_link<2>(d, c, data, out, met, stream);
-    default: return gfdm::launch_link<1>(d, c, data, out, met, stream);
-  }
+  return d->bf16 ? gfdm::launch_link_tile<uint16_t>(d, c, data, out, met, stream)
+                 : gfdm::launch_link_tile<float>(d, c, data, out, met, stream);
 }
 
 extern "C" const char* gfdm_error_string(int err) {

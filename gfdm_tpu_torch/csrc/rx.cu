@@ -1,24 +1,71 @@
-// Fused GFDM receiver for Hopper (sm_90a).
+// Fused GFDM receivers for Hopper (sm_90a).
 //
-// Replaces the Pallas kernel gfdm_tpu/kernels/fused.py::_rx_ic_circ_kernel
-// (wrappers rx_receiver_fused, receive_bursts_fused) for the ZF equalizer,
-// QPSK decisions and both IC modes: bursts (B, 2 frame_len) -> channel
-// estimate (B, 2N), symbols (B, 2N) and metrics (B, met_w) =
+// rx_kernel replaces the Pallas kernel gfdm_tpu/kernels/fused.py::
+// _rx_ic_circ_kernel (wrappers rx_receiver_fused, receive_bursts_fused) with
+// every option: equalizer zf / mmse / mmse_cnr, QPSK / qam16 / qam64 IC
+// decisions with the amplitude folded into the taps or the bf16 operator,
+// both IC modes and the one-shot phase correction: bursts (B, 2 frame_len)
+// -> channel estimate (B, 2N), symbols (B, 2N) and metrics (B, met_w) =
 // [snr_lin | cnrs | 0-pad].
+//
+// rx_variant_kernel<TB, V> replaces the four superseded receiver variants as
+// compile-time configurations of the same stages (gfdm_common.cuh):
+//   kChanIn   frames, channel (B, 2N) given: DFT, ZF, Bfd demod, and the
+//             circulant QPSK IC at ic_iterations (0: _rx_core_kernel,
+//             rx_core_fused; > 0: _rx_ic_kernel, rx_ic_fused, whose
+//             block-diagonal (N, N) C pair is the same circulant);
+//   kEstimate bursts: the channel estimated, then as kChanIn
+//             (_rx_full_kernel, rx_full_fused, whose realified (2M, 2M) C_W
+//             is the same circulant);
+//   kHybrid   as kEstimate, with the L-tap fold and the per-subcarrier
+//             M-point IDFTs in place of the Bfd product (_rx_hybrid_kernel,
+//             rx_receiver_hybrid); the channel is also written out.
+// None of the variants writes metrics. Their IC reads the (2, M) taps, the
+// QPSK amplitude folded in, where the Pallas kernels multiply by the
+// block-diagonal or realified operator (convert.py checks both against the
+// taps).
 //
 // Bound: 2.26 M fp32 MACs a burst without IC (estimate, 2K-DFT, N-DFT,
 // demodulator), plus 1.0 M per IC iteration in matmul mode (0.02 M in conv
 // mode), against 6 KB read and 9 KB written: FMA-bound, with about 10 MB of
-// operator stacks streamed from L2 once per tile. Design: the tile's
+// operator stacks streamed from L2 once per tile. The hybrid drops the
+// 1.0 M-MAC Bfd product for N (L + M) complex MACs. Design: the tile's
 // preamble window, payload block and the four N-wide planar stages
 // (channel, DFT/ZF, demodulated, IC state) stay in shared memory (156 KB at
-// TB = 8), so nothing but the outputs returns to HBM; the Pallas kernel's
+// TB = 8), so nothing but the outputs returns to HBM; the Pallas kernels'
 // global rolls, mask blends and 0/1 selection matmuls become index
-// arithmetic. The tile shrinks to 4, 2 or 1 bursts where a larger N needs
-// it (rx_tile_bursts: K = 128, 256, 512).
+// arithmetic. The tile shrinks to 4, 2 or 1 bursts where a larger N needs it
+// (rx_tile_bursts: K = 128, 256, 512). The options are runtime fields of
+// Dims, branching once a stage (see gfdm_common.cuh).
 #include "gfdm_common.cuh"
 
 namespace gfdm {
+
+enum RxVariant { kChanIn = 0, kEstimate = 1, kHybrid = 2 };
+
+// The receiver's two windows of TB bursts into the tile: preamble
+// [cp, cp + 2K) into P and payload block [fs, fs + N) into F, per plane.
+template <int TB>
+__device__ inline void load_windows(const Dims& d, const float* src, int nb,
+                                    const RxTile<TB>& t) {
+  const int n = d.n, half = d.half, L = d.frame_len, w = 2 * n;
+  const int fs = d.preamble_len + d.cp_len;
+  for (int i = threadIdx.x; i < TB * 2 * half; i += blockDim.x) {
+    const int b = i / (2 * half), j = i - b * 2 * half;
+    const int p = j / half, s = j - p * half;
+    t.P[i] = b < nb ? src[static_cast<size_t>(b) * 2 * L + p * L + d.cp_len + s] : 0.f;
+  }
+  for (int i = threadIdx.x; i < TB * w; i += blockDim.x) {
+    const int b = i / w, j = i - b * w;
+    const int p = j / n, s = j - p * n;
+    t.F[i] = b < nb ? src[static_cast<size_t>(b) * 2 * L + p * L + fs + s] : 0.f;
+  }
+}
+
+template <int TB>
+__device__ inline void store_rows(const float* s, float* out, int nb, int w) {
+  for (int i = threadIdx.x; i < nb * w; i += blockDim.x) out[i] = s[i];
+}
 
 template <int TB>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -28,29 +75,48 @@ rx_kernel(Dims d, Consts c, const float* __restrict__ bursts,
   extern __shared__ float smem[];
   const int b0 = blockIdx.x * TB;
   const int nb = min(TB, d.batch - b0);
-  const int n = d.n, half = d.half, L = d.frame_len, w = 2 * n;
-  const int fs = d.preamble_len + d.cp_len;
-  const float* src = bursts + static_cast<size_t>(b0) * 2 * L;
-  float* P = smem;
-  float* F = P + TB * 2 * half;
-  // the receiver's two windows of the burst: preamble [cp, cp + 2K) and
-  // payload block [fs, fs + N), per plane
-  for (int i = threadIdx.x; i < TB * 2 * half; i += blockDim.x) {
-    const int b = i / (2 * half), j = i - b * 2 * half;
-    const int p = j / half, t = j - p * half;
-    P[i] = b < nb ? src[static_cast<size_t>(b) * 2 * L + p * L + d.cp_len + t] : 0.f;
-  }
-  for (int i = threadIdx.x; i < TB * w; i += blockDim.x) {
-    const int b = i / w, j = i - b * w;
-    const int p = j / n, t = j - p * n;
-    F[i] = b < nb ? src[static_cast<size_t>(b) * 2 * L + p * L + fs + t] : 0.f;
-  }
+  const int w = 2 * d.n;
+  load_windows<TB>(d, bursts + static_cast<size_t>(b0) * 2 * d.frame_len, nb,
+                   RxTile<TB>(d, smem));
   __syncthreads();
-  const float* s = rx_chain<TB>(d, c, smem, nb,
-                            chan + static_cast<size_t>(b0) * w,
-                            met + static_cast<size_t>(b0) * d.met_w);
-  float* out = sym + static_cast<size_t>(b0) * w;
-  for (int i = threadIdx.x; i < nb * w; i += blockDim.x) out[i] = s[i];
+  const float* s = rx_chain<TB, float>(d, c, smem, nb,
+                                       chan + static_cast<size_t>(b0) * w,
+                                       met + static_cast<size_t>(b0) * d.met_w);
+  store_rows<TB>(s, sym + static_cast<size_t>(b0) * w, nb, w);
+}
+
+// in: frames (B, 2N) for kChanIn, else bursts (B, 2 frame_len); chan_in
+// (B, 2N) for kChanIn; chan_out (B, 2N) or null.
+template <int TB, int V>
+__global__ void __launch_bounds__(MAX_THREADS)
+rx_variant_kernel(Dims d, Consts c, const float* __restrict__ in,
+                  const float* __restrict__ chan_in, float* __restrict__ chan_out,
+                  float* __restrict__ sym) {
+  extern __shared__ float smem[];
+  const int b0 = blockIdx.x * TB;
+  const int nb = min(TB, d.batch - b0);
+  const int n = d.n, w = 2 * n;
+  const RxTile<TB> t(d, smem);
+  if constexpr (V == kChanIn) {
+    load_tile<TB>(t.F, in + static_cast<size_t>(b0) * w, n, nb);
+    load_tile<TB>(t.C, chan_in + static_cast<size_t>(b0) * w, n, nb);
+    __syncthreads();
+  } else {
+    load_windows<TB>(d, in + static_cast<size_t>(b0) * 2 * d.frame_len, nb, t);
+    __syncthreads();
+    estimate_channel<TB, float>(d, c, t, nb,
+                                chan_out == nullptr ? nullptr
+                                                    : chan_out + static_cast<size_t>(b0) * w);
+    __syncthreads();
+  }
+  dft_zf<TB, float>(d, c, t);
+  if constexpr (V == kHybrid) {
+    demod_hybrid<TB>(d, c, t);
+  } else {
+    demod_dense<TB, float>(d, c, t);
+  }
+  const float* s = cancel_interference<TB>(d, c, t);
+  store_rows<TB>(s, sym + static_cast<size_t>(b0) * w, nb, w);
 }
 
 template <int TB>
@@ -68,6 +134,33 @@ int launch_rx(const Dims* d, const Consts* c, const float* bursts, float* chan,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int TB, int V>
+int launch_variant(const Dims* d, const Consts* c, const float* in,
+                   const float* chan_in, float* chan_out, float* sym, void* stream) {
+  const size_t smem = sizeof(float) * rx_smem_floats(*d, TB);
+  cudaError_t err = cudaFuncSetAttribute(
+      rx_variant_kernel<TB, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (d->batch + TB - 1) / TB;
+  rx_variant_kernel<TB, V><<<blocks, block_threads(*d), smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      *d, *c, in, chan_in, chan_out, sym);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int V>
+int launch_variant_tile(const Dims* d, const Consts* c, const float* in,
+                        const float* chan_in, float* chan_out, float* sym,
+                        void* stream) {
+  switch (rx_tile_bursts(*d)) {
+    case 8: return launch_variant<8, V>(d, c, in, chan_in, chan_out, sym, stream);
+    case 4: return launch_variant<4, V>(d, c, in, chan_in, chan_out, sym, stream);
+    case 2: return launch_variant<2, V>(d, c, in, chan_in, chan_out, sym, stream);
+    default: return launch_variant<1, V>(d, c, in, chan_in, chan_out, sym, stream);
+  }
+}
+
 }  // namespace gfdm
 
 // A config whose one-burst tile exceeds shared memory runs the TB = 1
@@ -81,5 +174,24 @@ extern "C" int gfdm_rx(const gfdm::Dims* d, const gfdm::Consts* c,
     case 4: return gfdm::launch_rx<4>(d, c, bursts, chan, sym, met, stream);
     case 2: return gfdm::launch_rx<2>(d, c, bursts, chan, sym, met, stream);
     default: return gfdm::launch_rx<1>(d, c, bursts, chan, sym, met, stream);
+  }
+}
+
+// variant: 0 channel given, 1 channel estimated, 2 estimated + hybrid demod
+// (gfdm::RxVariant); -1 for an unknown variant.
+extern "C" int gfdm_rx_variant(const gfdm::Dims* d, const gfdm::Consts* c,
+                               const float* in, const float* chan_in,
+                               float* chan_out, float* sym, int variant,
+                               void* stream) {
+  if (d->batch <= 0) return 0;
+  switch (variant) {
+    case gfdm::kChanIn:
+      return gfdm::launch_variant_tile<gfdm::kChanIn>(d, c, in, chan_in, chan_out, sym, stream);
+    case gfdm::kEstimate:
+      return gfdm::launch_variant_tile<gfdm::kEstimate>(d, c, in, chan_in, chan_out, sym, stream);
+    case gfdm::kHybrid:
+      return gfdm::launch_variant_tile<gfdm::kHybrid>(d, c, in, chan_in, chan_out, sym, stream);
+    default:
+      return -1;
   }
 }

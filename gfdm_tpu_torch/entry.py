@@ -7,6 +7,7 @@ accelerator. ``service_stream`` is the counterpart of
 ``bench._service_stream``: the burst-bearing chunk stream the streaming
 receive service is measured on. ``large_k_config`` is the configuration of
 ``benchmarks/largek_crossover.py``, the large-K factored link's.
+``cdd_link`` is the two-antenna link of ``examples/cdd_two_antenna.py``.
 """
 from __future__ import annotations
 
@@ -14,10 +15,14 @@ import numpy as np
 import torch
 
 from .config import GfdmConfig
-from .kernels.fused import link_single_fused
+from .kernels.fused import link_single_fused, receive_bursts_fused, tx_cdd_fused
 from .ops.planar_pipeline import prepare, transmit_planar
+from .ops.rx import constellation_points
 
-__all__ = ["entry", "large_k_config", "planar_payload", "service_stream"]
+__all__ = ["cdd_channel", "cdd_link", "entry", "large_k_config", "planar_payload", "service_stream"]
+
+# examples/cdd_two_antenna.py's per-antenna multipath taps
+CDD_TAPS = (np.array([1.0, 0.2 + 0.1j]), np.array([0.8 - 0.2j, 0.0, 0.15]))
 
 
 def planar_payload(cfg: GfdmConfig, batch: int, seed: int = 0) -> np.ndarray:
@@ -60,15 +65,17 @@ def entry(device):
 
 
 def service_stream(cfg: GfdmConfig, n_chunks: int, chunk_len: int, snr_db: float,
-                   impaired: bool, rng: np.random.Generator):
+                   impaired: bool, rng: np.random.Generator, constellation: str = "qpsk"):
     """Synthesize a burst-bearing chunk stream for the receive service.
 
     Returns ``(chunks, counts, payload)``: (n_chunks, 2, chunk_len + halo)
     float32 halo-extended chunks, the bursts placed in each chunk, and the
-    (n_bursts, 2, n_data) float32 QPSK payload of the bursts in placement
-    order. Makes the same ``rng`` calls in the same order as the JAX
-    package's ``bench._service_stream``, so a seed gives the same counts,
-    offsets, taps, CFOs and noise there and here.
+    (n_bursts, 2, n_data) float32 payload of the bursts in placement
+    order. With the default QPSK payload it makes the same ``rng`` calls in
+    the same order as the JAX package's ``bench._service_stream``, so a seed
+    gives the same counts, offsets, taps, CFOs and noise there and here;
+    ``constellation="qam16"`` / ``"qam64"`` draws the payload from that
+    constellation's points instead (``ops.rx.constellation_points``).
 
     Offsets are drawn from the owned range [0, chunk_len - cp_len): the
     service owns a burst whose xcorr peak (cp_len into the burst) lies
@@ -87,8 +94,13 @@ def service_stream(cfg: GfdmConfig, n_chunks: int, chunk_len: int, snr_db: float
         else np.ones(n_chunks, np.int64)
     )
     n_bursts = int(counts.sum())
-    qpsk = (rng.integers(0, 2, (n_bursts, 2, cfg.n_data_symbols)) * 2 - 1) / np.sqrt(2.0)
-    payload = qpsk.astype(np.float32)
+    if constellation == "qpsk":
+        sym = (rng.integers(0, 2, (n_bursts, 2, cfg.n_data_symbols)) * 2 - 1) / np.sqrt(2.0)
+    else:
+        pts = constellation_points(constellation)
+        idx = rng.integers(0, pts.size, (n_bursts, cfg.n_data_symbols))
+        sym = np.stack([pts[idx].real, pts[idx].imag], axis=1)
+    payload = sym.astype(np.float32)
     bursts = transmit_planar(cfg, torch.from_numpy(payload))[:, 0].numpy()
     bc = bursts[:, 0] + 1j * bursts[:, 1]
     if impaired:
@@ -121,3 +133,39 @@ def service_stream(cfg: GfdmConfig, n_chunks: int, chunk_len: int, snr_db: float
             stream[i, 1, p : p + blen] += bc[bi].imag
             bi += 1
     return stream.astype(np.float32), counts, payload
+
+
+def _fir(x: torch.Tensor, h: np.ndarray) -> torch.Tensor:
+    """(B, 2, T) planar signal through the complex FIR ``h``, truncated to T."""
+    T = x.shape[-1]
+    yr = torch.zeros_like(x[:, 0])
+    yi = torch.zeros_like(x[:, 1])
+    for lag, tap in enumerate(h):
+        if tap == 0:
+            continue
+        xr = torch.nn.functional.pad(x[:, 0], (lag, 0))[:, :T]
+        xi = torch.nn.functional.pad(x[:, 1], (lag, 0))[:, :T]
+        yr = yr + float(tap.real) * xr - float(tap.imag) * xi
+        yi = yi + float(tap.real) * xi + float(tap.imag) * xr
+    return torch.stack([yr, yi], dim=1)
+
+
+def cdd_channel(ports: torch.Tensor, snr_db: float, seed: int) -> torch.Tensor:
+    """(B, n_ports, 2, frame_len) CDD ports -> (B, 2, frame_len) received
+    bursts: ports 0 and 1 each through its own multipath (``CDD_TAPS``),
+    summed, plus AWGN at ``snr_db`` over the received power (numpy, from
+    ``seed``)."""
+    rx = _fir(ports[:, 0], CDD_TAPS[0]) + _fir(ports[:, 1], CDD_TAPS[1])
+    sigma = (float((rx**2).sum(dim=1).mean()) / 10 ** (snr_db / 10) / 2) ** 0.5
+    noise = np.random.default_rng(seed).standard_normal(tuple(rx.shape), dtype=np.float32)
+    return (rx + sigma * torch.from_numpy(noise).to(rx.device)).contiguous()
+
+
+def cdd_link(cfg: GfdmConfig, data: torch.Tensor, snr_db: float, seed: int,
+             ic_iterations: int = 4) -> torch.Tensor:
+    """The two-antenna cyclic-delay-diversity link: ``tx_cdd_fused`` (ports
+    0 and 1 of ``cfg.cyclic_shifts``) -> ``cdd_channel`` ->
+    ``receive_bursts_fused``. Returns the data estimate (B, 2, n_data) on
+    the payload's device."""
+    rx = cdd_channel(tx_cdd_fused(cfg, data), snr_db, seed)
+    return receive_bursts_fused(cfg, rx, ic_iterations=ic_iterations)["data"]

@@ -40,7 +40,8 @@ class Dims(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "batch", "n", "n_data", "timeslots", "subcarriers", "half",
         "frame_len", "preamble_len", "cp_len", "cs_len",
-        "shift", "n_cnr", "met_w", "ic_iterations", "ic_mode",
+        "n_ports", "n_cnr", "met_w", "ic_iterations", "ic_mode",
+        "dec_kind", "equalizer", "phase_comp", "n_act", "overlap", "bf16",
     )]
 
 
@@ -48,8 +49,8 @@ class Consts(ctypes.Structure):
     """Mirror of ``gfdm::Consts`` in csrc/gfdm_common.cuh: device pointers."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "t_g", "win", "pre", "e_g", "f_g", "bfd_g", "f2_g", "act",
-        "sig_idx", "noise_idx", "demap_idx", "taps", "icop",
+        "t_g", "win", "pre", "shifts", "e_g", "f_g", "bfd_g", "f2_g", "act",
+        "sig_idx", "noise_idx", "demap_idx", "taps", "icop", "cnri", "parts", "ifm",
     )]
 
 
@@ -162,6 +163,7 @@ def library() -> ctypes.CDLL:
     lib.gfdm_tx.argtypes = [dims_p, consts_p, vp, vp, vp]
     lib.gfdm_rx.argtypes = [dims_p, consts_p, vp, vp, vp, vp, vp]
     lib.gfdm_link.argtypes = [dims_p, consts_p, vp, vp, vp, vp]
+    lib.gfdm_rx_variant.argtypes = [dims_p, consts_p, vp, vp, vp, vp, ctypes.c_int, vp]
     lib.gfdm_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     det_p = ctypes.POINTER(DetectDims)
     for fn in (lib.gfdm_detect_front, lib.gfdm_detect_lean):
@@ -173,7 +175,8 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [fdims_p, fconsts_p, vp, vp, vp, vp, vp]
     lib.gfdm_factored_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.gfdm_rx_tile_bursts.argtypes = [dims_p]
-    for fn in (lib.gfdm_tx, lib.gfdm_rx, lib.gfdm_link, lib.gfdm_struct_sizes,
+    for fn in (lib.gfdm_tx, lib.gfdm_rx, lib.gfdm_link, lib.gfdm_rx_variant,
+               lib.gfdm_struct_sizes,
                lib.gfdm_detect_front, lib.gfdm_detect_lean,
                lib.gfdm_detect_dims_size, lib.gfdm_tx_factored,
                lib.gfdm_rx_factored, lib.gfdm_rx_factored_chan,

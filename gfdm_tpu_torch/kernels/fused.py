@@ -1,13 +1,27 @@
-"""Fused GFDM kernels: transmitter, receiver and one-kernel link.
+"""Fused GFDM kernels: transmitters, receivers and the one-kernel link.
 
-The port of ``gfdm_tpu.kernels.fused`` (the Pallas kernels ``_tx_kernel``,
-``_rx_ic_circ_kernel`` and ``_link_kernel``). Each kernel is CUDA C++ for
-Hopper in ``gfdm_tpu_torch/csrc`` (built by :mod:`.cuda_lib`) and has a plain
-torch version here that computes the same thing the same way: the Gauss
-3-product stacks, the ZF denominator clamped at 1e-30, QPSK decisions
-``>= 0 -> +1`` zeroed off the active subcarriers, the metrics row
-``[snr_lin | cnrs | 0-pad]`` and, in ``ic_mode="matmul"``, the bf16
-interference operator upcast to float32.
+The port of ``gfdm_tpu.kernels.fused``. Each Pallas kernel is CUDA C++ for
+Hopper in ``gfdm_tpu_torch/csrc`` (built by :mod:`.cuda_lib`) and has a
+plain torch version here that computes the same thing the same way:
+
+- ``_tx_kernel`` and ``_tx_cdd_kernel`` -> ``tx_kernel`` (csrc/tx.cu): one
+  core product with T_G, cut into every requested cyclic-delay port;
+- ``_rx_ic_circ_kernel`` -> ``rx_kernel`` (csrc/rx.cu) with every option:
+  equalizer zf / mmse / mmse_cnr, QPSK / qam16 / qam64 IC decisions (the
+  amplitude folded into the conv taps or the bf16 IC operator), both IC
+  modes and the one-shot phase compensation;
+- ``_link_kernel`` -> ``link_kernel`` (csrc/link.cu), float32 or bfloat16
+  Gauss stacks;
+- the superseded receivers ``_rx_core_kernel``, ``_rx_ic_kernel``,
+  ``_rx_full_kernel`` and ``_rx_hybrid_kernel`` -> compile-time variants of
+  one receiver template (``rx_variant_kernel``, csrc/rx.cu).
+
+What every plain version pins: the Gauss 3-product stacks, the ZF
+denominator clamped at 1e-30, decisions ``>= 0 -> +1`` (QPSK) or the odd
+level ``clip(2 round((u s - 1) / 2) + 1)`` with round half to even (QAM),
+zeroed off the active subcarriers, the metrics row ``[snr_lin | cnrs |
+0-pad]``, bf16 operators upcast to float32 with the activations rounded to
+bf16 before each product.
 
 The large-K factored pair (``_tx_factored_kernel``, ``_rx_factored_kernel``,
 ``_rx_factored_chan_kernel``; ``csrc/factored.cu``) carries no dense
@@ -26,6 +40,7 @@ Layouts match the JAX package: payload (B, 2, n_data), bursts
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -34,28 +49,72 @@ import torch
 from ..config import GfdmConfig
 from ..ops import operators, planar_fast
 from ..ops.planar import pabs2, pconj, pmatmul, pmul, real_operator
-from ..ops.planar_pipeline import _np_gauss_stacks, _small_consts, _to_tensor, evm
+from ..ops.planar_pipeline import (
+    _gauss_operators, _np_gauss_stacks, _small_consts, _to_tensor, evm,
+)
 
 __all__ = [
     "LAUNCHES",
     "tx_frame_fused",
+    "tx_cdd_fused",
     "rx_receiver_fused",
     "receive_bursts_fused",
     "link_step_fused",
     "link_single_fused",
+    "rx_core_fused",
+    "rx_ic_fused",
+    "rx_full_fused",
+    "rx_receiver_hybrid",
     "tx_frame_factored",
     "rx_receiver_factored",
     "link_step_factored",
 ]
 
 # kernel launches per wrapper since the last reset (plain runs do not count)
-LAUNCHES = {"tx": 0, "rx": 0, "link": 0,
+LAUNCHES = {"tx": 0, "tx_cdd": 0, "rx": 0, "link": 0,
+            "rx_core": 0, "rx_ic": 0, "rx_full": 0, "rx_hybrid": 0,
             "tx_factored": 0, "rx_factored": 0, "rx_factored_chan": 0}
 
-# QPSK symbol amplitude; the IC decisions are +-1 levels and the amplitude
-# is folded into the interference taps / operator
-_QPSK_AMP = 2.0**-0.5
+# IC symbol amplitude of each constellation; the IC decisions are integer
+# levels and the amplitude is folded into the interference taps / operator
+_IC_AMPS = {"qpsk": 2.0**-0.5, "qam16": 10.0**-0.5, "qam64": 42.0**-0.5}
+_QPSK_AMP = _IC_AMPS["qpsk"]
+# the odd-level quantizer of qam16 / qam64: (scale, limit)
+_QAM_LEVELS = {"qam16": (10.0**0.5, 3.0), "qam64": (42.0**0.5, 7.0)}
+# option -> the integer the kernels read (gfdm::Dims)
 _IC_MODES = {"conv": 0, "matmul": 1}
+_DEC_KINDS = {"qpsk": 0, "qam16": 1, "qam64": 2}
+_EQUALIZERS = {"zf": 0, "mmse": 1, "mmse_cnr": 2}
+_DTYPES = ("float32", "bfloat16")
+# csrc/rx.cu::RxVariant of each superseded receiver
+_VARIANTS = {"rx_core": 0, "rx_ic": 0, "rx_full": 1, "rx_hybrid": 2}
+
+
+def _choice(name: str, value, options) -> None:
+    if value not in options:
+        raise ValueError(f"unknown {name} {value!r} (use one of {', '.join(map(repr, options))})")
+
+
+@dataclass(frozen=True)
+class _RxOptions:
+    """The receiver options of one call, validated."""
+
+    ic_iterations: int = 2
+    ic_mode: str = "conv"
+    constellation: str = "qpsk"
+    equalizer: str = "zf"
+    phase_compensation: bool = False
+    amp: float = _QPSK_AMP  # IC amplitude folded into taps / operator
+
+
+def _rx_options(ic_iterations=2, ic_mode="conv", constellation="qpsk", equalizer="zf",
+                phase_compensation=False, qpsk_amp=None) -> _RxOptions:
+    _choice("ic_mode", ic_mode, _IC_MODES)
+    _choice("constellation", constellation, _DEC_KINDS)
+    _choice("equalizer", equalizer, _EQUALIZERS)
+    amp = _IC_AMPS[constellation] if qpsk_amp is None else float(qpsk_amp)
+    return _RxOptions(int(ic_iterations), ic_mode, constellation, equalizer,
+                      bool(phase_compensation), amp)
 
 
 # ---------------------------------------------------------------------------
@@ -69,13 +128,21 @@ def _met_layout(cfg: GfdmConfig):
     return n_cnr, met_w
 
 
+def _bf16_stack(W: np.ndarray) -> torch.Tensor:
+    """bf16 Gauss stack [Wr; Wi; Wr + Wi] (3 n_in, n_out) of the complex W:
+    each part rounded once from float64 by torch (ml_dtypes' rounding,
+    pinned in tests/test_torch_constants.py), the sum plane taken in bf16."""
+    Wr = torch.from_numpy(np.ascontiguousarray(W.real)).to(torch.bfloat16)
+    Wi = torch.from_numpy(np.ascontiguousarray(W.imag)).to(torch.bfloat16)
+    return torch.cat([Wr, Wi, Wr + Wi], dim=0)
+
+
 @lru_cache(maxsize=16)
 def _ic_matmul_stack(cfg: GfdmConfig, amp: float) -> torch.Tensor:
     """bf16 Gauss stack (3N, N) of the interference operator amp*(P+M + P-M)@BD.
 
     Row convention: interference_row = decisions_row @ A. Built in float64
-    like the JAX package's stack and rounded to bf16 by torch; the sum plane
-    Wr + Wi is taken in bf16.
+    like the JAX package's stack.
     """
     n, M, K = cfg.block_len, cfg.timeslots, cfg.subcarriers
     C = operators._interference_matrix(cfg).T
@@ -83,20 +150,28 @@ def _ic_matmul_stack(cfg: GfdmConfig, amp: float) -> torch.Tensor:
     for k in range(K):
         BD[k * M : (k + 1) * M, k * M : (k + 1) * M] = C
     P = np.roll(np.eye(n), M, axis=1) + np.roll(np.eye(n), -M, axis=1)
-    A = amp * (P @ BD)
-    Wr = torch.from_numpy(np.ascontiguousarray(A.real)).to(torch.bfloat16)
-    Wi = torch.from_numpy(np.ascontiguousarray(A.imag)).to(torch.bfloat16)
-    return torch.cat([Wr, Wi, Wr + Wi], dim=0)
+    return _bf16_stack(amp * (P @ BD))
+
+
+def _ic_taps_np(cfg: GfdmConfig, amp: float) -> np.ndarray:
+    """(2, M) conv-IC taps: column 0 of the circulant C rounded to float32,
+    times ``amp`` in float64, rounded once more (tap j multiplies timeslot
+    (m - j) mod M)."""
+    c_col = operators._interference_matrix(cfg)[:, 0]
+    c_f32 = np.stack([c_col.real, c_col.imag]).astype(np.float32)
+    return (c_f32.astype(np.float64) * amp).astype(np.float32)
 
 
 _KERNEL_CONSTS: dict = {}
 
 
 def _kernel_consts(cfg: GfdmConfig, device) -> dict:
-    """Constants of the three kernels on ``device``, built once per
-    (config, device): the Gauss stacks and small constants only, none of
-    the planar path's operators. Index forms replace the Pallas kernels'
-    0/1 selection matrices and roll masks."""
+    """Constants of the dense kernels on ``device``, built once per
+    (config, device): the float32 Gauss stacks and small constants only,
+    none of the planar path's operators. Index forms replace the Pallas
+    kernels' 0/1 selection matrices and roll masks; ``CNRI_T`` (n_cnr, N)
+    is the mmse_cnr interpolation operator (the Pallas kernel's zero-padded
+    ``_cnri_pad`` rows dropped)."""
     device = torch.device(device)
     key = (cfg, str(device))
     hit = _KERNEL_CONSTS.get(key)
@@ -107,36 +182,70 @@ def _kernel_consts(cfg: GfdmConfig, device) -> dict:
         "win", "preambles", "sig_idx", "noise_idx", "demap_idx",
     )}}
     arrays["act"] = np.repeat(small["active"].astype(np.float32), cfg.timeslots)
-    # column 0 of the circulant C times the QPSK amplitude: tap j multiplies
-    # timeslot (m - j) mod M
-    c_col = operators._interference_matrix(cfg)[:, 0]
-    c_f32 = np.stack([c_col.real, c_col.imag]).astype(np.float32)
-    arrays["taps"] = (c_f32.astype(np.float64) * _QPSK_AMP).astype(np.float32)
+    arrays["taps"] = _ic_taps_np(cfg, _QPSK_AMP)
+    arrays["CNRI_T"] = operators.cnr_interpolation_operator(cfg).T.astype(np.float32)
     k = {name: _to_tensor(a, device) for name, a in arrays.items()}
     _KERNEL_CONSTS[key] = k
     return k
 
 
-def _ic_operand(cfg: GfdmConfig, ic_mode: str, device) -> torch.Tensor:
-    """IC constant with the QPSK amplitude folded in: the bf16 (3N, N)
+_EXTRA_CONSTS: dict = {}
+
+
+def _extra(cfg: GfdmConfig, device, name, build):
+    """A constant built on first use and cached per (config, device, name)."""
+    key = (cfg, str(torch.device(device)), name)
+    hit = _EXTRA_CONSTS.get(key)
+    if hit is None:
+        hit = _EXTRA_CONSTS[key] = build()
+    return hit
+
+
+def _stacks(cfg: GfdmConfig, device, dtype_name: str = "float32") -> dict:
+    """The five Gauss stacks in float32 or (the link's dtype "bfloat16") bf16."""
+    if dtype_name == "float32":
+        return _kernel_consts(cfg, device)
+    return _extra(cfg, device, "bf16_stacks", lambda: {
+        name: _bf16_stack(W).to(device) for name, W in _gauss_operators(cfg).items()
+    })
+
+
+def _shifts(cfg: GfdmConfig, device) -> torch.Tensor:
+    """(n_shifts,) int32 cyclic shift of each Tx port."""
+    return _extra(cfg, device, "shifts", lambda: _to_tensor(
+        np.asarray(cfg.cyclic_shifts, dtype=np.int32), device))
+
+
+def _ic_operand(cfg: GfdmConfig, ic_mode: str, device, amp: float = _QPSK_AMP):
+    """IC constant with the amplitude ``amp`` folded in: the bf16 (3N, N)
     operator (built on first use) or the float32 (2, M) circulant taps."""
-    k = _kernel_consts(cfg, device)
     if ic_mode == "matmul":
-        if "icop" not in k:
-            k["icop"] = _ic_matmul_stack(cfg, _QPSK_AMP).to(device)
-        return k["icop"]
-    return k["taps"]
+        return _extra(cfg, device, ("icop", float(amp)),
+                      lambda: _ic_matmul_stack(cfg, float(amp)).to(device))
+    if float(amp) == _QPSK_AMP:
+        return _kernel_consts(cfg, device)["taps"]
+    return _extra(cfg, device, ("taps", float(amp)),
+                  lambda: _to_tensor(_ic_taps_np(cfg, float(amp)), device))
 
 
 # ---------------------------------------------------------------------------
 # plain torch versions (what the kernels compute)
 # ---------------------------------------------------------------------------
 def _gdot(xr, xi, g, n_in):
-    """Complex product with a Gauss stack [Wr; Wi; Wr+Wi] (bf16 upcast)."""
+    """Complex product with a Gauss stack [Wr; Wi; Wr+Wi]. A bf16 stack is
+    upcast and the activations are rounded to bf16 first, their sum plane
+    taken in bf16, as the JAX package's _gdot casts them to the stack's type
+    (float32 accumulation either way)."""
+    if g.dtype == torch.bfloat16:
+        xr, xi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
+        s = (xr + xi).float()
+        xr, xi = xr.float(), xi.float()
+    else:
+        s = xr + xi
     g = g.to(torch.float32)
     p1 = xr @ g[:n_in]
     p2 = xi @ g[n_in : 2 * n_in]
-    p3 = (xr + xi) @ g[2 * n_in :]
+    p3 = s @ g[2 * n_in :]
     return p1 - p2, p3 - p1 - p2
 
 
@@ -160,47 +269,98 @@ def _conv_ic(qr, qi, taps, K, M):
     return ir.reshape(B, K * M), ii.reshape(B, K * M)
 
 
-def _rx_core_plain(cfg, k, pre_r, pre_i, fr_r, fr_i, ic_iterations, ic_mode,
-                   ic_op):
-    n, half = cfg.block_len, 2 * cfg.subcarriers
-    n_cnr, met_w = _met_layout(cfg)
-    chr_, chi = _gdot(pre_r, pre_i, k["E_G"], half)
-    fr, fi = _gdot(pre_r, pre_i, k["F2_G"], half)
-    p = fr * fr + fi * fi
-    sig = p[:, k["sig_idx"]].sum(dim=1, keepdim=True)
-    noise = p[:, k["noise_idx"]].sum(dim=1, keepdim=True)
-    snr = (sig - noise) / noise
-    met = torch.zeros(p.shape[0], met_w, dtype=p.dtype, device=p.device)
-    met[:, :1] = snr
-    met[:, 1 : 1 + n_cnr] = p[:, k["sig_idx"]] * (snr / (sig / n_cnr))
+def _ic_level(u: torch.Tensor, constellation: str) -> torch.Tensor:
+    """IC decision levels: QPSK signs (>= 0 -> +1), or the odd level nearest
+    to u * scale for qam16 / qam64; torch.round rounds half to even like
+    jnp.round (and the kernels' rintf)."""
+    if constellation == "qpsk":
+        return torch.where(u >= 0, 1.0, -1.0)
+    scale, lim = _QAM_LEVELS[constellation]
+    return torch.clamp(2.0 * torch.round((u * scale - 1.0) / 2.0) + 1.0, -lim, lim)
 
-    xr, xi = _gdot(fr_r, fr_i, k["F_G"], n)
-    den = torch.clamp(chr_ * chr_ + chi * chi, min=1e-30)
-    yr = (xr * chr_ + xi * chi) / den
-    yi = (xi * chr_ - xr * chi) / den
-    d0r, d0i = _gdot(yr, yi, k["Bfd_G"], n)
+
+def _phase_rotate(cfg: GfdmConfig, d0r, d0i, qr, qi, act):
+    """One-shot common-phase correction of d0 from the decisions q (zero off
+    the active symbols): the mean over the active symbols of the A&S 4.4.49
+    arctan of clip(Im / max(Re, 1e-20), -1, 1) of q conj(d0), then d0
+    rotated with Taylor cos / sin (the JAX kernel's polynomials)."""
+    re = qr * d0r + qi * d0i
+    im = qi * d0r - qr * d0i
+    u = torch.clamp(im / torch.clamp(re, min=1e-20), -1.0, 1.0)
+    u2 = u * u
+    delta = u * (0.9998660 + u2 * (-0.3302995 + u2 * (0.1801410
+                 + u2 * (-0.0851330 + 0.0208351 * u2))))
+    n_act = float(cfg.subcarrier_map.size * cfg.timeslots)
+    phi = torch.sum(delta * act, dim=-1, keepdim=True) / n_act
+    p2 = phi * phi
+    cph = 1.0 - p2 * (0.5 - p2 * (1.0 / 24.0 - p2 / 720.0))
+    sph = phi * (1.0 - p2 * (1.0 / 6.0 - p2 * (1.0 / 120.0 - p2 / 5040.0)))
+    return cph * d0r - sph * d0i, sph * d0r + cph * d0i
+
+
+def _cancel_plain(cfg: GfdmConfig, act, d0r, d0i, opts: _RxOptions, ic_op):
+    """Decision-directed IC: ic_iterations of d = d0 - interference(levels
+    of d on the active symbols); the first iteration decides on d0 and, with
+    phase compensation, rotates d0 before it subtracts."""
     dr, di = d0r, d0i
-    act = k["act"]
-    for _ in range(ic_iterations):
-        qr = torch.where(dr >= 0, 1.0, -1.0) * act
-        qi = torch.where(di >= 0, 1.0, -1.0) * act
-        if ic_mode == "matmul":
-            ir, ii = _gdot(qr, qi, ic_op, n)
+    for it in range(opts.ic_iterations):
+        qr = _ic_level(dr, opts.constellation) * act
+        qi = _ic_level(di, opts.constellation) * act
+        if it == 0 and opts.phase_compensation:
+            d0r, d0i = _phase_rotate(cfg, d0r, d0i, qr, qi, act)
+        if opts.ic_mode == "matmul":
+            ir, ii = _gdot(qr, qi, ic_op, cfg.block_len)
         else:
             ir, ii = _conv_ic(qr, qi, ic_op, cfg.subcarriers, cfg.timeslots)
         dr = d0r - ir
         di = d0i - ii
+    return dr, di
+
+
+def _zf(xr, xi, chr_, chi):
+    """ZF divide by the channel, |C|^2 clamped at 1e-30; returns y and den."""
+    den = torch.clamp(chr_ * chr_ + chi * chi, min=1e-30)
+    return (xr * chr_ + xi * chi) / den, (xi * chr_ - xr * chi) / den, den
+
+
+def _rx_core_plain(cfg, k, stacks, pre_r, pre_i, fr_r, fr_i, opts: _RxOptions, ic_op):
+    n, half = cfg.block_len, 2 * cfg.subcarriers
+    n_cnr, met_w = _met_layout(cfg)
+    chr_, chi = _gdot(pre_r, pre_i, stacks["E_G"], half)
+    fr, fi = _gdot(pre_r, pre_i, stacks["F2_G"], half)
+    p = fr * fr + fi * fi
+    sig = p[:, k["sig_idx"]].sum(dim=1, keepdim=True)
+    noise = p[:, k["noise_idx"]].sum(dim=1, keepdim=True)
+    snr = (sig - noise) / noise
+    cnr = p[:, k["sig_idx"]] * (snr / (sig / n_cnr))
+    met = torch.zeros(p.shape[0], met_w, dtype=p.dtype, device=p.device)
+    met[:, :1] = snr
+    met[:, 1 : 1 + n_cnr] = cnr
+
+    xr, xi = _gdot(fr_r, fr_i, stacks["F_G"], n)
+    yr, yi, den = _zf(xr, xi, chr_, chi)
+    if opts.equalizer == "mmse":
+        w = den / (den + 1.0 / torch.clamp(snr, min=1e-6))
+        yr, yi = yr * w, yi * w
+    elif opts.equalizer == "mmse_cnr":
+        cb = torch.clamp(torch.clamp(cnr, min=0.0) @ k["CNRI_T"], min=1e-6)
+        w = cb / (cb + 1.0)
+        yr, yi = yr * w, yi * w
+    d0r, d0i = _gdot(yr, yi, stacks["Bfd_G"], n)
+    dr, di = _cancel_plain(cfg, k["act"], d0r, d0i, opts, ic_op)
     return chr_, chi, met, dr, di
 
 
-def _tx_frame_plain(cfg: GfdmConfig, data: torch.Tensor, shift_index: int = 0):
+def _tx_frame_plain(cfg: GfdmConfig, data: torch.Tensor, shift_index: int = 0,
+                    dtype_name: str = "float32"):
     """(B, 2 n_data) payload rows -> (B, 2 frame_len) burst rows."""
     k = _kernel_consts(cfg, data.device)
     n, n_d = cfg.block_len, cfg.n_data_symbols
     cp, cs = cfg.cp_len, cfg.cs_len
     shift = int(cfg.cyclic_shifts[shift_index])
     pre = k["preambles"][shift_index]
-    core = _gdot(data[:, :n_d], data[:, n_d:], k["T_G"], n_d)
+    core = _gdot(data[:, :n_d], data[:, n_d:], _stacks(cfg, data.device, dtype_name)["T_G"],
+                 n_d)
     planes = []
     for p, c in enumerate(core):
         framed = torch.cat([c[:, n - cp - shift :], c, c[:, : cs - shift]], dim=1)
@@ -208,67 +368,113 @@ def _tx_frame_plain(cfg: GfdmConfig, data: torch.Tensor, shift_index: int = 0):
     return torch.cat(planes, dim=1)
 
 
-def _rx_receiver_plain(cfg: GfdmConfig, bursts: torch.Tensor,
-                       ic_iterations: int, ic_mode: str):
-    """(B, 2 frame_len) burst rows -> chan (B, 2N), symbols (B, 2N), met."""
+def _tx_cdd_plain(cfg: GfdmConfig, data: torch.Tensor):
+    """(B, 2 n_data) payload rows -> (B, n_shifts, 2 frame_len): the
+    one-port transmitter at every cyclic shift."""
+    return torch.stack([_tx_frame_plain(cfg, data, si)
+                        for si in range(len(cfg.cyclic_shifts))], dim=1)
+
+
+def _rx_receiver_plain(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: int,
+                       ic_mode: str, dtype_name: str = "float32", **options):
+    """(B, 2 frame_len) burst rows -> chan (B, 2N), symbols (B, 2N), met.
+    ``options``: constellation, equalizer, phase_compensation, qpsk_amp."""
+    opts = _rx_options(ic_iterations, ic_mode, **options)
     k = _kernel_consts(cfg, bursts.device)
     n, half, L = cfg.block_len, 2 * cfg.subcarriers, cfg.frame_len
     cp, fs = cfg.cp_len, cfg.preamble_len + cfg.cp_len
     chr_, chi, met, dr, di = _rx_core_plain(
-        cfg, k, bursts[:, cp : cp + half], bursts[:, L + cp : L + cp + half],
+        cfg, k, _stacks(cfg, bursts.device, dtype_name),
+        bursts[:, cp : cp + half], bursts[:, L + cp : L + cp + half],
         bursts[:, fs : fs + n], bursts[:, L + fs : L + fs + n],
-        ic_iterations, ic_mode, _ic_operand(cfg, ic_mode, bursts.device),
+        opts, _ic_operand(cfg, ic_mode, bursts.device, opts.amp),
     )
     return torch.cat([chr_, chi], dim=1), torch.cat([dr, di], dim=1), met
 
 
-def _link_single_plain(cfg: GfdmConfig, data: torch.Tensor,
-                       ic_iterations: int, ic_mode: str):
+def _link_single_plain(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int,
+                       ic_mode: str, constellation: str = "qpsk", qpsk_amp=None,
+                       dtype_name: str = "float32"):
     """(B, 2 n_data) payload rows -> data estimate (B, 2 n_data), met."""
     k = _kernel_consts(cfg, data.device)
-    bursts = _tx_frame_plain(cfg, data, 0)
-    _chan, sym, met = _rx_receiver_plain(cfg, bursts, ic_iterations, ic_mode)
+    bursts = _tx_frame_plain(cfg, data, 0, dtype_name)
+    _chan, sym, met = _rx_receiver_plain(cfg, bursts, ic_iterations, ic_mode, dtype_name,
+                                         constellation=constellation, qpsk_amp=qpsk_amp)
     n, idx = cfg.block_len, k["demap_idx"]
     return torch.cat([sym[:, :n][:, idx], sym[:, n:][:, idx]], dim=1), met
+
+
+def _rx_variant_plain(key: str, cfg: GfdmConfig, x: torch.Tensor, chan, ic_iterations: int,
+                      amp: float):
+    """The superseded receivers on (B, 2 .) rows: ``x`` is frames (B, 2N)
+    with ``chan`` (B, 2N) for rx_core / rx_ic, else bursts (B, 2 frame_len)
+    whose channel is estimated. Returns chan (B, 2N), symbols (B, 2N)."""
+    k = _kernel_consts(cfg, x.device)
+    n, half, L = cfg.block_len, 2 * cfg.subcarriers, cfg.frame_len
+    if chan is None:
+        cp, fs = cfg.cp_len, cfg.preamble_len + cfg.cp_len
+        chr_, chi = _gdot(x[:, cp : cp + half], x[:, L + cp : L + cp + half], k["E_G"], half)
+        fr_r, fr_i = x[:, fs : fs + n], x[:, L + fs : L + fs + n]
+    else:
+        chr_, chi = chan[:, :n], chan[:, n:]
+        fr_r, fr_i = x[:, :n], x[:, n:]
+    xr, xi = _gdot(fr_r, fr_i, k["F_G"], n)
+    yr, yi, _den = _zf(xr, xi, chr_, chi)
+    if key == "rx_hybrid":
+        fc = planar_fast.fast_consts(cfg, "float32", x.device)
+        S = planar_fast._fold_rx(cfg, torch.stack([yr, yi], dim=1), fc)  # (B, K, 2, M)
+        d0 = torch.movedim(pmatmul(S, fc["iFM_W"]), -2, -3).reshape(x.shape[0], 2, n)
+        d0r, d0i = d0[:, 0], d0[:, 1]
+    else:
+        d0r, d0i = _gdot(yr, yi, k["Bfd_G"], n)
+    opts = _rx_options(ic_iterations, qpsk_amp=amp)
+    dr, di = _cancel_plain(cfg, k["act"], d0r, d0i, opts,
+                           _ic_operand(cfg, "conv", x.device, amp))
+    return torch.cat([chr_, chi], dim=1), torch.cat([dr, di], dim=1)
 
 
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
-def _dims(cfg: GfdmConfig, batch: int, shift: int = 0, ic_iterations: int = 0,
-          ic_mode: str = "conv"):
+def _dims(cfg: GfdmConfig, batch: int, opts: _RxOptions | None = None, n_ports: int = 1,
+          bf16: bool = False):
     from .cuda_lib import Dims
 
+    opts = opts or _RxOptions(ic_iterations=0)
     n_cnr, met_w = _met_layout(cfg)
     return Dims(
         batch=batch, n=cfg.block_len, n_data=cfg.n_data_symbols,
         timeslots=cfg.timeslots, subcarriers=cfg.subcarriers,
         half=2 * cfg.subcarriers, frame_len=cfg.frame_len,
-        preamble_len=cfg.preamble_len, cp_len=cfg.cp_len, cs_len=cfg.cs_len, shift=shift, n_cnr=n_cnr,
-        met_w=met_w, ic_iterations=ic_iterations, ic_mode=_IC_MODES[ic_mode],
+        preamble_len=cfg.preamble_len, cp_len=cfg.cp_len, cs_len=cfg.cs_len,
+        n_ports=n_ports, n_cnr=n_cnr, met_w=met_w,
+        ic_iterations=opts.ic_iterations, ic_mode=_IC_MODES[opts.ic_mode],
+        dec_kind=_DEC_KINDS[opts.constellation], equalizer=_EQUALIZERS[opts.equalizer],
+        phase_comp=int(opts.phase_compensation),
+        n_act=cfg.subcarrier_map.size * cfg.timeslots, overlap=cfg.overlap, bf16=int(bf16),
     )
 
 
-def _consts(k: dict, pre: torch.Tensor, ic_op: torch.Tensor | None = None,
-            ic_mode: str = "conv"):
+def _consts(**tensors):
+    """gfdm::Consts from the named tensors; the fields not given are null."""
     from .cuda_lib import Consts
 
-    ic = {"taps": None, "icop": None}
-    if ic_op is not None:
-        ic["icop" if ic_mode == "matmul" else "taps"] = ic_op.data_ptr()
-    return Consts(
-        t_g=k["T_G"].data_ptr(), win=k["win"].data_ptr(), pre=pre.data_ptr(),
-        e_g=k["E_G"].data_ptr(), f_g=k["F_G"].data_ptr(),
-        bfd_g=k["Bfd_G"].data_ptr(), f2_g=k["F2_G"].data_ptr(),
-        act=k["act"].data_ptr(), sig_idx=k["sig_idx"].data_ptr(),
-        noise_idx=k["noise_idx"].data_ptr(),
-        demap_idx=k["demap_idx"].data_ptr(), **ic,
-    )
+    return Consts(**{name: t.data_ptr() for name, t in tensors.items()})
 
 
-def _run(name: str, dims, consts, *ptrs, device) -> None:
-    """Launch ``gfdm_<name>`` on the current stream of ``device``; raise if
-    the launch is refused (e.g. a config whose tile exceeds shared memory)."""
+def _rx_consts(cfg: GfdmConfig, device, opts: _RxOptions, dtype_name: str = "float32"):
+    """The receiver's constants (rx_chain in csrc/gfdm_common.cuh)."""
+    k, s = _kernel_consts(cfg, device), _stacks(cfg, device, dtype_name)
+    ic = "icop" if opts.ic_mode == "matmul" else "taps"
+    return dict(e_g=s["E_G"], f_g=s["F_G"], bfd_g=s["Bfd_G"], f2_g=s["F2_G"],
+                act=k["act"], sig_idx=k["sig_idx"], noise_idx=k["noise_idx"],
+                cnri=k["CNRI_T"], **{ic: _ic_operand(cfg, opts.ic_mode, device, opts.amp)})
+
+
+def _run(name: str, key: str, dims, consts, *args, device) -> None:
+    """Launch ``gfdm_<name>`` on the current stream of ``device`` and count
+    it under ``key``; raise if the launch is refused (e.g. a config whose
+    tile exceeds shared memory)."""
     from .cuda_lib import launch
 
     def rx_tile(lib):
@@ -276,47 +482,73 @@ def _run(name: str, dims, consts, *ptrs, device) -> None:
                 " B in shared memory a CTA even at one burst, so a larger "
                 "N = M*K takes rx_receiver_factored")
 
-    launch(f"gfdm_{name}", (ctypes.byref(dims), ctypes.byref(consts), *ptrs),
+    launch(f"gfdm_{name}", (ctypes.byref(dims), ctypes.byref(consts), *args),
            device, hint=None if name == "tx" else rx_tile)
-    LAUNCHES[name] += 1
+    LAUNCHES[key] += 1
 
 
-def _tx_frame_cuda(cfg, data, shift_index):
+def _tx_cuda(cfg, data, shift_index=None):
+    """One port (``shift_index``) or every port (None) from one Tx launch."""
     k = _kernel_consts(cfg, data.device)
-    out = torch.empty(data.shape[0], 2 * cfg.frame_len, dtype=torch.float32,
+    shifts, pre = _shifts(cfg, data.device), k["preambles"]
+    if shift_index is not None:
+        shifts, pre = shifts[shift_index : shift_index + 1], pre[shift_index]
+    ports = shifts.shape[0]
+    out = torch.empty(data.shape[0], ports, 2 * cfg.frame_len, dtype=torch.float32,
                       device=data.device)
-    dims = _dims(cfg, data.shape[0], shift=int(cfg.cyclic_shifts[shift_index]))
-    consts = _consts(k, k["preambles"][shift_index])
-    _run("tx", dims, consts, data.data_ptr(), out.data_ptr(), device=data.device)
+    consts = _consts(t_g=k["T_G"], win=k["win"], pre=pre, shifts=shifts)
+    _run("tx", "tx" if shift_index is not None else "tx_cdd",
+         _dims(cfg, data.shape[0], n_ports=ports), consts,
+         data.data_ptr(), out.data_ptr(), device=data.device)
     return out
 
 
-def _rx_receiver_cuda(cfg, bursts, ic_iterations, ic_mode):
-    k = _kernel_consts(cfg, bursts.device)
+def _rx_receiver_cuda(cfg, bursts, opts: _RxOptions):
     B, w = bursts.shape[0], 2 * cfg.block_len
-    opts = dict(dtype=torch.float32, device=bursts.device)
-    chan, sym = torch.empty(B, w, **opts), torch.empty(B, w, **opts)
-    met = torch.empty(B, _met_layout(cfg)[1], **opts)
-    ic_op = _ic_operand(cfg, ic_mode, bursts.device)
-    dims = _dims(cfg, B, ic_iterations=ic_iterations, ic_mode=ic_mode)
-    consts = _consts(k, k["preambles"][0], ic_op, ic_mode)
-    _run("rx", dims, consts, bursts.data_ptr(),
+    kw = dict(dtype=torch.float32, device=bursts.device)
+    chan, sym = torch.empty(B, w, **kw), torch.empty(B, w, **kw)
+    met = torch.empty(B, _met_layout(cfg)[1], **kw)
+    consts = _consts(**_rx_consts(cfg, bursts.device, opts))
+    _run("rx", "rx", _dims(cfg, B, opts), consts, bursts.data_ptr(),
          chan.data_ptr(), sym.data_ptr(), met.data_ptr(), device=bursts.device)
     return chan, sym, met
 
 
-def _link_single_cuda(cfg, data, ic_iterations, ic_mode):
+def _link_single_cuda(cfg, data, opts: _RxOptions, dtype_name: str):
     k = _kernel_consts(cfg, data.device)
     B = data.shape[0]
-    opts = dict(dtype=torch.float32, device=data.device)
-    out = torch.empty(B, 2 * cfg.n_data_symbols, **opts)
-    met = torch.empty(B, _met_layout(cfg)[1], **opts)
-    ic_op = _ic_operand(cfg, ic_mode, data.device)
-    dims = _dims(cfg, B, ic_iterations=ic_iterations, ic_mode=ic_mode)
-    consts = _consts(k, k["preambles"][0], ic_op, ic_mode)
-    _run("link", dims, consts, data.data_ptr(),
-         out.data_ptr(), met.data_ptr(), device=data.device)
+    kw = dict(dtype=torch.float32, device=data.device)
+    out = torch.empty(B, 2 * cfg.n_data_symbols, **kw)
+    met = torch.empty(B, _met_layout(cfg)[1], **kw)
+    consts = _consts(t_g=_stacks(cfg, data.device, dtype_name)["T_G"], win=k["win"],
+                     pre=k["preambles"][0], demap_idx=k["demap_idx"],
+                     **_rx_consts(cfg, data.device, opts, dtype_name))
+    _run("link", "link", _dims(cfg, B, opts, bf16=dtype_name == "bfloat16"), consts,
+         data.data_ptr(), out.data_ptr(), met.data_ptr(), device=data.device)
     return out, met
+
+
+def _rx_variant_cuda(key: str, cfg, x, chan, ic_iterations: int, amp: float):
+    """As _rx_variant_plain; the channel is None for rx_full, which writes
+    only the symbols."""
+    B, n = x.shape[0], cfg.block_len
+    k = _kernel_consts(cfg, x.device)
+    sym = torch.empty(B, 2 * n, dtype=torch.float32, device=x.device)
+    chan_out = None
+    if chan is None and key == "rx_hybrid":
+        chan_out = torch.empty_like(sym)
+    tabs = {}
+    if key == "rx_hybrid":
+        fc = planar_fast.fast_consts(cfg, "float32", x.device)
+        tabs = dict(parts=fc["rx_parts"], ifm=fc["iFM_W"])
+    consts = _consts(e_g=k["E_G"], f_g=k["F_G"], bfd_g=k["Bfd_G"], act=k["act"],
+                     taps=_ic_operand(cfg, "conv", x.device, amp), **tabs)
+    opts = _rx_options(ic_iterations, qpsk_amp=amp)
+    _run("rx_variant", key, _dims(cfg, B, opts), consts, x.data_ptr(),
+         None if chan is None else chan.data_ptr(),
+         None if chan_out is None else chan_out.data_ptr(), sym.data_ptr(),
+         _VARIANTS[key], device=x.device)
+    return chan if chan_out is None else chan_out, sym
 
 
 # ---------------------------------------------------------------------------
@@ -337,25 +569,6 @@ def _on_cuda(x: torch.Tensor, cols: int, fn: str) -> bool:
     return x.device.type == "cuda"
 
 
-def _check_options(constellation: str, equalizer: str, phase_compensation: bool,
-                   ic_mode: str) -> None:
-    if ic_mode not in _IC_MODES:
-        raise ValueError(f"unknown ic_mode {ic_mode!r}")
-    missing = []
-    if constellation != "qpsk":
-        missing.append(f"constellation={constellation!r}")
-    if equalizer != "zf":
-        missing.append(f"equalizer={equalizer!r}")
-    if phase_compensation:
-        missing.append("phase_compensation=True")
-    if missing:
-        raise NotImplementedError(
-            f"{', '.join(missing)}: the fused kernels take ZF, QPSK and no phase "
-            "compensation; the other receiver options are ROADMAP.md Queue 2 "
-            "item 14 (use ops.planar_pipeline.receive_bursts_planar meanwhile)"
-        )
-
-
 def tx_frame_fused(cfg: GfdmConfig, data: torch.Tensor, shift_index: int = 0):
     """Fused Tx chain for one cyclic shift.
 
@@ -365,25 +578,50 @@ def tx_frame_fused(cfg: GfdmConfig, data: torch.Tensor, shift_index: int = 0):
     cuda = _on_cuda(data, cfg.n_data_symbols, "tx_frame_fused")
     flat = data.reshape(data.shape[0], -1)
     if cuda:
-        out = _tx_frame_cuda(cfg, flat, shift_index)
+        out = _tx_cuda(cfg, flat, shift_index)
     else:
         out = _tx_frame_plain(cfg, flat, shift_index)
     return out.reshape(data.shape[0], 2, cfg.frame_len)
 
 
+def tx_cdd_fused(cfg: GfdmConfig, data: torch.Tensor):
+    """Fused multi-port Tx: every cyclic-delay-diversity shift in one kernel.
+
+    data: (B, 2, n_data) planar payload -> (B, n_shifts, 2, frame_len).
+    Equivalent to transmit_planar(cfg, data); the core frame is modulated
+    once and cut into every port's CP/CS, window and preamble.
+    """
+    cuda = _on_cuda(data, cfg.n_data_symbols, "tx_cdd_fused")
+    flat = data.reshape(data.shape[0], -1)
+    out = _tx_cuda(cfg, flat) if cuda else _tx_cdd_plain(cfg, flat)
+    return out.reshape(data.shape[0], len(cfg.cyclic_shifts), 2, cfg.frame_len)
+
+
 def rx_receiver_fused(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: int = 2,
-                      constellation: str = "qpsk", phase_compensation: bool = False,
-                      equalizer: str = "zf", ic_mode: str = "conv"):
-    """Whole receiver core (channel est + SNR/CNR + ZF + demod + IC).
+                      qpsk_amp: float | None = None, constellation: str = "qpsk",
+                      phase_compensation: bool = False, equalizer: str = "zf",
+                      ic_mode: str = "conv"):
+    """Whole receiver core (channel est + SNR/CNR + equalizer + demod + IC).
 
     bursts: (B, 2, frame_len) planar -> (channel (B, 2, N), symbols
     (B, 2, N), metrics (B, met_w) = [snr_lin | scaled cnrs | 0-pad]).
+    equalizer "zf", "mmse" (per-bin shrinkage by the estimated SNR) or
+    "mmse_cnr" (by the per-bin interpolated CNR); IC decisions of
+    ``constellation`` ("qpsk", "qam16", "qam64") at amplitude ``qpsk_amp``
+    (default: the constellation's); ``phase_compensation`` corrects a common
+    phase offset once, before the first cancellation (ic_iterations > 0).
     """
-    _check_options(constellation, equalizer, phase_compensation, ic_mode)
+    opts = _rx_options(ic_iterations, ic_mode, constellation, equalizer,
+                       phase_compensation, qpsk_amp)
     cuda = _on_cuda(bursts, cfg.frame_len, "rx_receiver_fused")
     flat = bursts.reshape(bursts.shape[0], -1)
-    run = _rx_receiver_cuda if cuda else _rx_receiver_plain
-    chan, sym, met = run(cfg, flat, int(ic_iterations), ic_mode)
+    if cuda:
+        chan, sym, met = _rx_receiver_cuda(cfg, flat, opts)
+    else:
+        chan, sym, met = _rx_receiver_plain(
+            cfg, flat, opts.ic_iterations, opts.ic_mode, constellation=constellation,
+            equalizer=equalizer, phase_compensation=opts.phase_compensation,
+            qpsk_amp=opts.amp)
     B, n = bursts.shape[0], cfg.block_len
     return chan.reshape(B, 2, n), sym.reshape(B, 2, n), met
 
@@ -394,7 +632,7 @@ def receive_bursts_fused(cfg: GfdmConfig, bursts: torch.Tensor,
     """Production receive path: the receiver kernel + a torch demap gather.
 
     bursts: (B, 2, frame_len) planar, aligned at the full-preamble start.
-    Returns the dict of planar_pipeline.receive_bursts_planar (ZF, QPSK).
+    Returns the dict of planar_pipeline.receive_bursts_planar.
     """
     chan, symbols, met = rx_receiver_fused(
         cfg, bursts, ic_iterations=ic_iterations, constellation=constellation,
@@ -422,20 +660,81 @@ def link_step_fused(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 2)
 
 
 def link_single_fused(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 2,
+                      qpsk_amp: float | None = None, dtype_name: str = "float32",
                       constellation: str = "qpsk", ic_mode: str = "conv"):
     """One-kernel end-to-end link: payload -> Tx -> on-chip burst -> Rx -> data.
 
     data: (B, 2, n_data) planar payload. Returns (data_hat (B, 2, n_data),
     snr_lin (B,), evm scalar) - the link_step_fused contract, with the burst
-    never leaving the chip.
+    never leaving the chip. ``dtype_name="bfloat16"`` runs the five Gauss
+    products with bf16 stacks and bf16-rounded activations (float32
+    accumulation); ``constellation`` sets the IC decisions and amplitude.
     """
-    _check_options(constellation, "zf", False, ic_mode)
+    opts = _rx_options(ic_iterations, ic_mode, constellation, qpsk_amp=qpsk_amp)
+    _choice("dtype_name", dtype_name, _DTYPES)
     cuda = _on_cuda(data, cfg.n_data_symbols, "link_single_fused")
     flat = data.reshape(data.shape[0], -1)
-    run = _link_single_cuda if cuda else _link_single_plain
-    out, met = run(cfg, flat, int(ic_iterations), ic_mode)
+    if cuda:
+        out, met = _link_single_cuda(cfg, flat, opts, dtype_name)
+    else:
+        out, met = _link_single_plain(cfg, flat, opts.ic_iterations, ic_mode,
+                                      constellation, opts.amp, dtype_name)
     d_hat = out.reshape(data.shape)
     return d_hat, met[:, 0], evm(d_hat, data)
+
+
+def _rx_variant(key: str, cfg: GfdmConfig, x: torch.Tensor, chan, ic_iterations: int,
+                qpsk_amp: float):
+    """Validate and run one superseded receiver; returns chan, symbols as
+    (B, 2, N)."""
+    cols = cfg.block_len if chan is not None else cfg.frame_len
+    cuda = _on_cuda(x, cols, key)
+    if chan is not None and (_on_cuda(chan, cfg.block_len, key) != cuda
+                             or chan.shape[0] != x.shape[0]):
+        raise ValueError(f"{key}: frames and channel must share batch and device")
+    B = x.shape[0]
+    flat = x.reshape(B, -1)
+    cflat = None if chan is None else chan.reshape(B, -1)
+    run = _rx_variant_cuda if cuda else _rx_variant_plain
+    c, s = run(key, cfg, flat, cflat, int(ic_iterations), float(qpsk_amp))
+    n = cfg.block_len
+    return None if c is None else c.reshape(B, 2, n), s.reshape(B, 2, n)
+
+
+def rx_core_fused(cfg: GfdmConfig, frames: torch.Tensor, channel: torch.Tensor):
+    """Fused ZF receiver core.
+
+    frames, channel: (B, 2, N) planar -> (B, 2, N) planar symbol estimates:
+    block DFT, ZF divide (|C|^2 clamped at 1e-30), FD demodulation.
+    """
+    return _rx_variant("rx_core", cfg, frames, channel, 0, _QPSK_AMP)[1]
+
+
+def rx_ic_fused(cfg: GfdmConfig, frames: torch.Tensor, channel: torch.Tensor,
+                ic_iterations: int = 2, qpsk_amp: float = _QPSK_AMP):
+    """Fused ZF + IC receiver core: rx_core_fused, then ``ic_iterations``
+    QPSK-decision interference-cancellation passes at ``qpsk_amp``.
+
+    frames, channel: (B, 2, N) planar -> (B, 2, N) planar symbols.
+    """
+    return _rx_variant("rx_ic", cfg, frames, channel, ic_iterations, qpsk_amp)[1]
+
+
+def rx_full_fused(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: int = 2,
+                  qpsk_amp: float = _QPSK_AMP):
+    """Whole ZF + QPSK-IC receiver core from bursts (the channel estimated
+    inside): (B, 2, frame_len) planar -> (B, 2, N) planar symbols. No SNR
+    metrics."""
+    return _rx_variant("rx_full", cfg, bursts, None, ic_iterations, qpsk_amp)[1]
+
+
+def rx_receiver_hybrid(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: int = 2,
+                       qpsk_amp: float = _QPSK_AMP):
+    """One-kernel receiver with the dense block DFT and, in place of the
+    dense FD demodulator, the L-tap filter fold and per-subcarrier M-point
+    IDFTs: (B, 2, frame_len) planar -> (channel (B, 2, N), symbols
+    (B, 2, N)), QPSK IC at ``qpsk_amp``."""
+    return _rx_variant("rx_hybrid", cfg, bursts, None, ic_iterations, qpsk_amp)
 
 
 # ---------------------------------------------------------------------------

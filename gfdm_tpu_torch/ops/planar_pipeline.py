@@ -112,18 +112,23 @@ def _np_mats(cfg: GfdmConfig, dtype_name: str):
     }
 
 
+def _gauss_operators(cfg: GfdmConfig) -> dict:
+    """The complex (n_in, n_out) operators of the fused kernels' Gauss
+    stacks, row convention y = x @ W, in float64."""
+    return {
+        "T_G": operators.tx_core_operator(cfg).T,
+        "E_G": operators.channel_estimation_operator(cfg).T,
+        "F_G": operators.dft_matrix(cfg.block_len).T,
+        "Bfd_G": operators.demodulation_fd_operator(cfg).T,
+        "F2_G": operators.dft_matrix(2 * cfg.subcarriers).T,
+    }
+
+
 @lru_cache(maxsize=16)
 def _np_gauss_stacks(cfg: GfdmConfig, dtype_name: str):
     """Gauss 3-matmul stacks for the fused kernels (kernels/fused.py)."""
     dt = np.dtype(dtype_name)
-    K = cfg.subcarriers
-    return {
-        "T_G": gauss_stack(operators.tx_core_operator(cfg).T, dt),
-        "E_G": gauss_stack(operators.channel_estimation_operator(cfg).T, dt),
-        "F_G": gauss_stack(operators.dft_matrix(cfg.block_len).T, dt),
-        "Bfd_G": gauss_stack(operators.demodulation_fd_operator(cfg).T, dt),
-        "F2_G": gauss_stack(operators.dft_matrix(2 * K).T, dt),
-    }
+    return {name: gauss_stack(W, dt) for name, W in _gauss_operators(cfg).items()}
 
 
 @lru_cache(maxsize=16)

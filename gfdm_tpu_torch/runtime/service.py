@@ -69,8 +69,9 @@ class StreamingReceiver:
     callable source. ``engine="fused"`` runs the CUDA receiver kernel
     (kernels/fused.receive_bursts_fused) after detection; ``"xla"`` keeps
     the whole step as torch ops (runtime/stream.receive_chunks_planar).
-    ``device`` defaults to the current CUDA device when there is one, else
-    the CPU (where the kernels' wrappers run their plain versions).
+    ``device`` defaults to the current CUDA device; without one the
+    constructor raises. Pass ``device="cpu"`` to run on the CPU, where the
+    kernels' wrappers run their plain versions.
     """
 
     cfg: GfdmConfig
@@ -131,15 +132,20 @@ class StreamingReceiver:
         if self.engine not in ("xla", "fused"):
             raise ValueError(f"unknown engine {self.engine!r}")
         if self.device is None:
-            self.device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "StreamingReceiver: no CUDA device; pass device='cpu' to run "
+                    "the service on the CPU"
+                )
+            self.device = "cuda"
         self.device = torch.device(self.device)
         self.halo = self.cfg.frame_len + self.cfg.cp_len
         self.ext = self.chunk_len + self.halo
         self._spc = max(1, self.max_bursts_per_chunk)  # slots per chunk
         if self.engine == "fused":
-            from ..kernels.fused import _check_options, _kernel_consts
+            from ..kernels.fused import _kernel_consts, _rx_options
 
-            _check_options(self.constellation, self.equalizer, False, "conv")
+            _rx_options(constellation=self.constellation, equalizer=self.equalizer)
             _kernel_consts(self.cfg, self.device)
             self._step = self._fused_step
         else:

@@ -122,7 +122,10 @@ def test_factored_consts_bit_equal_to_converted_jax_arrays(name):
     jc, tc = _pair(name)
     theirs = factored_consts_from_numpy(_jax_factored_np(jc))
     assert not {"mcr", "ftr", "ivr", "reorder", "txar", "ftxr", "mtr", "unreorder"} & set(theirs)
-    small = operators_from_numpy(dict(jax_pp._small_consts(jc, "float32")))
+    # E_W: the dense estimator of estimator="fused", in the cache once an
+    # earlier test in this process has used it
+    small = operators_from_numpy({**jax_pp._small_consts(jc, "float32"),
+                                  "E_W": jax_pp._np_mats(jc, "float32")["E_W"]})
     ours = fused._factored_consts(tc, "cpu")
     for key, t in ours.items():
         if key in ("ftaps", "map_idx", "act"):  # test_torch_factored.py pins these
@@ -158,6 +161,7 @@ def test_kernel_consts_bit_equal_to_converted_jax_arrays(name):
         "circ_masks": jax_fused._circ_masks(jc),
         "ic_matmul_stack": jax_fused._ic_matmul_stack(jc, AMP),
         "demap_selection": jax_fused._demap_selection(jc),
+        "cnri_pad": jax_fused._cnri_pad(jc),
     })
     for key, t in ours.items():
         assert t.dtype == theirs[key].dtype, key
@@ -165,6 +169,65 @@ def test_kernel_consts_bit_equal_to_converted_jax_arrays(name):
             np.testing.assert_array_equal(_bits(t), _bits(theirs[key]), err_msg=key)
         else:
             assert torch.equal(t, theirs[key]), key
+
+
+@pytest.mark.parametrize("amp", ["qam16", "qam64", "override"])
+@pytest.mark.parametrize("name", ["canonical", "k32m5"])
+def test_ic_consts_per_amplitude_bit_equal_to_converted_jax_arrays(name, amp):
+    """The IC constants at each amplitude: the bf16 operator stack and the
+    conv taps, with the JAX block-diagonal C of _rx_ic_kernel and the
+    realified C_W of _rx_full_kernel checked against those taps."""
+    jc, tc = _pair(name)
+    a = {"override": 0.6, **jax_fused._IC_AMPS}[amp]
+    theirs = operators_from_numpy({
+        "C_W": jax_pp._np_mats(jc, "float32")["C_W"],
+        "ic_matmul_stack": jax_fused._ic_matmul_stack(jc, a),
+        "block_diag_C": jax_fused._block_diag_C(jc),
+    }, amp=a)
+    np.testing.assert_array_equal(_bits(fused._ic_operand(tc, "matmul", "cpu", a)),
+                                  _bits(theirs["icop"]))
+    assert torch.equal(fused._ic_operand(tc, "conv", "cpu", a), theirs["taps"])
+    assert fused._IC_AMPS == jax_fused._IC_AMPS
+
+
+@pytest.mark.parametrize("name", ["canonical", "k32m5"])
+def test_bf16_gauss_stacks_bit_equal_to_jax(name):
+    """link_single_fused(dtype_name="bfloat16"): the five stacks, each part
+    rounded once from float64 by torch and the sum plane taken in bf16, are
+    ml_dtypes' bits."""
+    jc, tc = _pair(name)
+    ours = fused._stacks(tc, "cpu", "bfloat16")
+    theirs = operators_from_numpy({k: v for k, v in jax_pp._np_mats(jc, "bfloat16").items()
+                                   if k.endswith("_G")})
+    assert set(ours) == set(theirs) == {"T_G", "E_G", "F_G", "Bfd_G", "F2_G"}
+    for key, t in ours.items():
+        assert t.dtype == theirs[key].dtype == torch.bfloat16, key
+        np.testing.assert_array_equal(_bits(t), _bits(theirs[key]), err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["shifts", "k32m5"])
+def test_tx_port_shifts_are_the_cp_gathers(name):
+    """The Tx kernel's per-port shifts against the JAX package's CP/CS
+    gather of each port: frame position i holds core sample
+    (i - cp - shift) mod N."""
+    jc, tc = _pair(name)
+    cp_idx = jax_pp._small_consts(jc, "float32")["cp_idx"]
+    W, n = cp_idx.shape[1], jc.block_len
+    for s, shift in enumerate(fused._shifts(tc, "cpu").tolist()):
+        np.testing.assert_array_equal(cp_idx[s], (np.arange(W) - jc.cp_len - shift) % n)
+
+
+def test_convert_rejects_a_wrong_block_diag_or_cnri_pad():
+    jc = JaxConfig()
+    cw = jax_pp._np_mats(jc, "float32")["C_W"]
+    bdr, bdi = (x.copy() for x in jax_fused._block_diag_C(jc))
+    bdr[0, 1] += 1e-3
+    with pytest.raises(ValueError, match="block_diag_C"):
+        operators_from_numpy({"C_W": cw, "block_diag_C": (bdr, bdi)})
+    pad = jax_fused._cnri_pad(jc).copy()
+    pad[-1, 0] = 1.0
+    with pytest.raises(ValueError, match="cnri_pad"):
+        operators_from_numpy({"met_selection": jax_fused._met_selection(jc), "cnri_pad": pad})
 
 
 @pytest.mark.parametrize("name", ["canonical", "k32m5", "k128"])

@@ -140,10 +140,18 @@ def test_plain_versions_take_any_batch_and_launch_nothing():
     {"phase_compensation": True},
 ])
 def test_unported_receiver_options_raise(kwargs):
+    """The receiver options once refused here are ported
+    (tests/test_torch_options.py holds them against the Pallas kernel):
+    each runs, and an unknown value of the same option raises ValueError,
+    as the JAX wrappers refuse it."""
     cfg = GfdmConfig()
-    bursts = torch.zeros(2, 2, cfg.frame_len)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 14"):
-        fused.rx_receiver_fused(cfg, bursts, **kwargs)
+    bursts = torch.from_numpy(_noisy_bursts(JaxConfig(), seed=60))
+    chan, sym, met = fused.rx_receiver_fused(cfg, bursts, **kwargs)
+    assert sym.shape == (B, 2, cfg.block_len) and bool(torch.isfinite(sym).all())
+    (name, value), = kwargs.items()
+    if isinstance(value, str):
+        with pytest.raises(ValueError, match=name):
+            fused.rx_receiver_fused(cfg, bursts, **{name: value + "x"})
 
 
 def test_wrappers_validate_inputs():

@@ -7,6 +7,7 @@ Imports torch and the port only, so it runs on a machine without JAX:
 Without a CUDA device every test skips. chip_smoke.py runs the same
 comparisons at the main path's full batch.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -118,7 +119,7 @@ def test_rx_and_link_kernels_at_large_n_match_plain(K, tile):
 
 
 def test_rx_and_link_kernels_refuse_k1024():
-    """N = 9216 needs ~311 KB of shared memory even for a one-burst tile:
+    """N = 9216 needs ~314 KB of shared memory even for a one-burst tile:
     the launch is refused and each wrapper raises, naming the bytes and the
     factored receiver."""
     from gfdm_tpu_torch.entry import large_k_config
@@ -128,7 +129,7 @@ def test_rx_and_link_kernels_refuse_k1024():
     assert _rx_tile_bursts(cfg, 4) == 0
     before = dict(fused.LAUNCHES)
     with pytest.raises(RuntimeError, match="gfdm_rx kernel failed to launch.*"
-                                           "311[0-9]{3} B.*rx_receiver_factored"):
+                                           "314[0-9]{3} B.*rx_receiver_factored"):
         fused.rx_receiver_fused(cfg, torch.zeros(4, 2, cfg.frame_len, device=dev))
     with pytest.raises(RuntimeError, match="gfdm_link kernel failed to launch.*"
                                            "rx_receiver_factored"):
@@ -143,8 +144,6 @@ B_FACTORED = 37  # ragged: one CTA a burst
 
 
 def _factored_bursts(cfg, dev, seed):
-    import numpy as np
-
     data = torch.from_numpy(planar_payload(cfg, B_FACTORED, seed)).to(dev)
     bursts = fused._tx_factored_plain(cfg, data, 0)
     rng = np.random.default_rng(seed + 1)
@@ -219,8 +218,6 @@ PEAK_TOL = dict(atol=1e-6, rtol=1e-4)
 
 
 def _chunks(cfg, dev, trim=0):
-    import numpy as np
-
     from gfdm_tpu_torch.entry import service_stream
 
     stream, _counts, _pay = service_stream(cfg, N_CHUNKS, 2048, 20.0, False,
@@ -275,8 +272,6 @@ def test_detect_lean_kernel_matches_plain(name, trim):
 
 @pytest.mark.parametrize("impl", ["pallas2", "pallas", "twostage"])
 def test_streaming_service_fused_engine_on_card(impl, monkeypatch):
-    import numpy as np
-
     from gfdm_tpu_torch.entry import service_stream
     from gfdm_tpu_torch.kernels import detect
     from gfdm_tpu_torch.ops import planar_pipeline as pp
@@ -323,3 +318,141 @@ def test_detection_tile_too_large_for_shared_memory_raises():
                                            ".*the detect_front tile keeps"):
         detect.detect_front_fused(cfg, s, 100)
     assert detect.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# receiver and link options, the CDD transmitter and the superseded receivers
+# ---------------------------------------------------------------------------
+RX_OPTIONS = {
+    "mmse": dict(equalizer="mmse"),
+    "mmse_cnr": dict(equalizer="mmse_cnr"),
+    "mmse_cnr-qam16": dict(equalizer="mmse_cnr", constellation="qam16"),
+    "mmse-qam64": dict(equalizer="mmse", constellation="qam64"),
+    "phase": dict(phase_compensation=True),
+    "qpsk_amp": dict(qpsk_amp=0.6),
+}
+
+
+def _qam_payload(cfg, name, seed, dev):
+    """(B, 2, n_data) payload of the constellation's points (numpy seed)."""
+    from gfdm_tpu_torch.ops.rx import constellation_points
+
+    pts = constellation_points(name)
+    idx = np.random.default_rng(seed).integers(0, pts.size, (B, cfg.n_data_symbols))
+    sym = pts[idx]
+    return torch.from_numpy(np.stack([sym.real, sym.imag], 1).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("ic_mode", ["conv", "matmul"])
+@pytest.mark.parametrize("case", sorted(RX_OPTIONS))
+def test_rx_kernel_options_match_plain(case, ic_mode):
+    """Each receiver option on noisy bursts; bursts whose IC decisions differ
+    between kernel and plain version (a decision within float rounding of a
+    level boundary) are counted and left out, at most one here."""
+    dev = _cuda()
+    cfg = CONFIGS["canonical"]
+    kw = RX_OPTIONS[case]
+    name = kw.get("constellation", "qpsk")
+    data = _qam_payload(cfg, name, 71, dev)
+    bursts = fused.tx_frame_fused(cfg, data)
+    gen = torch.Generator(dev).manual_seed(2)
+    bursts = bursts + 0.01 * torch.randn(bursts.shape, device=dev, generator=gen)
+    before = fused.LAUNCHES["rx"]
+    chan, sym, met = fused.rx_receiver_fused(cfg, bursts, ic_mode=ic_mode, **kw)
+    assert fused.LAUNCHES["rx"] == before + 1
+    rchan, rsym, rmet = fused._rx_receiver_plain(cfg, bursts.reshape(B, -1), 2, ic_mode, **kw)
+    assert _max_err(chan, rchan) < 2e-4
+    err = (sym.reshape(B, -1) - rsym).abs().amax(dim=1)
+    assert int((err >= 5e-4).sum()) <= 1
+    assert float(err[err < 5e-4].max()) < 5e-4
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["qam16", "qam64"])
+def test_link_kernel_options_match_plain(name, dtype_name):
+    """The link at qam16 / qam64 decisions, float32 or bf16 stacks. A burst
+    whose last IC decisions (made after one iteration) differ between kernel
+    and plain version is left out: qam64's clean loopback has decisions near
+    the level boundaries (at most 1% of the bursts), and with bf16 an
+    activation that float32 sums in another order leave on the other side of
+    a bf16 rounding boundary moves its burst by up to ~5e-3 (at most 2%)."""
+    dev = _cuda()
+    cfg = CONFIGS["canonical"]
+    data = _qam_payload(cfg, name, 81, dev)
+    kw = dict(constellation=name, dtype_name=dtype_name, ic_mode="matmul")
+    before = fused.LAUNCHES["link"]
+    d_hat, _snr, evm = fused.link_single_fused(cfg, data, **kw)
+    assert fused.LAUNCHES["link"] == before + 1
+    flat = data.reshape(B, -1)
+    ref, _met = fused._link_single_plain(cfg, flat, 2, "matmul", name, dtype_name=dtype_name)
+    k = fused.link_single_fused(cfg, data, ic_iterations=1, **kw)[0].reshape(B, -1)
+    p = fused._link_single_plain(cfg, flat, 1, "matmul", name, dtype_name=dtype_name)[0]
+    flipped = (fused._ic_level(k, name) != fused._ic_level(p, name)).any(dim=1)
+    assert int(flipped.sum()) <= (0.01 if dtype_name == "float32" else 0.02) * B
+    tol = 1e-4 if dtype_name == "float32" else 1e-2
+    keep = ~flipped
+    assert float((d_hat.reshape(B, -1)[keep] - ref[keep]).abs().max()) < tol
+    ref_evm = float(((ref - data.reshape(B, -1)) ** 2).sum() / (data**2).sum()) ** 0.5
+    assert abs(float(evm) - ref_evm) < 1e-4
+
+
+@pytest.mark.parametrize("shifts", [(0, 2), (0, 3, 7)])
+def test_tx_cdd_kernel_matches_plain(shifts):
+    dev = _cuda()
+    cfg = GfdmConfig(cyclic_shifts=shifts)
+    data = _payload(cfg, 61, dev)
+    before = dict(fused.LAUNCHES)
+    got = fused.tx_cdd_fused(cfg, data)
+    assert fused.LAUNCHES["tx_cdd"] == before["tx_cdd"] + 1
+    assert fused.LAUNCHES["tx"] == before["tx"]
+    ref = fused._tx_cdd_plain(cfg, data.reshape(B, -1))
+    assert got.shape == (B, len(shifts), 2, cfg.frame_len)
+    assert _max_err(got, ref) < 2e-5
+
+
+@pytest.mark.parametrize("key", ["rx_core", "rx_ic", "rx_full", "rx_hybrid"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_rx_variant_kernels_match_plain(key, name):
+    dev = _cuda()
+    cfg = CONFIGS[name]
+    bursts = fused.tx_frame_fused(cfg, _payload(cfg, 91, dev))
+    gen = torch.Generator(dev).manual_seed(3)
+    bursts = bursts + 0.01 * torch.randn(bursts.shape, device=dev, generator=gen)
+    flat = bursts.reshape(B, -1)
+    fs, n = cfg.preamble_len + cfg.cp_len, cfg.block_len
+    chan = fused._rx_receiver_plain(cfg, flat, 0, "conv")[0]
+    frames = bursts[..., fs : fs + n].contiguous()
+    before = dict(fused.LAUNCHES)
+    if key in ("rx_core", "rx_ic"):
+        args = (frames, chan.reshape(B, 2, n))
+        ref = fused._rx_variant_plain(key, cfg, frames.reshape(B, -1), chan,
+                                      0 if key == "rx_core" else 2, 2.0**-0.5)
+    else:
+        args = (bursts,)
+        ref = fused._rx_variant_plain(key, cfg, flat, None, 2, 2.0**-0.5)
+    got = getattr(fused, {"rx_hybrid": "rx_receiver_hybrid"}.get(key, key + "_fused"))(cfg, *args)
+    assert fused.LAUNCHES[key] == before[key] + 1
+    assert sum(fused.LAUNCHES.values()) == sum(before.values()) + 1
+    if key == "rx_hybrid":
+        assert _max_err(got[0], ref[0]) < 2e-4
+        got = got[1]
+    assert _max_err(got, ref[1]) < 5e-4
+
+
+def test_service_option_matrix_on_card():
+    """The fused engine at mmse_cnr / qam16 on the card: the receiver kernel
+    runs once a step and finds every burst of a 30 dB stream."""
+    from gfdm_tpu_torch.entry import service_stream
+    from gfdm_tpu_torch.runtime.service import StreamingReceiver
+
+    dev = _cuda()
+    cfg = CONFIGS["canonical"]
+    stream, counts, _pay = service_stream(cfg, 64, 2048, 30.0, False,
+                                          np.random.default_rng(4))
+    before = fused.LAUNCHES["rx"]
+    rx = StreamingReceiver(cfg, chunk_len=2048, batch_chunks=64, engine="fused",
+                           equalizer="mmse_cnr", constellation="qam16")
+    assert rx.device.type == "cuda"
+    out = rx.step(stream)
+    assert fused.LAUNCHES["rx"] == before + 1
+    assert out["found"].sum() == counts.sum() == 64

@@ -68,7 +68,7 @@ def test_streaming_receiver_matches_jax(engine, k):
     chunks, counts = _bench_stream(12, impaired=k > 1, seed=1)
     kw = dict(chunk_len=CHUNK, batch_chunks=8, engine=engine, max_bursts_per_chunk=k)
     ref = jax_service.StreamingReceiver(JC, **kw).step(chunks)
-    rx = service.StreamingReceiver(TC, **kw)
+    rx = service.StreamingReceiver(TC, device="cpu", **kw)
     before = (dict(fused.LAUNCHES), dict(detect.LAUNCHES))
     got = rx.step(chunks)
     assert (dict(fused.LAUNCHES), dict(detect.LAUNCHES)) == before
@@ -85,7 +85,7 @@ def test_fused_engine_under_detection_kernels_matches_jax(impl, k, monkeypatch):
     chunks, counts = _bench_stream(8, impaired=k > 1, seed=2)
     kw = dict(chunk_len=CHUNK, batch_chunks=8, engine="fused", max_bursts_per_chunk=k)
     ref = jax_service.StreamingReceiver(JC, **kw).step(chunks)
-    got = service.StreamingReceiver(TC, **kw).step(chunks)
+    got = service.StreamingReceiver(TC, device="cpu", **kw).step(chunks)
     _assert_outputs(got, ref)
     assert got["found"].sum() == counts.sum()
 
@@ -104,11 +104,13 @@ def test_service_uses_cfar_rule():
     noise = 0.02 / np.sqrt(2.0) * np.random.default_rng(501).standard_normal(
         (4, 2, CHUNK + HALO))
     chunks = np.concatenate([burst_chunks, noise]).astype(np.float32)
-    out = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=8).step(chunks)
+    out = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=8,
+                                     device="cpu").step(chunks)
     np.testing.assert_array_equal(out["found"], [True] * 4 + [False] * 4)
     ref = jax_service.StreamingReceiver(JC, chunk_len=CHUNK, batch_chunks=8).step(chunks)
     np.testing.assert_array_equal(out["found"], ref["found"])
-    rx2 = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=8, min_strength=10.0)
+    rx2 = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=8, min_strength=10.0,
+                                   device="cpu")
     assert not rx2.step(chunks)["found"].any()
 
 
@@ -174,7 +176,7 @@ def test_serve_depths_agree(engine):
     for depth in (1, 2):
         rx = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=2,
                                        max_batch_chunks=4, engine=engine,
-                                       pipeline_depth=depth)
+                                       pipeline_depth=depth, device="cpu")
         outs = []
         stats = rx.serve(_Ring(chunks, CHUNK), outs.append)
         runs.append((stats, outs))
@@ -189,11 +191,12 @@ def test_serve_depths_agree(engine):
             np.testing.assert_array_equal(a[key], b[key])
     starts = np.concatenate([o["start_abs"][o["found"]] for o in o1])
     direct = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=10,
-                                       engine=engine).step(chunks)
+                                       engine=engine, device="cpu").step(chunks)
     np.testing.assert_array_equal(starts, direct["start"] + np.arange(10) * CHUNK)
 
     it = iter(range(0, 10, 4))
-    rx = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=4, engine=engine)
+    rx = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=4, engine=engine,
+                                   device="cpu")
     outs = []
     stats = rx.serve(lambda: (None if (i := next(it, None)) is None
                               else chunks[i : i + 4]), outs.append, max_batches=2)
@@ -203,7 +206,7 @@ def test_serve_depths_agree(engine):
 
 def test_batch_ladder_and_host_ranges_match_jax():
     rx = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=3,
-                                   max_batch_chunks=12)
+                                   max_batch_chunks=12, device="cpu")
     # the port runs on one device: the JAX ladder on a one-device mesh
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("dp", "sp"))
     jrx = jax_service.StreamingReceiver(JC, chunk_len=CHUNK, batch_chunks=3,
@@ -219,17 +222,27 @@ def test_batch_ladder_and_host_ranges_match_jax():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        service.StreamingReceiver(TC, sp_shards=2, engine="fused")
+        service.StreamingReceiver(TC, sp_shards=2, engine="fused", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        service.StreamingReceiver(TC, fec="conv")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 14"):
-        service.StreamingReceiver(TC, engine="fused", equalizer="mmse")
+        service.StreamingReceiver(TC, fec="conv", device="cpu")
     with pytest.raises(ValueError, match="batch_chunks"):
-        service.StreamingReceiver(TC, batch_chunks=0)
+        service.StreamingReceiver(TC, batch_chunks=0, device="cpu")
     with pytest.raises(ValueError, match="max_batch_chunks"):
-        service.StreamingReceiver(TC, batch_chunks=4, max_batch_chunks=2)
+        service.StreamingReceiver(TC, batch_chunks=4, max_batch_chunks=2, device="cpu")
     with pytest.raises(ValueError, match="fec"):
-        service.StreamingReceiver(TC, fec="ldpc")
+        service.StreamingReceiver(TC, fec="ldpc", device="cpu")
+    with pytest.raises(ValueError, match="equalizer"):
+        service.StreamingReceiver(TC, engine="fused", equalizer="lmmse", device="cpu")
+
+
+def test_service_without_a_device_never_falls_back_to_the_cpu(monkeypatch):
+    """No device argument: the card, or an error naming device='cpu' when
+    there is none; the CPU only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for engine in ("xla", "fused"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            service.StreamingReceiver(TC, engine=engine)
+        assert service.StreamingReceiver(TC, engine=engine, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("k", [1, 2])
@@ -240,7 +253,9 @@ def test_streaming_receiver_fast_method_matches_jax(k):
     chunks, counts = _bench_stream(16, impaired=k > 1, seed=6)
     kw = dict(chunk_len=CHUNK, batch_chunks=16, engine="xla", method="fast",
               max_bursts_per_chunk=k)
-    ref = jax_service.StreamingReceiver(JC, **kw).step(chunks)
+    jkw = dict(kw)
+    kw["device"] = "cpu"
+    ref = jax_service.StreamingReceiver(JC, **jkw).step(chunks)
     got = service.StreamingReceiver(TC, **kw).step(chunks)
     _assert_outputs(got, ref)
     assert got["found"].sum() == counts.sum()
