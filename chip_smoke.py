@@ -68,12 +68,22 @@ Phases, one line each (any failure exits non-zero and prints no result):
              rx_ic, rx_full, rx_hybrid) against its plain version at
              B = 65,536, launched once with the counters reset; then kernel
              and plain times of the CDD Tx and the four receivers.
+10. chain  - the link's GEMM chain (benchmarks/int8_gauss.py's shapes,
+             (B, 936) -> 1152 -> 1152 -> 1152) at B = 65,536 with the
+             benchmark's inputs (gfdm_tpu_torch.benchmarks.int8_gauss): with
+             the launch counters reset just before, one chain step in each
+             of f32, bf16 and int8; each against its plain version (f32
+             max |d| / max |ref| <= 1e-5, bf16 <= 1e-2, int8 bit for bit)
+             and against a float64 chain; then kernel, plain and library
+             times (torch.linalg.multi_dot; torch.mm with float32 output;
+             torch._int_mm with torch-op quantization between).
 
 Then a JSON line of per-kernel results (launches on the main paths, error
-against the plain version, kernel and plain ms, the bound: the larger of
-the operations over 67 TFLOP/s of fp32 FMA and the bytes, each input read
-once and each output written once, over 3.35 TB/s, at the timed shapes),
-the card line, and as the last line
+against the plain version, kernel, plain and library ms, the bound: the
+larger of the operations over the card's peak for their type - 67 TFLOP/s
+of fp32 FMA, 989 TFLOP/s of dense bf16, 1,979 TOP/s of dense int8 - and the
+bytes, each input read once and each output written once, over 3.35 TB/s,
+at the timed shapes), the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -122,6 +132,8 @@ TOL = {
     "bf16_boundary": 2e-2, "bf16_excluded_share": 2e-2,
 }
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 FMA (no TF32), HBM3
+# the chain modes' operations run at their own dense peaks (H100 SXM)
+PEAK_OPS = {"chain_bf16": 989e12, "chain_int8": 1979e12}
 N_CHUNKS = 4096  # service batch: 8.4 M owned samples a step
 CHUNK_LEN = 2048
 N_RAGGED, RAGGED_TRIM = 37, 5  # chunks of T - 5 samples: not 128-aligned
@@ -153,7 +165,12 @@ SOURCES = {
                 "gfdm_tpu/kernels/fused.py:684"),
     "rx_hybrid": ("rx_receiver_hybrid", "gfdm_tpu_torch/csrc/rx.cu",
                   "gfdm_tpu/kernels/fused.py:1074"),
+    **{f"chain_{v}": (f"gemm_chain({v})", "gfdm_tpu_torch/csrc/chain.cu",
+                      "benchmarks/int8_gauss.py:85") for v in ("f32", "bf16", "int8")},
 }
+B_CHAIN = 65536  # phase 10: the link's batch
+CHAIN_TOL = {"f32": 1e-5, "bf16": 1e-2}  # int8: bit for bit
+CHAIN_LAUNCHES = {"f32": 1, "bf16": 1, "int8": 4}  # kernels of one chain call
 B_OPTIONS = 16384  # phase 8's receiver checks
 N_RAGGED_CDD = 4099
 # phase 7: the crossover study's link points (K, B) and the full-width one;
@@ -214,17 +231,17 @@ def _noisy(torch, bursts, seed: int, snr_db: float = 20.0):
 
 
 def _reset_launches() -> None:
-    from gfdm_tpu_torch.kernels import detect, fused
+    from gfdm_tpu_torch.kernels import chain, detect, fused
 
-    for counts in (fused.LAUNCHES, detect.LAUNCHES):
+    for counts in (fused.LAUNCHES, detect.LAUNCHES, chain.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def _launches() -> dict:
-    from gfdm_tpu_torch.kernels import detect, fused
+    from gfdm_tpu_torch.kernels import chain, detect, fused
 
-    return {**fused.LAUNCHES, **detect.LAUNCHES}
+    return {**fused.LAUNCHES, **detect.LAUNCHES, **chain.LAUNCHES}
 
 
 def _check_traces(got, ref, names, check) -> tuple[list, float]:
@@ -551,7 +568,14 @@ def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
     shapes: the kernel's sums as written (a real MAC is 2 operations, a
     complex MAC 8; a Gauss product of an (a, b) operator 3 a b real MACs),
     each input read once (constants included) and each output written once."""
-    from gfdm_tpu_torch.kernels import fused
+    from gfdm_tpu_torch.kernels import chain, fused
+
+    if key.startswith("chain_"):  # x in, out, the weights once (4, 2 or 1 B)
+        wbytes = {"chain_f32": 4, "chain_bf16": 2, "chain_int8": 1}[key]
+        shapes = chain.CHAIN_SHAPES
+        return (2.0 * batch * sum(a * b for a, b in shapes),
+                4.0 * batch * (shapes[0][0] + shapes[-1][1])
+                + wbytes * sum(a * b for a, b in shapes))
 
     n, nd, K, M, L = (cfg.block_len, cfg.n_data_symbols, cfg.subcarriers,
                       cfg.timeslots, cfg.overlap)
@@ -602,7 +626,7 @@ def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
 def _bound(key: str, cfg, batch: int, **kw) -> tuple[float, str]:
     """The least time (ms) the card could take, and what bounds it."""
     ops, nbytes = _work(key, cfg, batch, **kw)
-    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = ops / PEAK_OPS.get(key, PEAK_FLOPS), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -968,6 +992,87 @@ def _cdd_variants_phase(torch, cfg, dev, data, noisy, card, check, failures):
     return launches, err, times
 
 
+def _chain_library(torch, variant: str, x, cw):
+    """The chain as PyTorch's own calls, the yardstick: multi_dot (f32; it
+    multiplies W1 W2 W3 first, then one GEMM over the batch), three torch.mm
+    with float32 output (bf16), three torch._int_mm with torch-op int8
+    quantization between (int8)."""
+    from gfdm_tpu_torch.kernels import chain
+
+    if variant == "f32":
+        return torch.linalg.multi_dot([x, *cw.w])
+    a = x
+    for i, w in enumerate(cw.w):
+        if variant == "bf16":
+            a = torch.mm(a.to(torch.bfloat16), w, out_dtype=torch.float32)
+            continue
+        g = a.reshape(a.shape[0] // chain.GROUP, chain.GROUP, -1)
+        m = torch.clamp(g.abs().amax(dim=(1, 2), keepdim=True), min=1e-20)
+        q = torch.clamp(torch.round(g * (torch.full_like(m, 127.0) / m)), -127, 127)
+        acc = torch._int_mm(q.to(torch.int8).reshape(a.shape[0], -1), w)
+        a = (acc.reshape(g.shape[0], chain.GROUP, -1).float()
+             * (m * chain._dequant_const(cw.inv[i]))).reshape(a.shape[0], -1)
+    return a
+
+
+def _chain_phase(torch, dev, card, check, failures):
+    """Phase 10: the link's GEMM chain in f32, bf16 and int8. Returns the
+    kernels' launches on the main path, max errors against the plain
+    versions, and (kernel, plain, library) ms."""
+    from gfdm_tpu_torch.benchmarks import int8_gauss as bench
+    from gfdm_tpu_torch.kernels import chain
+
+    weights, x_np, scales = bench.make_inputs(B_CHAIN, 2)
+    x = torch.from_numpy(x_np).to(dev)
+    cws = {v: chain.chain_weights_from_numpy(weights, v).to(dev) for v in chain.VARIANTS}
+    _reset_launches()
+    torch.cuda.synchronize()
+    outs = {v: bench.chain_step(x, scales[1], cws[v]) for v in chain.VARIANTS}
+    torch.cuda.synchronize()
+    run = _launches()
+    launches = {f"chain_{v}": run[f"chain_{v}"] for v in chain.VARIANTS}
+    for v, n in CHAIN_LAUNCHES.items():
+        if launches[f"chain_{v}"] != n:
+            failures.append(f"chain_{v}: {launches[f'chain_{v}']} launches on the main "
+                            f"path, expected {n}")
+    print(f"[10 main] B={B_CHAIN} chain step in each mode: launches={launches}", flush=True)
+    xs = x * float(scales[1])  # the main path's input
+    w64 = [torch.from_numpy(np.asarray(w, dtype=np.float64)).to(dev) for w in weights]
+    ref64 = xs.double() @ w64[0] @ w64[1] @ w64[2]
+    del w64
+    err, times = {}, {}
+    for v in chain.VARIANTS:
+        got, cw = outs[v], cws[v]
+        plain = chain._chain_plain(xs, cw)
+        if tuple(got.shape) != (B_CHAIN, 1152) or not bool(torch.isfinite(got).all()):
+            failures.append(f"chain_{v}: outputs shape {tuple(got.shape)} / not finite")
+        err[f"chain_{v}"] = _max_abs(got, plain)
+        rel = err[f"chain_{v}"] / float(plain.abs().max())
+        rel64 = float((got.double() - ref64).abs().max() / ref64.abs().max())
+        if v == "int8":
+            part = check("int8:values_differing", float((got != plain).sum()), 0.0)
+        else:
+            part = check(f"{v}:rel", rel, CHAIN_TOL[v])
+        lib = _chain_library(torch, v, xs, cw)
+        print(f"[10 check] chain_{v} vs plain max_abs={err[f'chain_{v}']:.3e} rel={rel:.3e} "
+              f"{part} | rel-err vs float64 chain: kernel {rel64:.3e} | library vs plain "
+              f"{float((lib - plain).abs().max() / plain.abs().max()):.3e}", flush=True)
+        del plain, lib
+    del outs, ref64
+    for v in chain.VARIANTS:
+        cw = cws[v]
+        k_ms, p_ms, ks, ps = _timed(torch, lambda: chain.gemm_chain(xs, cw),
+                                    lambda: chain._chain_plain(xs, cw))
+        lib_ms = _time_ms(torch, lambda: _chain_library(torch, v, xs, cw))
+        times[f"chain_{v}"] = (k_ms, p_ms, lib_ms)
+        bound_ms, bound_by = _bound(f"chain_{v}", None, B_CHAIN)
+        ops = _work(f"chain_{v}", None, B_CHAIN)[0]
+        print(f"[10 time] chain_{v}: kernel {ks} ms = {ops / (k_ms * 1e-3) / 1e12:.1f} "
+              f"TF(OP)/s, plain {ps} ms, library {lib_ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({bound_by}) = {bound_ms / k_ms:.1%} of it (B={B_CHAIN}, {card})", flush=True)
+    return launches, err, times
+
+
 def main() -> int:
     import torch
 
@@ -1156,6 +1261,12 @@ def main() -> int:
     err.update(cv_err)
     times.update(cv_times)
 
+    # 10. the link's GEMM chain at f32, bf16 and int8
+    ch_launches, ch_err, ch_times = _chain_phase(torch, dev, card, check, failures)
+    launches.update(ch_launches)
+    err.update(ch_err)
+    times.update(ch_times)
+
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -1173,6 +1284,7 @@ def main() -> int:
         "rx_factored_chan": (lk[K_FULL], B_LARGE_K, {}),
         "rx_core": (cfg, B, {}), "rx_ic": (cfg, B, {}), "rx_full": (cfg, B, {}),
         "rx_hybrid": (cfg, B, {}),
+        **{f"chain_{v}": (None, B_CHAIN, {}) for v in ("f32", "bf16", "int8")},
     }
     kernels = []
     for key, (name, source, replaces) in SOURCES.items():
@@ -1183,7 +1295,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": err[key], "ms": times[key][0],
             "plain_ms": times[key][1], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": times[key][2] if len(times[key]) > 2 else None,
         })
         print(f"[bound] {key}: {bound_ms:.3f} ms ({bound_by}) at B={kb}; kernel "
               f"{times[key][0]:.3f} ms = {bound_ms / times[key][0]:.1%} of the bound "

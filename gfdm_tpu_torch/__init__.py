@@ -11,11 +11,14 @@ counterpart of the same name:
 - :mod:`.kernels` - a counterpart of every Pallas kernel of the reference:
   the fused Tx (one port or every CDD port), the receiver with every option,
   the one-kernel link, the superseded receivers, the large-K factored
-  kernels and the two detection front-end kernels, written in CUDA C++ for
-  Hopper (``csrc/``), each with its plain torch version;
+  kernels, the two detection front-end kernels and the link's GEMM chain
+  (f32, bf16, int8), written in CUDA C++ for Hopper (``csrc/``), each with
+  its plain torch version;
 - :mod:`.runtime` - chunked streams and the streaming receive service;
 - :mod:`.entry` - the main-path step and the service's synthetic stream,
-  :mod:`.convert` - constants carried over from the JAX package.
+  :mod:`.convert` - constants carried over from the JAX package;
+- :mod:`.benchmarks` - the benchmarks run on the card
+  (``python -m gfdm_tpu_torch.benchmarks.int8_gauss``).
 """
 from .config import GfdmConfig
 

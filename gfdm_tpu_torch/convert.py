@@ -8,18 +8,23 @@ index forms that ``ops.planar_pipeline._device_mats`` and
 the same for the detection kernels, whose banded operators reduce to the
 preamble taps the CUDA kernel reads, and ``factored_consts_from_numpy`` for
 the factored kernels, whose coefficient rows and reorder gathers the CUDA
-kernels compute by index. The tests use them to show that the packages
-compute with the same constants, bit for bit.
+kernels compute by index. ``chain_weights_from_numpy`` (from
+``kernels.chain``) takes the weights of ``benchmarks/int8_gauss.py``'s
+chain, as the script makes them, to the port's f32, bf16 or int8 form. The
+tests use them to show that the packages compute with the same constants,
+bit for bit.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .kernels.chain import chain_weights_from_numpy
 from .kernels.fused import _QPSK_AMP
 from .ops.planar_pipeline import _to_tensor
 
-__all__ = ["operators_from_numpy", "detect_consts_from_numpy", "factored_consts_from_numpy"]
+__all__ = ["operators_from_numpy", "detect_consts_from_numpy", "factored_consts_from_numpy",
+           "chain_weights_from_numpy"]
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

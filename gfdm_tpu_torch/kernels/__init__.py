@@ -1,2 +1,2 @@
-"""Fused GFDM kernels and the detection front end (CUDA C++ for Hopper),
-each with its plain torch version."""
+"""Fused GFDM kernels, the detection front end and the link's GEMM chain
+(CUDA C++ for Hopper), each with its plain torch version."""

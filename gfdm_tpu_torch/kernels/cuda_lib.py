@@ -24,7 +24,7 @@ __all__ = ["Dims", "Consts", "DetectDims", "FactoredDims", "FactoredConsts",
            "FACTORED_KINDS", "library", "launch", "build_dir", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("tx.cu", "rx.cu", "link.cu", "detect.cu", "factored.cu")
+SOURCES = ("tx.cu", "rx.cu", "link.cu", "detect.cu", "factored.cu", "chain.cu")
 HEADERS = ("gfdm_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -175,12 +175,14 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [fdims_p, fconsts_p, vp, vp, vp, vp, vp]
     lib.gfdm_factored_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.gfdm_rx_tile_bursts.argtypes = [dims_p]
+    ci, cf = ctypes.c_int, ctypes.c_float
+    lib.gfdm_chain.argtypes = [ci, ci, ci, vp, vp, vp, vp, cf, cf, cf, vp, vp, vp, vp]
     for fn in (lib.gfdm_tx, lib.gfdm_rx, lib.gfdm_link, lib.gfdm_rx_variant,
                lib.gfdm_struct_sizes,
                lib.gfdm_detect_front, lib.gfdm_detect_lean,
                lib.gfdm_detect_dims_size, lib.gfdm_tx_factored,
                lib.gfdm_rx_factored, lib.gfdm_rx_factored_chan,
-               lib.gfdm_factored_struct_sizes, lib.gfdm_rx_tile_bursts):
+               lib.gfdm_factored_struct_sizes, lib.gfdm_rx_tile_bursts, lib.gfdm_chain):
         fn.restype = ctypes.c_int
     lib.gfdm_error_string.argtypes = [ctypes.c_int]
     lib.gfdm_error_string.restype = ctypes.c_char_p

@@ -48,7 +48,7 @@ import torch
 
 from ..config import GfdmConfig
 from ..ops import operators, planar_fast
-from ..ops.planar import pabs2, pconj, pmatmul, pmul, real_operator
+from ..ops.planar import bf16_operator, pabs2, pconj, pmatmul, pmul, real_operator
 from ..ops.planar_pipeline import (
     _gauss_operators, _np_gauss_stacks, _small_consts, _to_tensor, evm,
 )
@@ -132,8 +132,7 @@ def _bf16_stack(W: np.ndarray) -> torch.Tensor:
     """bf16 Gauss stack [Wr; Wi; Wr + Wi] (3 n_in, n_out) of the complex W:
     each part rounded once from float64 by torch (ml_dtypes' rounding,
     pinned in tests/test_torch_constants.py), the sum plane taken in bf16."""
-    Wr = torch.from_numpy(np.ascontiguousarray(W.real)).to(torch.bfloat16)
-    Wi = torch.from_numpy(np.ascontiguousarray(W.imag)).to(torch.bfloat16)
+    Wr, Wi = bf16_operator(W.real), bf16_operator(W.imag)
     return torch.cat([Wr, Wi, Wr + Wi], dim=0)
 
 
@@ -740,20 +739,26 @@ def rx_receiver_hybrid(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: int
 # ---------------------------------------------------------------------------
 # factored kernels (large K): host constants
 # ---------------------------------------------------------------------------
+@lru_cache(maxsize=32)
+def _ftaps_np(cfg: GfdmConfig, amp: float) -> np.ndarray:
+    """(2, M) IC taps of the factored receivers: column 0 of the circulant
+    C times the amplitude ``amp``, folded in float64 and rounded once, as the
+    JAX package folds its factored kernels' taps (the dense kernels' conv
+    ``taps`` round c to float32 first)."""
+    c_col = operators._interference_matrix(cfg)[:, 0]
+    return np.stack([c_col.real * amp, c_col.imag * amp]).astype(np.float32)
+
+
 @lru_cache(maxsize=16)
 def _factored_np(cfg: GfdmConfig) -> dict:
     """Host constants of the factored kernels beyond planar_fast's tables.
 
-    ``ftaps`` (2, M): column 0 of the circulant C times the QPSK amplitude,
-    folded in float64 and rounded once, as the JAX package folds its
-    factored kernels' taps (the dense kernels' conv ``taps`` round c to
-    float32 first).
+    ``ftaps`` (2, M): :func:`_ftaps_np` at the QPSK amplitude.
     ``map_idx`` (N,): frame position -> payload index from the nonzeros of
     the mapping matrix (n_data, a zero sentinel, elsewhere), as the JAX
     ``tx_frame_factored`` builds its gather.
     """
-    c_col = operators._interference_matrix(cfg)[:, 0]
-    ftaps = np.stack([c_col.real * _QPSK_AMP, c_col.imag * _QPSK_AMP]).astype(np.float32)
+    ftaps = _ftaps_np(cfg, _QPSK_AMP)
     map_idx = np.full(cfg.block_len, cfg.n_data_symbols, dtype=np.int32)
     rows, cols = np.nonzero(operators.mapping_matrix(cfg).real)
     map_idx[rows] = cols
@@ -785,6 +790,15 @@ def _factored_consts(cfg: GfdmConfig, device) -> dict:
     return k
 
 
+def _factored_taps(cfg: GfdmConfig, device, amp: float = _QPSK_AMP) -> torch.Tensor:
+    """The factored receivers' IC taps at ``amp`` on ``device``: the cached
+    QPSK ones, or built on first use and cached per amplitude."""
+    if float(amp) == _QPSK_AMP:
+        return _factored_consts(cfg, device)["ftaps"]
+    return _extra(cfg, device, ("ftaps", float(amp)),
+                  lambda: _to_tensor(_ftaps_np(cfg, float(amp)), device))
+
+
 def _estimator_op(cfg: GfdmConfig, device) -> torch.Tensor:
     """The dense (4K, 2N) realified channel estimator of estimator="fused"
     (4.7 MB at K = 128, 302 MB at K = 1024), built on first use."""
@@ -805,24 +819,29 @@ def _zf_clamped(X: torch.Tensor, chan: torch.Tensor) -> torch.Tensor:
     return pmul(X, pconj(chan)) / den
 
 
-def _ic_factored(cfg: GfdmConfig, k: dict, d0: torch.Tensor, ic_iterations: int):
+def _ic_factored(cfg: GfdmConfig, k: dict, d0: torch.Tensor, ic_iterations: int,
+                 taps: torch.Tensor | None = None):
     """Circulant QPSK IC on (B, 2, N) symbols: ``ic_iterations`` of
-    d = d0 - interference(+-1 decisions on active symbols)."""
+    d = d0 - interference(+-1 decisions on active symbols), the amplitude
+    folded into ``taps`` (default: the QPSK ones, ``k["ftaps"]``)."""
     B, n = d0.shape[0], cfg.block_len
+    taps = k["ftaps"] if taps is None else taps
     d0r, d0i = d0[:, 0], d0[:, 1]
     dr, di = d0r, d0i
     for _ in range(ic_iterations):
         qr = torch.where(dr >= 0, 1.0, -1.0) * k["act"]
         qi = torch.where(di >= 0, 1.0, -1.0) * k["act"]
-        ir, ii = _conv_ic(qr, qi, k["ftaps"], cfg.subcarriers, cfg.timeslots)
+        ir, ii = _conv_ic(qr, qi, taps, cfg.subcarriers, cfg.timeslots)
         dr, di = d0r - ir, d0i - ii
     return torch.stack([dr.reshape(B, n), di.reshape(B, n)], dim=1)
 
 
-def _rx_factored_plain(cfg: GfdmConfig, bursts: torch.Tensor, chan, ic_iterations: int):
+def _rx_factored_plain(cfg: GfdmConfig, bursts: torch.Tensor, chan, ic_iterations: int,
+                       amp: float = _QPSK_AMP):
     """(B, 2, frame_len) bursts [+ (B, 2, N) channel] -> chan, symbols (B, 2, N).
 
-    chan=None estimates it with the dense E_W (the in-kernel estimator)."""
+    chan=None estimates it with the dense E_W (the in-kernel estimator); the
+    IC decisions have the amplitude ``amp``."""
     k = _factored_consts(cfg, bursts.device)
     B, n, K = bursts.shape[0], cfg.block_len, cfg.subcarriers
     if chan is None:
@@ -833,7 +852,8 @@ def _rx_factored_plain(cfg: GfdmConfig, bursts: torch.Tensor, chan, ic_iteration
     S = planar_fast._fold_rx(cfg, _zf_clamped(X, chan), k)  # (B, K, 2, M)
     d0 = pmatmul(S, k["iFM_W"])  # per-subcarrier M-point IFFT
     d0 = torch.movedim(d0, -2, -3).reshape(B, 2, n)
-    return chan, _ic_factored(cfg, k, d0, ic_iterations)
+    return chan, _ic_factored(cfg, k, d0, ic_iterations,
+                              _factored_taps(cfg, bursts.device, amp))
 
 
 def _tx_factored_plain(cfg: GfdmConfig, data: torch.Tensor, shift_index: int):
@@ -862,15 +882,16 @@ def _factored_dims(cfg: GfdmConfig, batch: int, shift: int = 0, ic_iterations: i
     )
 
 
-def _factored_ptrs(k: dict, tx: bool, shift_index: int = 0, e_w=None):
+def _factored_ptrs(k: dict, tx: bool, shift_index: int = 0, e_w=None, taps=None):
     from .cuda_lib import FactoredConsts
 
+    taps = k["ftaps"] if taps is None else taps
     return FactoredConsts(
         fk=k["iFK_W" if tx else "FK_W"].data_ptr(),
         tw=k["itw" if tx else "tw"].data_ptr(),
         fm=k["FM_W"].data_ptr(), ifm=k["iFM_W"].data_ptr(),
         parts=k["tx_parts" if tx else "rx_parts"].data_ptr(),
-        taps=k["ftaps"].data_ptr(), act=k["act"].data_ptr(),
+        taps=taps.data_ptr(), act=k["act"].data_ptr(),
         map_idx=k["map_idx"].data_ptr(), win=k["win"].data_ptr(),
         pre=k["preambles"][shift_index].data_ptr(),
         e_w=None if e_w is None else e_w.data_ptr(),
@@ -902,19 +923,21 @@ def _tx_factored_cuda(cfg: GfdmConfig, data: torch.Tensor, shift_index: int):
     return out
 
 
-def _rx_factored_cuda(cfg: GfdmConfig, bursts: torch.Tensor, chan, ic_iterations: int):
+def _rx_factored_cuda(cfg: GfdmConfig, bursts: torch.Tensor, chan, ic_iterations: int,
+                      amp: float = _QPSK_AMP):
     k = _factored_consts(cfg, bursts.device)
     B, n = bursts.shape[0], cfg.block_len
     opts = dict(dtype=torch.float32, device=bursts.device)
     sym = torch.empty(B, 2, n, **opts)
     dims = _factored_dims(cfg, B, ic_iterations=ic_iterations)
+    taps = _factored_taps(cfg, bursts.device, amp)
     if chan is None:
         chan = torch.empty(B, 2, n, **opts)
-        consts = _factored_ptrs(k, False, e_w=_estimator_op(cfg, bursts.device))
+        consts = _factored_ptrs(k, False, e_w=_estimator_op(cfg, bursts.device), taps=taps)
         _run_factored("rx_factored", dims, consts, bursts.data_ptr(), None,
                       chan.data_ptr(), sym.data_ptr(), device=bursts.device)
     else:
-        _run_factored("rx_factored_chan", dims, _factored_ptrs(k, False),
+        _run_factored("rx_factored_chan", dims, _factored_ptrs(k, False, taps=taps),
                       bursts.data_ptr(), chan.data_ptr(), None, sym.data_ptr(),
                       device=bursts.device)
     return chan, sym
@@ -938,12 +961,13 @@ def tx_frame_factored(cfg: GfdmConfig, data: torch.Tensor, shift_index: int = 0)
 
 
 def rx_receiver_factored(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: int = 2,
-                         estimator: str = "fused"):
+                         qpsk_amp: float = _QPSK_AMP, estimator: str = "fused"):
     """Factorized one-kernel receiver (channel est + ZF + demod + QPSK IC).
 
     bursts: (B, 2, frame_len) planar -> (channel (B, 2, N), symbols
     (B, 2, N)). The block DFT runs as K-point DFTs plus a twiddled M-point
     stage, the FD demod as an L-tap fold plus per-subcarrier M-point IFFTs.
+    The IC decisions are +-``qpsk_amp`` (folded into the IC taps).
 
     estimator:
       "fused" - channel estimated inside the kernel via the dense (4K, 2N)
@@ -957,7 +981,7 @@ def rx_receiver_factored(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: i
     cuda = _on_cuda(bursts, cfg.frame_len, "rx_receiver_factored")
     chan = _fast_channel(cfg, bursts) if estimator == "fast" else None
     run = _rx_factored_cuda if cuda else _rx_factored_plain
-    return run(cfg, bursts, chan, int(ic_iterations))
+    return run(cfg, bursts, chan, int(ic_iterations), float(qpsk_amp))
 
 
 def _fast_channel(cfg: GfdmConfig, bursts: torch.Tensor) -> torch.Tensor:
@@ -974,6 +998,7 @@ def link_step_factored(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int =
     demap. Returns (data_hat (B, 2, n_data), evm); with estimator="fast" the
     link of ``benchmarks/largek_crossover.py``'s link mode."""
     bursts = tx_frame_factored(cfg, data)
-    _chan, sym = rx_receiver_factored(cfg, bursts, ic_iterations, estimator=estimator)
+    _chan, sym = rx_receiver_factored(cfg, bursts, ic_iterations=ic_iterations,
+                                      estimator=estimator)
     d_hat = sym[..., _factored_consts(cfg, data.device)["demap_idx"]]
     return d_hat, evm(d_hat, data)

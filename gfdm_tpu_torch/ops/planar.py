@@ -7,7 +7,8 @@ the row [re | im] and a complex matmul y = x @ W is one real matmul against
 the realified operator [[Wr, Wi], [-Wi, Wr]].
 
 The host-side builders (``to_planar``, ``from_planar``, ``real_operator``,
-``gauss_stack``) stay NumPy; the primitives on tensors are torch.
+``gauss_stack``) stay NumPy (a bf16 operator is built in float64 and rounded
+once by :func:`bf16_operator`); the primitives on tensors are torch.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ __all__ = [
     "from_planar",
     "real_operator",
     "gauss_stack",
+    "host_dtype",
+    "bf16_operator",
     "pmatmul",
     "pmul",
     "pconj",
@@ -74,6 +77,20 @@ def gauss_stack(W, dtype=np.float32) -> np.ndarray:
     return np.concatenate([Wr, Wi, Wr + Wi], axis=0)
 
 
+def host_dtype(dtype_name: str):
+    """NumPy dtype the host builds an operator of ``dtype_name`` in: NumPy
+    has no bf16, so a bf16 operator stays float64 until
+    :func:`bf16_operator` rounds it once on upload."""
+    return np.float64 if dtype_name == "bfloat16" else np.dtype(dtype_name)
+
+
+def bf16_operator(a: np.ndarray) -> torch.Tensor:
+    """A float64 host constant rounded once to bf16 by torch (ml_dtypes'
+    round-to-nearest-even, pinned in tests/test_torch_constants.py), as the
+    JAX package's ``astype(bfloat16)`` on float64 rounds it."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # tensor primitives (operate on tensors shaped (..., 2, n))
 # ---------------------------------------------------------------------------
@@ -82,9 +99,19 @@ def _pack(r, i):
 
 
 def pmatmul(x: torch.Tensor, W_real: torch.Tensor) -> torch.Tensor:
-    """Planar complex matmul: (..., 2, n) @ realified (2n, 2m) -> (..., 2, m)."""
+    """Planar complex matmul: (..., 2, n) @ realified (2n, 2m) -> (..., 2, m).
+
+    With a bfloat16 operator the activation is rounded to bf16 and the
+    products are summed in float32, returned in the activation's dtype (the
+    JAX package's bf16 mode). The product of two bf16 values is exact in
+    float32, so the float32 matmul of the upcast operands is that function
+    up to the order of the sums; torch's own bf16 matmul would round its
+    output to bf16."""
     flat = x.reshape(x.shape[:-2] + (2 * x.shape[-1],))
-    y = torch.matmul(flat, W_real)
+    if W_real.dtype == torch.bfloat16:
+        y = torch.matmul(flat.to(torch.bfloat16).float(), W_real.float()).to(x.dtype)
+    else:
+        y = torch.matmul(flat, W_real)
     return y.reshape(x.shape[:-2] + (2, W_real.shape[-1] // 2))
 
 

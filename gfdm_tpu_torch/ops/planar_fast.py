@@ -31,7 +31,9 @@ import torch
 
 from ..config import GfdmConfig
 from . import operators
-from .planar import pabs2, pdiv, pmatmul, pmul, real_operator, to_planar
+from .planar import (
+    bf16_operator, host_dtype, pabs2, pdiv, pmatmul, pmul, real_operator, to_planar,
+)
 
 __all__ = [
     "fast_consts",
@@ -46,7 +48,7 @@ __all__ = [
 
 @lru_cache(maxsize=16)
 def _fft_consts(cfg: GfdmConfig, dtype_name: str):
-    dt = np.dtype(dtype_name)
+    dt = host_dtype(dtype_name)
     K, M = cfg.subcarriers, cfg.timeslots
     N = K * M
     n1 = np.arange(M).reshape(M, 1)
@@ -82,7 +84,9 @@ def _est_consts(cfg: GfdmConfig, dtype_name: str):
     """
     from ..ref.channel_estimation import PreambleChannelEstimator
 
-    dt = np.dtype(dtype_name)
+    dt = host_dtype(dtype_name)
+    # only the K-point DFT is bf16 in the bfloat16 mode
+    rdt = np.float32 if dtype_name == "bfloat16" else dt
     K = cfg.subcarriers
     est = PreambleChannelEstimator(
         cfg.timeslots, K, cfg.active_subcarriers, cfg.dc_free, cfg.core_preamble
@@ -110,18 +114,18 @@ def _est_consts(cfg: GfdmConfig, dtype_name: str):
     # output bin encodes (left index + fractional weight) exactly
     p1 = est.interpolate_frame(np.arange(n_est, dtype=np.float64)).real
     idxA = np.floor(p1 + 1e-9).astype(np.int32)
-    t = (p1 - idxA).astype(dt)
+    t = (p1 - idxA).astype(rdt)
     idxB = np.minimum(idxA + 1, n_est - 1).astype(np.int32)
     k2 = np.arange(2 * K)
     return {
         "FK_W": real_operator(operators.dft_matrix(K).T, dt),
-        "inv0": to_planar(inv0, dtype=dt),  # (2, K), masked to active band
-        "inv1": to_planar(inv1, dtype=dt),
-        "S_T": S.astype(dt),  # (K, n_est)
+        "inv0": to_planar(inv0, dtype=rdt),  # (2, K), masked to active band
+        "inv1": to_planar(inv1, dtype=rdt),
+        "S_T": S.astype(rdt),  # (K, n_est)
         "idxA": idxA,
         "idxB": idxB,
         "t": t,
-        "tw2": to_planar(np.exp(-2j * np.pi * k2 / (2 * K)), dtype=dt),
+        "tw2": to_planar(np.exp(-2j * np.pi * k2 / (2 * K)), dtype=rdt),
     }
 
 
@@ -131,16 +135,20 @@ _DEVICE_CACHE: dict = {}
 def fast_consts(cfg: GfdmConfig, dtype_name: str = "float32", device="cpu") -> dict:
     """:func:`_fft_consts` and :func:`_est_consts` as tensors on ``device``,
     uploaded once per (config, dtype, device); index arrays as int32. Both
-    sets hold the same ``FK_W``."""
+    sets hold the same ``FK_W``. With ``dtype_name="bfloat16"`` every table
+    of :func:`_fft_consts` (and so ``FK_W``) is bf16, the estimator's other
+    tables float32, as in the JAX package."""
     device = torch.device(device)
     key = (cfg, dtype_name, str(device))
     hit = _DEVICE_CACHE.get(key)
     if hit is None:
-        arrays = {**_fft_consts(cfg, dtype_name), **_est_consts(cfg, dtype_name)}
+        fft = _fft_consts(cfg, dtype_name)
+        arrays = {**fft, **_est_consts(cfg, dtype_name)}
+        bf16 = set(fft) if dtype_name == "bfloat16" else set()
         hit = _DEVICE_CACHE[key] = {
-            name: torch.from_numpy(np.ascontiguousarray(
+            name: (bf16_operator(a) if name in bf16 else torch.from_numpy(np.ascontiguousarray(
                 a.astype(np.int32) if np.issubdtype(a.dtype, np.integer) else a
-            )).to(device)
+            ))).to(device)
             for name, a in arrays.items()
         }
     return hit

@@ -32,7 +32,8 @@ from ..config import GfdmConfig
 from ..ref.demodulation import ic_filter_taps as _ic_taps_ref
 from . import operators
 from .planar import (
-    gauss_stack, pabs2, pconj, pdiv, pmatmul, pmul, real_operator, to_planar,
+    bf16_operator, gauss_stack, host_dtype, pabs2, pconj, pdiv, pmatmul, pmul,
+    real_operator, to_planar,
 )
 
 __all__ = [
@@ -54,12 +55,19 @@ qpsk_constellation = np.array([1 + 1j, 1 - 1j, -1 + 1j, -1 - 1j]) / np.sqrt(2.0)
 # ---------------------------------------------------------------------------
 # operator matrices: NumPy once per config, tensors once per device
 # ---------------------------------------------------------------------------
+def _operator_tensor(a: np.ndarray, dtype_name: str, device) -> torch.Tensor:
+    """An operator of ``dtype_name`` as a tensor on ``device``."""
+    if dtype_name == "bfloat16":
+        return bf16_operator(a).to(device)
+    return _to_tensor(a, device)
+
+
 @lru_cache(maxsize=16)
 def _np_mats_fast(cfg: GfdmConfig, dtype_name: str):
     """Small-operator set for method='fast': no O(N^2) matrices anywhere
     (the factorized stages carry only K- and M-point matrices,
     :mod:`.planar_fast`)."""
-    dt = np.dtype(dtype_name)
+    dt = host_dtype(dtype_name)
     return {
         "C_W": real_operator(operators._interference_matrix(cfg).T, dt),
         "CNRI_T": np.ascontiguousarray(
@@ -88,7 +96,7 @@ def _tx_map_idx(cfg: GfdmConfig) -> np.ndarray:
 
 @lru_cache(maxsize=16)
 def _np_mats(cfg: GfdmConfig, dtype_name: str):
-    dt = np.dtype(dtype_name)
+    dt = host_dtype(dtype_name)
     K = cfg.subcarriers
     return {
         # full per-shift Tx operators with CP gather + window folded in:
@@ -133,7 +141,9 @@ def _np_gauss_stacks(cfg: GfdmConfig, dtype_name: str):
 
 @lru_cache(maxsize=16)
 def _small_consts(cfg: GfdmConfig, dtype_name: str):
-    dt = np.dtype(dtype_name)
+    # windows, preambles and taps stay float32 in the bfloat16 mode: only
+    # the big operators are rounded
+    dt = np.float32 if dtype_name == "bfloat16" else np.dtype(dtype_name)
     K = cfg.subcarriers
     c = {
         "cp_idx": np.stack([operators.cp_indices(cfg, s) for s in cfg.cyclic_shifts]),
@@ -162,9 +172,11 @@ def _device_mats(cfg: GfdmConfig, dtype_name: str = "float32", device="cpu",
                  method: str = "dense"):
     """The planar path's operators and small constants as tensors on
     ``device``, built once per (config, dtype, device, method). Index arrays
-    become int32 tensors. method="fast" loads the small-operator set
-    (:func:`_np_mats_fast`, plus the Tx map index ``map_idx``) and the
-    factorized stages' constants (:func:`.planar_fast.fast_consts`)."""
+    become int32 tensors; with ``dtype_name="bfloat16"`` the operators are
+    bf16 and the small constants float32. method="fast" loads the
+    small-operator set (:func:`_np_mats_fast`, plus the Tx map index
+    ``map_idx``) and the factorized stages' constants
+    (:func:`.planar_fast.fast_consts`)."""
     if method not in ("dense", "fast"):
         raise ValueError(f"unknown method {method!r}")
     device = torch.device(device)
@@ -176,11 +188,12 @@ def _device_mats(cfg: GfdmConfig, dtype_name: str = "float32", device="cpu",
         from . import planar_fast
 
         planar_fast.fast_consts(cfg, dtype_name, device)
-        arrays = {**_np_mats_fast(cfg, dtype_name), "map_idx": _tx_map_idx(cfg)}
+        ops, arrays = _np_mats_fast(cfg, dtype_name), {"map_idx": _tx_map_idx(cfg)}
     else:
-        arrays = _np_mats(cfg, dtype_name)
+        ops, arrays = _np_mats(cfg, dtype_name), {}
     arrays = {**arrays, **_small_consts(cfg, dtype_name)}
-    mats = {name: _to_tensor(a, device) for name, a in arrays.items()}
+    mats = {name: _operator_tensor(a, dtype_name, device) for name, a in ops.items()}
+    mats.update({name: _to_tensor(a, device) for name, a in arrays.items()})
     _DEVICE_MATS_CACHE[key] = mats
     return mats
 
@@ -203,9 +216,16 @@ def _dtype_name(x: torch.Tensor) -> str:
     return str(x.dtype).removeprefix("torch.")
 
 
-def _mats_for(cfg: GfdmConfig, x: torch.Tensor, method: str = "dense") -> dict:
-    """The operator cache of ``method`` for the dtype and device of ``x``."""
-    return _device_mats(cfg, _dtype_name(x), x.device, method)
+def _ops_dtype(x: torch.Tensor, dtype_name: str | None) -> str:
+    """The operators' dtype: ``dtype_name``, or by default that of ``x``."""
+    return _dtype_name(x) if dtype_name is None else dtype_name
+
+
+def _mats_for(cfg: GfdmConfig, x: torch.Tensor, method: str = "dense",
+              dtype_name: str | None = None) -> dict:
+    """The operator cache of ``method`` on the device of ``x``, in
+    ``dtype_name`` (default: the dtype of ``x``)."""
+    return _device_mats(cfg, _ops_dtype(x, dtype_name), x.device, method)
 
 
 def _check_planar(x: torch.Tensor, n: int, fn: str, what: str) -> None:
@@ -220,32 +240,39 @@ def _check_planar(x: torch.Tensor, n: int, fn: str, what: str) -> None:
 # Tx
 # ---------------------------------------------------------------------------
 def transmit_planar(cfg: GfdmConfig, data: torch.Tensor,
-                    method: str = "dense") -> torch.Tensor:
+                    method: str = "dense", dtype_name: str | None = None) -> torch.Tensor:
     """(..., 2, n_data) planar payload -> (..., n_shifts, 2, frame_len).
 
     Computes in the payload's dtype on the payload's device. method="fast"
     modulates via the factorized per-subcarrier FFT pipeline.
+    dtype_name="bfloat16" takes bf16 operators: each product rounds its
+    activation to bf16 and sums in float32 (the JAX package's bf16 mode).
     """
     _check_planar(data, cfg.n_data_symbols, "transmit_planar",
                   "timeslots*active_subcarriers")
     if method == "fast":
-        return _transmit_fast(cfg, data)
-    mats = _mats_for(cfg, data)
+        return _transmit_fast(cfg, data, dtype_name)
+    mats = _mats_for(cfg, data, dtype_name=dtype_name)
     TF_W = mats["TF_W"]  # (n_shifts, 2*n_data, 2*window_len)
     flat = data.reshape(data.shape[:-2] + (2 * data.shape[-1],))
-    framed = torch.einsum("...i,sij->...sj", flat, TF_W)
+    if TF_W.dtype == torch.bfloat16:
+        framed = torch.einsum("...i,sij->...sj", flat.to(torch.bfloat16).float(),
+                              TF_W.float()).to(data.dtype)
+    else:
+        framed = torch.einsum("...i,sij->...sj", flat, TF_W)
     framed = framed.reshape(framed.shape[:-1] + (2, cfg.window_len))
     pre = mats["preambles"].expand(framed.shape[:-2] + mats["preambles"].shape[-2:])
     return torch.cat([pre, framed], dim=-1)
 
 
-def _transmit_fast(cfg: GfdmConfig, data: torch.Tensor) -> torch.Tensor:
+def _transmit_fast(cfg: GfdmConfig, data: torch.Tensor,
+                   dtype_name: str | None = None) -> torch.Tensor:
     """method="fast" Tx: index-form resource map, factorized modulator,
     CP gather and window for every shift, preambles prepended."""
     from . import planar_fast
 
-    mats = _mats_for(cfg, data, "fast")
-    fc = planar_fast.fast_consts(cfg, _dtype_name(data), data.device)
+    mats = _mats_for(cfg, data, "fast", dtype_name)
+    fc = planar_fast.fast_consts(cfg, _ops_dtype(data, dtype_name), data.device)
     zero = torch.zeros(data.shape[:-1] + (1,), dtype=data.dtype, device=data.device)
     grid = torch.cat([data, zero], dim=-1)[..., mats["map_idx"]]
     core = planar_fast.modulate_core_fast(cfg, grid, fc)
@@ -314,6 +341,7 @@ def receive_bursts_planar(
     phase_compensation: bool = False,
     equalizer: str = "zf",
     method: str = "dense",
+    dtype_name: str | None = None,
 ):
     """Planar receiver chain: (..., 2, >=frame_len) -> dict of planar outputs.
 
@@ -323,11 +351,13 @@ def receive_bursts_planar(
     :mod:`.planar_fast` instead of the dense operators. equalizer="mmse"
     regularizes the per-bin inversion with the estimated SNR;
     equalizer="mmse_cnr" uses the per-subcarrier CNR vector interpolated to
-    every FD bin. Returns data, symbols, channel, snr_lin and cnrs.
+    every FD bin. dtype_name="bfloat16" takes bf16 operators (as
+    :func:`transmit_planar`); the IC decisions then meet the bf16 ``C_W``
+    rounded to bf16. Returns data, symbols, channel, snr_lin and cnrs.
     """
     if equalizer not in ("zf", "mmse", "mmse_cnr"):
         raise ValueError(f"unknown equalizer {equalizer!r}")
-    mats = _mats_for(cfg, bursts, method)
+    mats = _mats_for(cfg, bursts, method, dtype_name)
     K, M = cfg.subcarriers, cfg.timeslots
     points = np.asarray(constellation)
     points_pl = _points_tensor(points, bursts)  # (P, 2)
@@ -338,7 +368,7 @@ def receive_bursts_planar(
     if method == "fast":
         from . import planar_fast
 
-        fc = planar_fast.fast_consts(cfg, _dtype_name(bursts), bursts.device)
+        fc = planar_fast.fast_consts(cfg, _ops_dtype(bursts, dtype_name), bursts.device)
         channel = planar_fast.estimate_channel_fast(cfg, rx_pre, fc)
         p = planar_fast.snr_power_fast(cfg, rx_pre, fc)
     else:
@@ -359,7 +389,8 @@ def receive_bursts_planar(
         w = h2 / (h2 + (1.0 / torch.clamp(snr_lin, min=1e-6))[..., None])
         channel_eff = channel / w[..., None, :]
     elif equalize and equalizer == "mmse_cnr":
-        cnr_bins = torch.clamp(cnrs, min=0.0) @ mats["CNRI_T"]
+        # a bf16 operator is upcast, the CNRs not rounded (jnp promotes)
+        cnr_bins = torch.clamp(cnrs, min=0.0) @ mats["CNRI_T"].to(cnrs.dtype)
         cnr_bins = torch.clamp(cnr_bins, min=1e-6)
         w = cnr_bins / (cnr_bins + 1.0)
         channel_eff = channel / w[..., None, :]
@@ -917,9 +948,13 @@ def evm(data_hat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
 
 
 def link_step_planar(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 2,
-                     method: str = "dense"):
-    """Planar end-to-end: payload -> Tx -> Rx -> (data_hat, snr, evm)."""
-    bursts = transmit_planar(cfg, data, method=method)[..., 0, :, :]
+                     method: str = "dense", dtype_name: str | None = None):
+    """Planar end-to-end: payload -> Tx -> Rx -> (data_hat, snr, evm).
+
+    dtype_name="bfloat16" runs every operator product with bf16 operators
+    and bf16-rounded activations, summed in float32.
+    """
+    bursts = transmit_planar(cfg, data, method=method, dtype_name=dtype_name)[..., 0, :, :]
     out = receive_bursts_planar(cfg, bursts, ic_iterations=ic_iterations,
-                                method=method)
+                                method=method, dtype_name=dtype_name)
     return out["data"], out["snr_lin"], evm(out["data"], data)

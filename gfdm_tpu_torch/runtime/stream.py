@@ -80,17 +80,13 @@ def receive_chunks_planar(
     ``dtype_name``). ``refine_cfo`` re-estimates the residual CFO from the
     payload block's CP after the coarse correction at extraction.
 
-    The receiver runs in float32, with the dense operators or, with
-    ``method="fast"``, the factorized stages of ops.planar_fast.
+    The receiver runs with the dense operators or, with ``method="fast"``,
+    the factorized stages of ops.planar_fast, in float32 or, with
+    ``dtype_name="bfloat16"``, with bf16 operators.
     """
     from ..ops import planar_pipeline as pp
     from ..ops.rx import constellation_points
 
-    if dtype_name != "float32":
-        raise NotImplementedError(
-            f"dtype_name={dtype_name!r}: the port's receiver runs in float32 "
-            "(detect_dtype_name sets the detection dtype)"
-        )
     dd = detect_dtype_name or dtype_name
     C = chunks.shape[-1]
     if max_bursts_per_chunk <= 1:
@@ -111,6 +107,7 @@ def receive_chunks_planar(
     out = pp.receive_bursts_planar(
         cfg, bursts, ic_iterations=ic_iterations, equalizer=equalizer,
         constellation=constellation_points(constellation), method=method,
+        dtype_name=dtype_name,
     )
     out["detection"] = det
     out["found"] = _found_mask(det, chunk_len, min_strength, false_alarm_prob)

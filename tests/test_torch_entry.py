@@ -43,7 +43,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "import gfdm_tpu_torch, gfdm_tpu_torch.kernels.fused, gfdm_tpu_torch.entry, "
         "gfdm_tpu_torch.convert, gfdm_tpu_torch.kernels.detect, gfdm_tpu_torch.ref, "
         "gfdm_tpu_torch.ops.sync, gfdm_tpu_torch.ops.rx, gfdm_tpu_torch.ops.planar_fast, "
-        "gfdm_tpu_torch.kernels.cuda_lib, "
+        "gfdm_tpu_torch.kernels.cuda_lib, gfdm_tpu_torch.kernels.chain, "
+        "gfdm_tpu_torch.benchmarks.int8_gauss, "
         "gfdm_tpu_torch.runtime.stream, gfdm_tpu_torch.runtime.service, sys; "
         "assert 'jax' not in sys.modules and 'gfdm_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'gfdm_tpu.')))"

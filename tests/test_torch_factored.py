@@ -214,6 +214,27 @@ def test_rx_receiver_factored_matches_pallas(name, estimator):
     np.testing.assert_allclose(sym.numpy(), np.asarray(sym_r), atol=1e-4)
 
 
+@pytest.mark.parametrize("name", ["k64", "k32m5"])
+@pytest.mark.parametrize("estimator", ["fused", "fast"])
+@pytest.mark.parametrize("amp", [AMP, 0.6])
+def test_rx_receiver_factored_qpsk_amp_matches_pallas(name, estimator, amp):
+    """qpsk_amp reaches the IC taps of both estimators' receivers, as in the
+    JAX package's rx_receiver_factored(qpsk_amp=...)."""
+    jc, tc = _pair(name)
+    _data, bursts = _noisy_bursts(jc, 31)
+    chan_r, sym_r = jax_fused.rx_receiver_factored(jc, jnp.asarray(bursts), block=B,
+                                                   qpsk_amp=amp, estimator=estimator)
+    chan, sym = fused.rx_receiver_factored(tc, torch.from_numpy(bursts), qpsk_amp=amp,
+                                           estimator=estimator)
+    np.testing.assert_allclose(chan.numpy(), np.asarray(chan_r), atol=1e-5)
+    np.testing.assert_allclose(sym.numpy(), np.asarray(sym_r), atol=1e-4)
+    if amp != AMP:  # the amplitude moves the symbols
+        _c, sym_q = fused.rx_receiver_factored(tc, torch.from_numpy(bursts), estimator=estimator)
+        assert float((sym - sym_q).abs().max()) > 1e-3
+        np.testing.assert_array_equal(fused._factored_taps(tc, "cpu", amp).numpy(),
+                                      fused._ftaps_np(tc, amp))
+
+
 def test_factored_link_at_k256_gives_the_payload_back():
     """tests/test_pallas.py::test_tx_frame_factored_large_K_link on the port:
     K = 256, B = 2; the bursts match the JAX factored Tx and every hard

@@ -456,3 +456,78 @@ def test_service_option_matrix_on_card():
     out = rx.step(stream)
     assert fused.LAUNCHES["rx"] == before + 1
     assert out["found"].sum() == counts.sum() == 64
+
+
+@pytest.mark.parametrize("estimator", ["fused", "fast"])
+def test_rx_factored_kernels_take_qpsk_amp(estimator):
+    """qpsk_amp reaches the factored kernels' IC taps (the plain version at
+    the same amplitude), and moves the symbols."""
+    dev = _cuda()
+    cfg = CONFIGS["canonical"]
+    _data, bursts = _factored_bursts(cfg, dev, 300)
+    chan, sym = fused.rx_receiver_factored(cfg, bursts, qpsk_amp=0.6, estimator=estimator)
+    rchan, rsym = fused._rx_factored_plain(cfg, bursts, chan if estimator == "fast" else None,
+                                           2, 0.6)
+    assert _max_err(chan, rchan) < 2e-4
+    assert _max_err(sym, rsym) < 5e-4
+    _c, sym_q = fused.rx_receiver_factored(cfg, bursts, estimator=estimator)
+    assert _max_err(sym, sym_q) > 1e-3
+
+
+@pytest.mark.parametrize("method", ["dense", "fast"])
+def test_planar_link_bf16_on_card(method):
+    """dtype_name="bfloat16" of the torch-op link on the card against the
+    same function on the CPU (bf16 data limit 1e-2 a burst, EVM 1e-4)."""
+    from gfdm_tpu_torch.ops.planar_pipeline import link_step_planar
+
+    dev = _cuda()
+    cfg = CONFIGS["canonical"]
+    data = _payload(cfg, 310, dev)
+    d, _s, e = link_step_planar(cfg, data, method=method, dtype_name="bfloat16")
+    d_c, _s, e_c = link_step_planar(cfg, data.cpu(), method=method, dtype_name="bfloat16")
+    assert float((d.cpu() - d_c).abs().max()) <= 1e-2
+    assert abs(float(e) - float(e_c)) <= 1e-4
+
+
+CHAIN_LIMITS = {"f32": 1e-5, "bf16": 1e-2}
+
+
+@pytest.mark.parametrize("batch", [1024, 8192])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "int8"])
+def test_chain_kernel_matches_plain(variant, batch):
+    """csrc/chain.cu against its plain version at the link's chain shapes,
+    each 128-row group at its own scale (1, 10, 0.01, ...): f32 and bf16
+    within max |d| / max |ref| 1e-5 and 1e-2, int8 bit for bit."""
+    from gfdm_tpu_torch.benchmarks.int8_gauss import make_inputs
+    from gfdm_tpu_torch.kernels import chain
+
+    dev = _cuda()
+    weights, x, _s = make_inputs(batch, 1)
+    gains = np.array([1.0, 10.0, 0.01, 3.0], dtype=np.float32)
+    x = x * np.repeat(np.resize(gains, batch // 128), 128)[:, None]
+    xd = torch.from_numpy(x).to(dev)
+    cw = chain.chain_weights_from_numpy(weights, variant).to(dev)
+    before = chain.LAUNCHES[f"chain_{variant}"]
+    got = chain.gemm_chain(xd, cw)
+    torch.cuda.synchronize()
+    assert chain.LAUNCHES[f"chain_{variant}"] == before + (4 if variant == "int8" else 1)
+    ref = chain._chain_plain(xd, cw)
+    assert got.shape == ref.shape == (batch, 1152) and bool(torch.isfinite(got).all())
+    if variant == "int8":
+        assert torch.equal(got, ref)
+    else:
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        assert rel <= CHAIN_LIMITS[variant], rel
+
+
+def test_chain_kernel_refuses_other_shapes():
+    from gfdm_tpu_torch.kernels import chain
+
+    dev = _cuda()
+    rng = np.random.default_rng(1)
+    narrow = [rng.standard_normal(s) for s in [(936, 48), (48, 48), (48, 48)]]
+    cw = chain.chain_weights_from_numpy(narrow, "f32").to(dev)
+    with pytest.raises(ValueError, match="1152-wide"):
+        chain.gemm_chain(torch.zeros(128, 936, device=dev), cw)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        chain.gemm_chain(torch.zeros(100, 936, device=dev), cw)
