@@ -130,10 +130,20 @@ TOL = {
     # the other side, in a burst of a few hundred (the CPU's one in eight
     # bursts of JAX vs plain); those bursts are left out, at most 2%
     "bf16_boundary": 2e-2, "bf16_excluded_share": 2e-2,
+    # the bf16 link kernels sum the products whose outputs are rounded to
+    # bf16 next (Tx, estimate) in float64, so they are held to the plain
+    # version summed in float64 (sum64); besides, each product stage against
+    # the plain stage on the kernel's own inputs, relative to the stage's
+    # largest magnitude
+    "stages": 1e-5,
 }
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 FMA (no TF32), HBM3
+# H100 SXM dense tensor cores (NVIDIA's data sheet; FP64 tensor cores 67 TFLOP/s)
+PEAK_TF32, PEAK_BF16, PEAK_FP64_TC = 495e12, 989e12, 67e12
 # the chain modes' operations run at their own dense peaks (H100 SXM)
-PEAK_OPS = {"chain_bf16": 989e12, "chain_int8": 1979e12}
+PEAK_OPS = {"chain_bf16": PEAK_BF16, "chain_int8": 1979e12}
+N_RAGGED_LINK = 4099  # phase 3: not a multiple of the link's 128-burst tile
+LINK_K = (128, 256, 512)  # phase 7: the dense link at larger K, B = B_LARGE_K
 N_CHUNKS = 4096  # service batch: 8.4 M owned samples a step
 CHUNK_LEN = 2048
 N_RAGGED, RAGGED_TRIM = 37, 5  # chunks of T - 5 samples: not 128-aligned
@@ -489,6 +499,23 @@ def _large_k_phase(torch, dev, card, check, failures):
                       check("link:data", err["link"], TOL["data"])]), flush=True)
     del noisy, chan, sym, rchan, rsym, d_hat, ref
 
+    # 7a. the staged link kernels at K = 128, 256 and 512 (N = 1152 .. 4608)
+    for K in LINK_K:
+        parts = []
+        for mode in ("conv", "matmul"):
+            d_hat, _snr, evm_k = fused.link_single_fused(cfgs[K], payload[K], ic_mode=mode)
+            ref, _met = fused._link_single_plain(cfgs[K], payload[K].reshape(batch[K], -1), 2,
+                                                 mode)
+            e = _max_abs(d_hat.reshape(batch[K], -1), ref)
+            err["link"] = max(err["link"], e)
+            evm_p = float(evm(ref.reshape(payload[K].shape), payload[K]))
+            parts += [check(f"link[{mode}]:data", e, TOL["data"]),
+                      check("|d_evm|", abs(float(evm_k) - evm_p), TOL["evm"]),
+                      check("evm", float(evm_k), TOL["evm_max"])]
+            del d_hat, ref
+        print(f"[7 check] dense link kernels at K={K} B={batch[K]} " + " ".join(parts),
+              flush=True)
+
     # 7b. the large-K link through the user's entry points, launches counted
     _reset_launches()
     torch.cuda.synchronize()
@@ -560,6 +587,72 @@ def _large_k_phase(torch, dev, card, check, failures):
                       f"torch-op estimate {est:.3f} ms ({card})", flush=True)
         del bursts
     return launches, err, times
+
+
+def _link_stage_times(torch, cfg, flat, card, reps: int = 3) -> None:
+    """Phase 5: the link's device time a stage (CUDA events around each
+    launch, mean of ``reps`` calls after a warm-up) at the main path's batch,
+    both IC modes and both stack dtypes, and what an IC iteration costs."""
+    from gfdm_tpu_torch.kernels import fused
+
+    ic = {}
+    for dtype_name in ("float32", "bfloat16"):
+        for mode in ("matmul", "conv"):
+            opts = fused._rx_options(2, mode)
+            plan = fused._link_plan(opts.ic_iterations)
+            names = [name if name != "ic" else f"ic{it}" for name, _s, it in plan]
+            fused._link_single_cuda(cfg, flat, opts, dtype_name)
+            ms = [0.0] * len(plan)
+            for _ in range(reps):
+                ev = []
+                fused._link_single_cuda(cfg, flat, opts, dtype_name, events=ev)
+                ev[-1].synchronize()
+                for i in range(len(plan)):
+                    ms[i] += ev[i].elapsed_time(ev[i + 1]) / reps
+            ic[(mode, dtype_name)] = sum(ms[len(fused.LINK_STAGES):]) / opts.ic_iterations
+            print(f"[5 stages] link[{mode},{dtype_name}] B={flat.shape[0]}: "
+                  + " ".join(f"{n} {t:.3f}" for n, t in zip(names, ms))
+                  + f" = {sum(ms):.3f} ms ({card})", flush=True)
+    for dtype_name in ("float32", "bfloat16"):
+        print(f"[5 stages] one IC iteration ({dtype_name} stacks): matmul "
+              f"{ic[('matmul', dtype_name)]:.3f} ms (bf16 operator on tensor cores), conv "
+              f"{ic[('conv', dtype_name)]:.3f} ms (M-tap stencil); entry() runs matmul "
+              f"({card})", flush=True)
+
+
+def _link_bound(cfg, batch: int, ic_mode: str = "matmul",
+                dtype_name: str = "float32") -> tuple[float, str, float]:
+    """The staged link's bound: its operations at the tensor-core rate of
+    their type - each float32-stack Gauss product as three TF32 products at
+    495 TFLOP/s, the bf16 IC operator and the bf16 stacks at 989 TFLOP/s but
+    those of the Tx and estimate stages, which sum in float64, at the FP64
+    tensor cores' 67 TFLOP/s, the conv IC's taps at the fp32 FMA rate -
+    against its bytes (payload, outputs
+    and constants once). Returns (bound ms, what bounds it, ms of the
+    design's intermediates: F, Y, D0, the decisions, each burst's preamble
+    window and its power, each written once and read by each stage that
+    takes it)."""
+    from gfdm_tpu_torch.kernels import fused
+
+    n, nd, half, M = cfg.block_len, cfg.n_data_symbols, 2 * cfg.subcarriers, cfg.timeslots
+    met_w, it = fused._met_layout(cfg)[1], 2
+    rounded = 6.0 * batch * (nd * n + half * n + n * n)  # Tx, estimate + DFT
+    stacks = rounded + 6.0 * batch * (half * half + n * n)  # + preamble DFT, demod
+    bf16 = dtype_name == "bfloat16"
+    t_ops = (rounded / PEAK_FP64_TC + (stacks - rounded) / PEAK_BF16 if bf16
+             else 3 * stacks / PEAK_TF32)
+    if ic_mode == "matmul":
+        t_ops += it * 6.0 * batch * n * n / PEAK_BF16
+        ic_bytes = 2 * 3 * n * n
+    else:
+        t_ops += it * 8.0 * batch * M * n / PEAK_FLOPS
+        ic_bytes = 4 * 2 * M
+    wbytes = (2 if bf16 else 4) * 3 * (nd * n + half * n + half * half + 2 * n * n)
+    t_bytes = (4.0 * batch * (4 * nd + met_w) + wbytes + ic_bytes) / PEAK_BYTES
+    inter = 4.0 * batch * (2 * 2 * n * 2 + 2 * n * (1 + it) + 2 * n * 2 * it + 2 * half
+                           + 3 * 2 * half)
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * inter / PEAK_BYTES)
 
 
 def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
@@ -760,22 +853,27 @@ def _options_phase(torch, cfg, dev, card, check, failures):
         data = _points_payload(torch, cfg, name, Bo, 70, dev)
         flat = data.reshape(Bo, -1)
         lkw = dict(constellation=name, dtype_name=dtype_name)
+        bf16 = dtype_name == "bfloat16"
+        pkw = dict(dtype_name=dtype_name, sum64=bf16)
         d_hat, _snr, evm_k = fused.link_single_fused(cfg, data, ic_mode="matmul", **lkw)
-        ref, _met = fused._link_single_plain(cfg, flat, 2, "matmul", name,
-                                             dtype_name=dtype_name)
+        ref, _met = fused._link_single_plain(cfg, flat, 2, "matmul", name, **pkw)
         runs = [(fused.link_single_fused(cfg, data, ic_iterations=it, ic_mode="matmul",
                                          **lkw)[0].reshape(Bo, -1),
-                 fused._link_single_plain(cfg, flat, it, "matmul", name,
-                                          dtype_name=dtype_name)[0]) for it in (0, 1)]
-        bf16 = dtype_name == "bfloat16"
+                 fused._link_single_plain(cfg, flat, it, "matmul", name, **pkw)[0])
+                for it in (0, 1)]
         differ, explained = _flipped_bursts(
             runs, name, TOL["bf16_boundary"] if bf16 else TOL["boundary"])
         del runs
-        keep = ~differ
-        n_ex = int(differ.sum())
         if not explained:
             failures.append(f"link[{name},{dtype_name}]: a decision differs away from a "
                             "boundary")
+        extra = []
+        if bf16:  # the product stages on the kernel's own inputs
+            stage = max(float(v.max()) for v in
+                        fused._link_stage_errors(cfg, flat, dtype_name).values())
+            extra = [check("stages", stage, TOL["stages"])]
+        keep = ~differ
+        n_ex = int(differ.sum())
         e = _max_abs(d_hat.reshape(Bo, -1)[keep], ref[keep])
         err["link"] = max(err["link"], e)
         evm_p = float(((ref - flat) ** 2).sum() / (flat**2).sum()) ** 0.5
@@ -787,14 +885,14 @@ def _options_phase(torch, cfg, dev, card, check, failures):
                        != _levels(torch, data, name)).sum())
         over = int(((d_hat.reshape(Bo, -1) - ref).abs().amax(dim=1) > TOL["data"]).sum())
         print(f"[8 check] link[{name},{dtype_name},matmul] B={Bo} evm={float(evm_k):.6f} "
-              f"plain={evm_p:.6f} excluded={n_ex} bursts over {TOL['data']}: {over} "
+              f"plain{'(sum64)' if bf16 else ''}={evm_p:.6f} excluded={n_ex} bursts over {TOL['data']}: {over} "
               f"wrong decisions {wrong} plain {wrong_p} "
               + " ".join([check("excluded_share", n_ex / Bo,
                                 TOL["bf16_excluded_share" if bf16 else "excluded_share"]),
                           check("data", e, tol),
                           check("|d_evm|", abs(float(evm_k) - evm_p), TOL["evm"]),
                           check("|d_wrong|", float(abs(wrong - wrong_p)),
-                                0.01 * wrong_p + 2)]), flush=True)
+                                0.01 * wrong_p + 2), *extra]), flush=True)
         del data, flat, d_hat, ref
 
     # option costs at B_OPTIONS (plain, kernel, kernel, plain): the receiver
@@ -1148,13 +1246,18 @@ def main() -> int:
             check("pad", float(met[:, 1 + n_cnr :].abs().max()), 0.0),
         ]), flush=True)
         del chan, sym, met, rchan, rsym, rmet
+    ragged = data[:N_RAGGED_LINK]
     for mode in ("conv", "matmul"):
         d_hat, _snr, _evm = fused.link_single_fused(cfg, data, ic_mode=mode)
         ref, _met = fused._link_single_plain(cfg, flat, 2, mode)
         e = _max_abs(d_hat.reshape(B, -1), ref)
-        err["link"] = max(err["link"], e)
-        print(f"[3 check] link[{mode}] " + check("data", e, TOL["data"]), flush=True)
-        del d_hat, ref
+        d_r = fused.link_single_fused(cfg, ragged, ic_mode=mode)[0]
+        e_r = _max_abs(d_r.reshape(N_RAGGED_LINK, -1),
+                       fused._link_single_plain(cfg, flat[:N_RAGGED_LINK], 2, mode)[0])
+        err["link"] = max(err["link"], e, e_r)
+        print(f"[3 check] link[{mode}] " + check(f"data[B={B}]", e, TOL["data"]) + " "
+              + check(f"data[B={N_RAGGED_LINK}]", e_r, TOL["data"]), flush=True)
+        del d_hat, ref, d_r
 
     # 3. detection kernels vs plain on the service's friendly chunks
     streams = {
@@ -1201,6 +1304,9 @@ def main() -> int:
     for k, v in launches.items():
         if v < 1:
             failures.append(f"kernel {k} was not launched on the main path")
+    if launches["link"] != fused.link_launches("matmul", 2):
+        failures.append(f"link: {launches['link']} launches on the main path, expected "
+                        f"{fused.link_launches('matmul', 2)} (one a stage)")
     print(f"[4 main] B={B} ({B * cfg.frame_len / 1e6:.1f} M samples/step) "
           f"launches={launches} host {host_s * 1e3:.1f} ms | "
           + " ".join([
@@ -1227,6 +1333,10 @@ def main() -> int:
                  lambda: fused._link_single_plain(cfg, flat, 2, "matmul")),
         "link_conv": (lambda: fused.link_single_fused(cfg, data, ic_mode="conv"),
                       lambda: fused._link_single_plain(cfg, flat, 2, "conv")),
+        "link_bf16": (lambda: fused.link_single_fused(cfg, data, ic_mode="matmul",
+                                                      dtype_name="bfloat16"),
+                      lambda: fused._link_single_plain(cfg, flat, 2, "matmul",
+                                                       dtype_name="bfloat16")),
     }
     times = {}
     for name, (kern, plain) in runs.items():
@@ -1235,6 +1345,7 @@ def main() -> int:
         rate = B * cfg.frame_len / (k_ms / 1e3)
         print(f"[5 time] {name}: kernel {ks} ms, plain {ps} ms, kernel {rate:.4e} "
               f"samples/s (B={B}, {card})", flush=True)
+    _link_stage_times(torch, cfg, flat, card)
 
     # 6. the streaming receive service
     svc_launches, det_times = _service_phase(torch, cfg, dev, streams, card,
@@ -1290,15 +1401,23 @@ def main() -> int:
     for key, (name, source, replaces) in SOURCES.items():
         kcfg, kb, kw = shapes[key]
         bound_ms, bound_by = _bound(key, kcfg, kb, **kw)
+        extra, note = {}, ""
+        if key == "link":  # tensor-core bound; the fp32 FMA one as PRs 1-6 gave it
+            extra["fma_bound_ms"] = bound_ms
+            bound_ms, bound_by, inter_ms = _link_bound(kcfg, kb, **kw)
+            bf_ms, bf_by, _ = _link_bound(kcfg, kb, dtype_name="bfloat16", **kw)
+            note = (f"; fp32 FMA bound {extra['fma_bound_ms']:.3f} ms; the design's "
+                    f"intermediates {inter_ms:.3f} ms; with bf16 stacks {bf_ms:.3f} ms "
+                    f"({bf_by}) against link_bf16 {times['link_bf16'][0]:.3f} ms")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": err[key], "ms": times[key][0],
             "plain_ms": times[key][1], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": times[key][2] if len(times[key]) > 2 else None,
+            "library_ms": times[key][2] if len(times[key]) > 2 else None, **extra,
         })
         print(f"[bound] {key}: {bound_ms:.3f} ms ({bound_by}) at B={kb}; kernel "
-              f"{times[key][0]:.3f} ms = {bound_ms / times[key][0]:.1%} of the bound "
+              f"{times[key][0]:.3f} ms = {bound_ms / times[key][0]:.1%} of the bound{note} "
               f"({card})", flush=True)
     print(f"[8 main] service launches rx={svc_rx}", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,110 +1,366 @@
-// One-kernel GFDM loopback link for Hopper (sm_90a).
+// The GFDM loopback link for Hopper (sm_90a), as staged tensor-core products.
 //
-// Replaces the Pallas kernel gfdm_tpu/kernels/fused.py::_link_kernel
-// (wrapper link_single_fused): payload (B, 2 n_data) -> the transmitter of
-// tx.cu at cyclic shift 0 -> the receiver of rx.cu (ZF; QPSK, qam16 or qam64
-// IC decisions; either IC mode) -> demap -> data estimate (B, 2 n_data) and
-// metrics (B, met_w). EVM is reduced outside the kernel. With dtype
-// "bfloat16" (Dims::bf16) the five Gauss stacks are bf16 and every
-// activation is rounded to bf16 before its product, the sum plane's
-// xr + xi too (the JAX package's _gdot); accumulation stays f32. That is the
-// W = uint16_t instantiation.
+// Replaces the Pallas kernel gfdm_tpu/kernels/fused.py::_link_kernel (:1403;
+// wrapper link_single_fused): payload (B, 2 n_data) -> the transmitter at
+// cyclic shift 0 -> the receiver on the framed burst (channel estimate,
+// SNR/CNR metrics, N-point DFT, ZF with |C|^2 clamped at 1e-30, FD demod,
+// ic_iterations of decision-directed IC with QPSK, qam16 or qam64 decisions,
+// either IC mode) -> demap -> data estimate (B, 2 n_data) and metrics
+// (B, met_w). Every burst's estimate and metrics come from its own preamble
+// window. EVM is reduced outside.
 //
-// Bound: the sum of the two chains, 3.1 M fp32 MACs a burst plus 1.0 M per
-// matmul-mode IC iteration, against 3.7 KB read and 4.2 KB written: FMA-bound,
-// with about 14 MB of operator stacks (7 MB in bf16) streamed from L2 once
-// per tile. Design: the burst never reaches HBM. The Tx epilogue writes the
-// windowed core straight into the receiver's payload window in shared
-// memory, and the receiver's preamble window is the transmitted preamble
-// itself; the demap is a gather in place of the 0/1 selection matmul.
-#include "gfdm_common.cuh"
+// The TPU kernel keeps a block of bursts and every operator stack in VMEM
+// for the whole chain. On Hopper that design (the previous link kernel here)
+// fits 8 bursts in a CTA's shared memory, streams all 16 MB of operator
+// stacks from L2 for every 8 bursts (~133 GB of L2 reads a step at
+// B = 65,536), issues scalar loads and FMAs (6 global + 16 shared loads per
+// 48 FMAs) with no copy overlap, and never touches the tensor cores: 18% of
+// its fp32 FMA bound. This design lets the intermediates go through device
+// memory instead, one launch a stage (gfdm_link_stage):
+//   0 tx      F  = (payload @ T_G) * win[cp + col], and P, the framed
+//             burst's preamble window (columns cp .. cp + 2K of each plane)
+//   1 est_zf  C  = P @ E_G (parked in shared memory), X = F @ F_G,
+//             Y  = ZF(X, C); C never reaches memory
+//   2 pre_dft pw = |P @ F2_G|^2
+//   3 metrics met rows from pw's signal and noise bins
+//   4 demod   D0 = Y @ Bfd_G; then Q = level(D0) * act, or (no IC) the
+//             demapped output
+//   5 ic      one launch an iteration: D = D0 - Q @ icop (bf16 operator) or
+//             D0 - the M-tap circulant of Q (conv: a stencil on CUDA cores);
+//             then the next Q, or the last iteration's demapped output
+// P is a (B, 4K) buffer like F: each burst's estimate and metrics read its
+// own row, as the TPU kernel reads each burst's own window. Q ping-pongs
+// through F and Y, which are dead by then. Each product stage is
+// the engine of link_gemm.cuh: 128-burst x 64-column tiles, column tile
+// fastest in the grid (the tiles of one burst tile run together and share
+// its activation rows in L2), operator and activation slabs staged by
+// cp.async in a two-slot ring, so each operator is read once per 128
+// bursts (~8 GB of L2 reads a step), products on tensor cores: 3xTF32 for
+// the float32 stacks, bf16 for the IC operator and, with dtype
+// "bfloat16" (Dims::bf16), for all five stacks, the Tx and estimate
+// stages' exact bf16 products summed in float64 (ROUNDED below).
+//
+// Bound (H100 SXM, B = 65,536, canonical config): 4.02e11 float32-stack
+// operations x 3 TF32 products at 495 TFLOP/s plus 2.61e11 IC operations
+// at 989 TFLOP/s: 2.70 ms, operation-bound; the design's intermediates
+// (F, P, Y, D0, Q, pw, each written once and read by each stage that takes
+// it: ~55 KB a burst, 3.6 GB) take 1.07 ms at 3.35 TB/s. With bf16 stacks
+// the Tx and estimate products take 4.0 ms at the FP64 tensor cores' 67
+// TFLOP/s, the rest (preamble DFT, demod, IC) 0.4 ms: 4.4 ms,
+// operation-bound. What bounds the
+// kernels instead (PERF.md §6): one CTA of 8 warps an SM, so a float32
+// slab's 3xTF32 splits, fragment loads and dependent mma.sync chains run
+// with little latency hidden, and a bf16 slab waits on its copies with one
+// slab in flight.
+#include "link_gemm.cuh"
 
 namespace gfdm {
+namespace lg {
 
-template <int TB, typename W>
-__global__ void __launch_bounds__(MAX_THREADS)
-link_kernel(Dims d, Consts c, const float* __restrict__ data,
-            float* __restrict__ out, float* __restrict__ met) {
-  extern __shared__ float smem[];
-  const int b0 = blockIdx.x * TB;
-  const int nb = min(TB, d.batch - b0);
-  const int n = d.n, half = d.half, w = 2 * n, n_d = d.n_data;
-  float* P = smem;
-  float* F = P + TB * 2 * half;
-  float* X = F + 2 * TB * w;  // the payload tile is staged in the X stage
-  load_tile<TB>(X, data + static_cast<size_t>(b0) * 2 * n_d, n_d, nb);
-  for (int i = threadIdx.x; i < TB * 2 * half; i += blockDim.x) {
-    const int j = i % (2 * half);
-    const int p = j / half, t = j - p * half;
-    P[i] = c.pre[p * d.preamble_len + d.cp_len + t];
-  }
-  __syncthreads();
-  // Tx at shift 0: core sample col sits at framed position cp + col, so the
-  // payload window [fs, fs + N) of the burst is core * win[cp:cp + N]
-  tx_core<TB, W>(d, c, X, [&](int b, int col, float cr, float ci) {
-    const float wv = c.win[d.cp_len + col];
-    F[b * w + col] = cr * wv;
-    F[b * w + n + col] = ci * wv;
-  });
-  __syncthreads();
-  const float* s = rx_chain<TB, W>(d, c, smem, nb, nullptr,
-                            met + static_cast<size_t>(b0) * d.met_w);
-  float* o = out + static_cast<size_t>(b0) * 2 * n_d;
-  for (int i = threadIdx.x; i < nb * 2 * n_d; i += blockDim.x) {
-    const int b = i / (2 * n_d), j = i - b * 2 * n_d;
-    const int p = j / n_d, t = j - p * n_d;
-    o[i] = s[b * w + p * n + c.demap_idx[t]];
+enum Stage { TX = 0, EST_ZF = 1, PRE_DFT = 2, METRICS = 3, DEMOD = 4, IC = 5 };
+
+// With bf16 stacks the next stage rounds F and Y to bf16, so a float32 sum
+// in any order but the reference's own puts a few activations on the other
+// side of a rounding boundary, and one such element of Y moves its burst by
+// up to ~1e-2. The Tx and estimate stages therefore sum their exact bf16
+// products in float64 (FP64 tensor cores) and round once to float32: F and
+// Y are then the float64-summed plain version's, element for element.
+template <typename W>
+constexpr bool ROUNDED = sizeof(W) == 2;
+
+struct TileIdx {
+  int row0, rows, col0;
+  __device__ TileIdx(int batch)
+      : row0(blockIdx.y * BM), rows(min(BM, batch - static_cast<int>(blockIdx.y) * BM)),
+        col0(blockIdx.x * BN) {}
+};
+
+// for (r, c) of the staged tile with r < rows and col0 + c < n_out
+template <typename F>
+__device__ __forceinline__ void for_tile(const TileIdx& t, int n_out, F f) {
+  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
+    const int r = e / BN, c = e - r * BN;
+    if (r < t.rows && t.col0 + c < n_out) f(r, c, t.col0 + c);
   }
 }
 
-template <int TB, typename W>
-int launch_link(const Dims* d, const Consts* c, const float* data, float* out,
-                float* met, void* stream) {
-  const size_t smem = sizeof(float) * rx_smem_floats(*d, TB);
-  cudaError_t err = cudaFuncSetAttribute(
-      link_kernel<TB, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (d->batch + TB - 1) / TB;
-  link_kernel<TB, W><<<blocks, block_threads(*d), smem,
-                       static_cast<cudaStream_t>(stream)>>>(*d, *c, data, out, met);
-  return static_cast<int>(cudaGetLastError());
+// the preamble window P: each burst's own row [re | im], 2K samples a plane
+__device__ __forceinline__ Act preamble(const Dims& d, const LinkIO& io) {
+  return Act{io.pre, 2 * d.half, d.half, d.half};
+}
+
+// after D (vr, vi) at frame column col of burst row: the next IC decisions
+// Q = level(D) * act, or (last) the demapped output
+__device__ __forceinline__ void decide_or_demap(const Dims& d, const Consts& c,
+                                                const LinkIO& io, float* q_out, bool last,
+                                                size_t row, int col, float vr, float vi) {
+  if (last) {
+    const int t = io.inv_demap[col];
+    if (t >= 0) {
+      float* o = io.out + row * 2 * d.n_data;
+      o[t] = vr;
+      o[d.n_data + t] = vi;
+    }
+  } else {
+    const float a = c.act[col];
+    float* q = q_out + row * 2 * d.n;
+    q[col] = ic_level(vr, d.dec_kind) * a;
+    q[d.n + col] = ic_level(vi, d.dec_kind) * a;
+  }
 }
 
 template <typename W>
-int launch_link_tile(const Dims* d, const Consts* c, const float* data, float* out,
-                     float* met, void* stream) {
-  switch (rx_tile_bursts(*d)) {
-    case 8: return launch_link<8, W>(d, c, data, out, met, stream);
-    case 4: return launch_link<4, W>(d, c, data, out, met, stream);
-    case 2: return launch_link<2, W>(d, c, data, out, met, stream);
-    default: return launch_link<1, W>(d, c, data, out, met, stream);
+__global__ void __launch_bounds__(THREADS, 1) tx_stage(Dims d, Consts c, LinkIO io) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const TileIdx t(d.batch);
+  float* o = reinterpret_cast<float*>(smem);
+  gauss_tile<W, ROUNDED<W>>(smem, Act{io.data, 2 * d.n_data, d.n_data, d.n_data},
+                static_cast<const W*>(c.t_g), d.n, t.row0, t.rows, t.col0, o);
+  // core sample col sits at framed position cp + col: the payload window of
+  // the burst is core * win[cp:cp + N]
+  for_tile(t, d.n, [&](int r, int cc, int col) {
+    const float wv = c.win[d.cp_len + col];
+    float* f = io.f + static_cast<size_t>(t.row0 + r) * 2 * d.n;
+    f[col] = o[r * LDO + cc] * wv;
+    f[d.n + col] = o[(BM + r) * LDO + cc] * wv;
+  });
+  if (blockIdx.x == 0) {  // the framed burst's preamble window, one row a burst
+    for (int e = threadIdx.x; e < t.rows * 2 * d.half; e += THREADS) {
+      const int r = e / (2 * d.half), j = e - r * 2 * d.half, q = j / d.half;
+      io.pre[static_cast<size_t>(t.row0 + r) * 2 * d.half + j] =
+          c.pre[q * d.preamble_len + d.cp_len + j - q * d.half];
+    }
   }
 }
 
+template <typename W>
+__global__ void __launch_bounds__(THREADS, 1) est_zf_stage(Dims d, Consts c, LinkIO io) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const TileIdx t(d.batch);
+  float* chan = reinterpret_cast<float*>(smem + ring_bytes<W>());
+  float* o = reinterpret_cast<float*>(smem);
+  gauss_tile<W, ROUNDED<W>>(smem, preamble(d, io), static_cast<const W*>(c.e_g), d.n, t.row0,
+                            t.rows, t.col0, chan);
+  gauss_tile<W, ROUNDED<W>>(smem, Act{io.f, 2 * d.n, d.n, d.n}, static_cast<const W*>(c.f_g),
+                            d.n, t.row0, t.rows, t.col0, o);
+  for_tile(t, d.n, [&](int r, int cc, int col) {
+    const float hr = chan[r * LDO + cc], hi = chan[(BM + r) * LDO + cc];
+    const float xr = o[r * LDO + cc], xi = o[(BM + r) * LDO + cc];
+    // rounded as the plain version's separate products and sums (no FMA
+    // contraction), so that Y, rounded to bf16 by the demod with bf16
+    // stacks, matches it as closely as it can
+    const float den = fmaxf(__fadd_rn(__fmul_rn(hr, hr), __fmul_rn(hi, hi)), 1e-30f);
+    float* y = io.y + static_cast<size_t>(t.row0 + r) * 2 * d.n;
+    y[col] = __fadd_rn(__fmul_rn(xr, hr), __fmul_rn(xi, hi)) / den;
+    y[d.n + col] = __fsub_rn(__fmul_rn(xi, hr), __fmul_rn(xr, hi)) / den;
+  });
+}
+
+template <typename W>
+__global__ void __launch_bounds__(THREADS, 1) pre_dft_stage(Dims d, Consts c, LinkIO io) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const TileIdx t(d.batch);
+  float* o = reinterpret_cast<float*>(smem);
+  gauss_tile<W>(smem, preamble(d, io), static_cast<const W*>(c.f2_g), d.half, t.row0, t.rows,
+                t.col0, o);
+  for_tile(t, d.half, [&](int r, int cc, int col) {
+    const float yr = o[r * LDO + cc], yi = o[(BM + r) * LDO + cc];
+    io.pw[static_cast<size_t>(t.row0 + r) * d.half + col] = __fadd_rn(__fmul_rn(yr, yr), __fmul_rn(yi, yi));
+  });
+}
+
+// SNR / CNR of each burst from its preamble power: one warp a burst (index
+// sums in place of the selection matmul), met row [snr | cnrs | 0-pad]
+__global__ void __launch_bounds__(256) metrics_stage(Dims d, Consts c, LinkIO io) {
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.x * 8 + threadIdx.x / 32;
+  if (b >= d.batch) return;  // uniform over the warp
+  const float* x = io.pw + static_cast<size_t>(b) * d.half;
+  float sig = 0.f, noise = 0.f;
+  for (int j = lane; j < d.n_cnr; j += 32) {
+    sig += x[c.sig_idx[j]];
+    noise += x[c.noise_idx[j]];
+  }
+  sig = warp_sum(sig);
+  noise = warp_sum(noise);
+  const float snr = (sig - noise) / noise;
+  const float cscale = snr / (sig / static_cast<float>(d.n_cnr));
+  float* m = io.met + static_cast<size_t>(b) * d.met_w;
+  for (int j = lane; j < d.met_w; j += 32) {
+    m[j] = j == 0 ? snr : (j <= d.n_cnr ? x[c.sig_idx[j - 1]] * cscale : 0.f);
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(THREADS, 1) demod_stage(Dims d, Consts c, LinkIO io) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const TileIdx t(d.batch);
+  float* o = reinterpret_cast<float*>(smem);
+  gauss_tile<W>(smem, Act{io.y, 2 * d.n, d.n, d.n}, static_cast<const W*>(c.bfd_g), d.n,
+                t.row0, t.rows, t.col0, o);
+  const bool last = d.ic_iterations == 0;
+  for_tile(t, d.n, [&](int r, int cc, int col) {
+    const size_t row = t.row0 + r;
+    const float vr = o[r * LDO + cc], vi = o[(BM + r) * LDO + cc];
+    float* d0 = io.d0 + row * 2 * d.n;
+    d0[col] = vr;
+    d0[d.n + col] = vi;
+    decide_or_demap(d, c, io, io.f, last, row, col, vr, vi);
+  });
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    ic_matmul_stage(Dims d, Consts c, LinkIO io, const float* q_in, float* q_out, int last) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const TileIdx t(d.batch);
+  float* o = reinterpret_cast<float*>(smem);
+  // the tile of D0 arrives behind the ring while the product runs
+  float* sd0 = reinterpret_cast<float*>(smem + ring_bytes<bf16>());
+  const Act d0{io.d0, 2 * d.n, d.n, d.n};
+  const bool staged = d0.vec();
+  if (staged) {
+    load_rows<BN>(sd0, LDO, d0, t.row0, t.rows, t.col0, true);
+    cp_commit();
+  }
+  gauss_tile<bf16>(smem, Act{q_in, 2 * d.n, d.n, d.n}, reinterpret_cast<const bf16*>(c.icop), d.n,
+                   t.row0, t.rows, t.col0, o);
+  for_tile(t, d.n, [&](int r, int cc, int col) {
+    const size_t row = t.row0 + r;
+    const float* g = io.d0 + row * 2 * d.n;
+    const float dr = staged ? sd0[r * LDO + cc] : g[col];
+    const float di = staged ? sd0[(BM + r) * LDO + cc] : g[d.n + col];
+    decide_or_demap(d, c, io, q_out, last, row, col, dr - o[r * LDO + cc],
+                    di - o[(BM + r) * LDO + cc]);
+  });
+}
+
+// One burst a CTA: neighbour subcarriers k-1, k+1 (mod K), then the M-tap
+// circulant within the M-block (tap j multiplies timeslot (m - j) mod M).
+__global__ void __launch_bounds__(256)
+    ic_conv_stage(Dims d, Consts c, LinkIO io, const float* q_in, float* q_out, int last) {
+  extern __shared__ float sq[];  // the burst's decisions [re | im]
+  const int n = d.n, M = d.timeslots, K = d.subcarriers;
+  const size_t row = blockIdx.x;
+  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) sq[i] = q_in[row * 2 * n + i];
+  __syncthreads();
+  const float* d0 = io.d0 + row * 2 * n;
+  for (int col = threadIdx.x; col < n; col += blockDim.x) {
+    const int k = col / M, m = col - k * M;
+    const int lo = ((k + K - 1) % K) * M, hi = ((k + 1) % K) * M;
+    float ir = 0.f, ii = 0.f;
+    for (int j = 0; j < M; ++j) {
+      int mm = m - j;
+      if (mm < 0) mm += M;
+      const float sr = sq[lo + mm] + sq[hi + mm];
+      const float si = sq[n + lo + mm] + sq[n + hi + mm];
+      const float tr = c.taps[j], ti = c.taps[M + j];
+      ir = ir + tr * sr - ti * si;
+      ii = ii + tr * si + ti * sr;
+    }
+    decide_or_demap(d, c, io, q_out, last, row, col, d0[col] - ir, d0[n + col] - ii);
+  }
+}
+
+// x -> (hi, lo) as the 3xTF32 products split their operands
+__global__ void tf32_split_kernel(int n, const float* x, float* hi, float* lo) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const float2 s = tf32_split(x[i]);
+    hi[i] = s.x;
+    lo[i] = s.y;
+  }
+}
+
+template <typename... P, typename... A>
+int launch(void (*kernel)(P...), dim3 grid, int threads, size_t smem, cudaStream_t st,
+           A... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, threads, smem, st>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline int tiles(int n, int t) { return (n + t - 1) / t; }
+
+template <typename W>
+int product_stage(int stage, const Dims& d, const Consts& c, const LinkIO& io,
+                  cudaStream_t st) {
+  const dim3 grid(tiles(d.n, BN), tiles(d.batch, BM));
+  const size_t smem = ring_bytes<W>();
+  switch (stage) {
+    case TX:
+      return launch(tx_stage<W>, grid, THREADS, smem, st, d, c, io);
+    case EST_ZF:
+      return launch(est_zf_stage<W>, grid, THREADS, smem + OUT_BYTES, st, d, c, io);
+    case PRE_DFT:
+      return launch(pre_dft_stage<W>, dim3(tiles(d.half, BN), grid.y), THREADS, smem, st, d,
+                    c, io);
+    case DEMOD:
+      return launch(demod_stage<W>, grid, THREADS, smem, st, d, c, io);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int link_stage(const Dims& d, const Consts& c, const LinkIO& io, int stage, int it,
+               cudaStream_t st) {
+  if (tiles(d.batch, BM) > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (stage == METRICS) {
+    return launch(metrics_stage, dim3(tiles(d.batch, 8)), 256, 0, st, d, c, io);
+  }
+  if (stage == IC) {
+    if (it < 0 || it >= d.ic_iterations) return static_cast<int>(cudaErrorInvalidValue);
+    // decisions of the demod stage sit in F; each iteration reads the
+    // buffer the previous one wrote and writes the other
+    const float* q_in = it % 2 == 0 ? io.f : io.y;
+    float* q_out = it % 2 == 0 ? io.y : io.f;
+    const int last = it == d.ic_iterations - 1;
+    if (d.ic_mode == 1) {
+      return launch(ic_matmul_stage, dim3(tiles(d.n, BN), tiles(d.batch, BM)), THREADS,
+                    ring_bytes<bf16>() + OUT_BYTES, st, d, c, io, q_in, q_out, last);
+    }
+    return launch(ic_conv_stage, dim3(d.batch), 256, sizeof(float) * 2 * d.n, st, d, c, io,
+                  q_in, q_out, last);
+  }
+  return d.bf16 ? product_stage<bf16>(stage, d, c, io, st)
+                : product_stage<float>(stage, d, c, io, st);
+}
+
+}  // namespace lg
 }  // namespace gfdm
 
-// The receiver's tile (rx_tile_bursts); a config whose one-burst tile
-// exceeds shared memory runs the TB = 1 launch, which the runtime refuses.
-extern "C" int gfdm_link(const gfdm::Dims* d, const gfdm::Consts* c,
-                         const float* data, float* out, float* met,
-                         void* stream) {
+// One launch of stage `stage` (gfdm::lg::Stage; `it` the IC iteration) on
+// `stream`. The wrapper (kernels/fused.py::_link_single_cuda) runs stages
+// 0-4, then IC iterations 0 .. ic_iterations - 1, in order on one stream.
+extern "C" int gfdm_link_stage(const gfdm::Dims* d, const gfdm::Consts* c,
+                               const gfdm::lg::LinkIO* io, int stage, int it, void* stream) {
   if (d->batch <= 0) return 0;
-  return d->bf16 ? gfdm::launch_link_tile<uint16_t>(d, c, data, out, met, stream)
-                 : gfdm::launch_link_tile<float>(d, c, data, out, met, stream);
+  return gfdm::lg::link_stage(*d, *c, *io, stage, it, static_cast<cudaStream_t>(stream));
 }
+
+extern "C" int gfdm_tf32_split(int n, const float* x, float* hi, float* lo, void* stream) {
+  if (n <= 0) return 0;
+  gfdm::lg::tf32_split_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, x, hi, lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gfdm_link_io_size() { return static_cast<int>(sizeof(gfdm::lg::LinkIO)); }
 
 extern "C" const char* gfdm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Bursts a receiver / link CTA takes on the current device (0: none fits).
+// Bursts a receiver CTA takes on the current device (0: none fits).
 extern "C" int gfdm_rx_tile_bursts(const gfdm::Dims* d) {
   return gfdm::rx_tile_bursts(*d);
 }
 
-// Shared memory of the receiver / link launch: the chosen tile, or one
-// burst where none fits.
+// Shared memory of the receiver launch: the chosen tile, or one burst where
+// none fits.
 extern "C" size_t gfdm_rx_smem_bytes(const gfdm::Dims* d) {
   const int tb = gfdm::rx_tile_bursts(*d);
   return sizeof(float) * gfdm::rx_smem_floats(*d, tb > 0 ? tb : 1);

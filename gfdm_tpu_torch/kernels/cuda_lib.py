@@ -20,12 +20,12 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Dims", "Consts", "DetectDims", "FactoredDims", "FactoredConsts",
+__all__ = ["Dims", "Consts", "LinkIO", "DetectDims", "FactoredDims", "FactoredConsts",
            "FACTORED_KINDS", "library", "launch", "build_dir", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("tx.cu", "rx.cu", "link.cu", "detect.cu", "factored.cu", "chain.cu")
-HEADERS = ("gfdm_common.cuh",)
+HEADERS = ("gfdm_common.cuh", "link_gemm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,6 +51,15 @@ class Consts(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "t_g", "win", "pre", "shifts", "e_g", "f_g", "bfd_g", "f2_g", "act",
         "sig_idx", "noise_idx", "demap_idx", "taps", "icop", "cnri", "parts", "ifm",
+    )]
+
+
+class LinkIO(ctypes.Structure):
+    """Mirror of ``gfdm::lg::LinkIO`` in csrc/link_gemm.cuh: the link's
+    payload, outputs, intermediates and inverse demap (device pointers)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "data", "out", "met", "f", "y", "d0", "pw", "pre", "inv_demap",
     )]
 
 
@@ -162,7 +171,10 @@ def library() -> ctypes.CDLL:
     dims_p, consts_p, vp = ctypes.POINTER(Dims), ctypes.POINTER(Consts), ctypes.c_void_p
     lib.gfdm_tx.argtypes = [dims_p, consts_p, vp, vp, vp]
     lib.gfdm_rx.argtypes = [dims_p, consts_p, vp, vp, vp, vp, vp]
-    lib.gfdm_link.argtypes = [dims_p, consts_p, vp, vp, vp, vp]
+    ci, cf = ctypes.c_int, ctypes.c_float
+    lib.gfdm_link_stage.argtypes = [dims_p, consts_p, ctypes.POINTER(LinkIO), ci, ci, vp]
+    lib.gfdm_tf32_split.argtypes = [ci, vp, vp, vp, vp]
+    lib.gfdm_link_io_size.argtypes = []
     lib.gfdm_rx_variant.argtypes = [dims_p, consts_p, vp, vp, vp, vp, ctypes.c_int, vp]
     lib.gfdm_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     det_p = ctypes.POINTER(DetectDims)
@@ -175,10 +187,9 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [fdims_p, fconsts_p, vp, vp, vp, vp, vp]
     lib.gfdm_factored_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.gfdm_rx_tile_bursts.argtypes = [dims_p]
-    ci, cf = ctypes.c_int, ctypes.c_float
     lib.gfdm_chain.argtypes = [ci, ci, ci, vp, vp, vp, vp, cf, cf, cf, vp, vp, vp, vp]
-    for fn in (lib.gfdm_tx, lib.gfdm_rx, lib.gfdm_link, lib.gfdm_rx_variant,
-               lib.gfdm_struct_sizes,
+    for fn in (lib.gfdm_tx, lib.gfdm_rx, lib.gfdm_link_stage, lib.gfdm_tf32_split,
+               lib.gfdm_link_io_size, lib.gfdm_rx_variant, lib.gfdm_struct_sizes,
                lib.gfdm_detect_front, lib.gfdm_detect_lean,
                lib.gfdm_detect_dims_size, lib.gfdm_tx_factored,
                lib.gfdm_rx_factored, lib.gfdm_rx_factored_chan,
@@ -196,12 +207,13 @@ def library() -> ctypes.CDLL:
     lib.gfdm_struct_sizes(sizes)
     fsizes = (ctypes.c_int * 2)()
     lib.gfdm_factored_struct_sizes(fsizes)
-    c_sizes = (sizes[0], sizes[1], lib.gfdm_detect_dims_size(), fsizes[0], fsizes[1])
-    py_sizes = tuple(ctypes.sizeof(t) for t in (Dims, Consts, DetectDims, FactoredDims,
-                                                FactoredConsts))
+    c_sizes = (sizes[0], sizes[1], lib.gfdm_link_io_size(), lib.gfdm_detect_dims_size(),
+               fsizes[0], fsizes[1])
+    py_sizes = tuple(ctypes.sizeof(t) for t in (Dims, Consts, LinkIO, DetectDims,
+                                                FactoredDims, FactoredConsts))
     if c_sizes != py_sizes:
         raise RuntimeError(
-            f"kernel struct layout mismatch (Dims, Consts, DetectDims, FactoredDims, "
+            f"kernel struct layout mismatch (Dims, Consts, LinkIO, DetectDims, FactoredDims, "
             f"FactoredConsts): C {c_sizes} vs ctypes {py_sizes}"
         )
     _LIB = lib

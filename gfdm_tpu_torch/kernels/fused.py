@@ -10,8 +10,10 @@ plain torch version here that computes the same thing the same way:
   equalizer zf / mmse / mmse_cnr, QPSK / qam16 / qam64 IC decisions (the
   amplitude folded into the conv taps or the bf16 IC operator), both IC
   modes and the one-shot phase compensation;
-- ``_link_kernel`` -> ``link_kernel`` (csrc/link.cu), float32 or bfloat16
-  Gauss stacks;
+- ``_link_kernel`` -> the staged link (csrc/link.cu on the tensor-core
+  engine of csrc/link_gemm.cuh): one launch a stage, ``LINK_STAGES`` then
+  one an IC iteration; float32 stacks as 3xTF32 products, the IC operator
+  and bfloat16 stacks as bf16 products;
 - the superseded receivers ``_rx_core_kernel``, ``_rx_ic_kernel``,
   ``_rx_full_kernel`` and ``_rx_hybrid_kernel`` -> compile-time variants of
   one receiver template (``rx_variant_kernel``, csrc/rx.cu).
@@ -61,6 +63,8 @@ __all__ = [
     "receive_bursts_fused",
     "link_step_fused",
     "link_single_fused",
+    "link_launches",
+    "LINK_STAGES",
     "rx_core_fused",
     "rx_ic_fused",
     "rx_full_fused",
@@ -88,6 +92,38 @@ _EQUALIZERS = {"zf": 0, "mmse": 1, "mmse_cnr": 2}
 _DTYPES = ("float32", "bfloat16")
 # csrc/rx.cu::RxVariant of each superseded receiver
 _VARIANTS = {"rx_core": 0, "rx_ic": 0, "rx_full": 1, "rx_hybrid": 2}
+# the link's launches (csrc/link.cu gfdm::lg::Stage, in order): these five
+# once a call, then one an IC iteration in either IC mode
+LINK_STAGES = ("tx", "est_zf", "pre_dft", "metrics", "demod")
+_LINK_IC_STAGE = len(LINK_STAGES)
+# the link's dense operators: the largest float32 stack, F_G (3N, N), may
+# take 256 MiB (N = 4608, K = 512 at M = 9); beyond, link_step_factored
+_LINK_MAX_STACK_BYTES = 1 << 28
+
+
+def link_launches(ic_mode: str, ic_iterations: int) -> int:
+    """Kernel launches of one link_single_fused call on a CUDA tensor: one a
+    stage, then one an IC iteration (the matmul IC's product and the conv
+    IC's stencil alike)."""
+    _choice("ic_mode", ic_mode, _IC_MODES)
+    return len(LINK_STAGES) + int(ic_iterations)
+
+
+def _link_plan(ic_iterations: int):
+    """(stage name, csrc/link.cu stage number, IC iteration) of each launch."""
+    plan = [(name, i, 0) for i, name in enumerate(LINK_STAGES)]
+    return plan + [("ic", _LINK_IC_STAGE, it) for it in range(int(ic_iterations))]
+
+
+def _check_link_size(cfg: GfdmConfig) -> None:
+    """Refuse a config whose dense link operators are too large to build."""
+    n = cfg.block_len
+    nbytes = 3 * n * n * 4
+    if nbytes > _LINK_MAX_STACK_BYTES:
+        raise ValueError(
+            f"link_single_fused: N = {n} needs dense (3N, N) float32 operator stacks of "
+            f"{nbytes / 2**20:.0f} MiB each (limit {_LINK_MAX_STACK_BYTES / 2**20:.0f} MiB); "
+            "the large-K link is link_step_factored")
 
 
 def _choice(name: str, value, options) -> None:
@@ -248,6 +284,19 @@ def _gdot(xr, xi, g, n_in):
     return p1 - p2, p3 - p1 - p2
 
 
+def _gdot64(xr, xi, g, n_in):
+    """_gdot summed in float64 and rounded once to float32. With a bf16
+    stack every product is exact, so this is each output's float32 value as
+    near as float64 sums give it, whatever the order of the sums."""
+    if g.dtype == torch.bfloat16:
+        xr, xi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
+    s = (xr + xi).double()
+    xr, xi, g = xr.double(), xi.double(), g.double()
+    p1 = xr @ g[:n_in]
+    p2 = xi @ g[n_in : 2 * n_in]
+    return (p1 - p2).float(), (s @ g[2 * n_in :] - p1 - p2).float()
+
+
 def _conv_ic(qr, qi, taps, K, M):
     """Interference as neighbour-subcarrier sums and an M-tap circulant."""
     B = qr.shape[0]
@@ -297,7 +346,7 @@ def _phase_rotate(cfg: GfdmConfig, d0r, d0i, qr, qi, act):
     return cph * d0r - sph * d0i, sph * d0r + cph * d0i
 
 
-def _cancel_plain(cfg: GfdmConfig, act, d0r, d0i, opts: _RxOptions, ic_op):
+def _cancel_plain(cfg: GfdmConfig, act, d0r, d0i, opts: _RxOptions, ic_op, gdot=None):
     """Decision-directed IC: ic_iterations of d = d0 - interference(levels
     of d on the active symbols); the first iteration decides on d0 and, with
     phase compensation, rotates d0 before it subtracts."""
@@ -308,7 +357,7 @@ def _cancel_plain(cfg: GfdmConfig, act, d0r, d0i, opts: _RxOptions, ic_op):
         if it == 0 and opts.phase_compensation:
             d0r, d0i = _phase_rotate(cfg, d0r, d0i, qr, qi, act)
         if opts.ic_mode == "matmul":
-            ir, ii = _gdot(qr, qi, ic_op, cfg.block_len)
+            ir, ii = (gdot or _gdot)(qr, qi, ic_op, cfg.block_len)
         else:
             ir, ii = _conv_ic(qr, qi, ic_op, cfg.subcarriers, cfg.timeslots)
         dr = d0r - ir
@@ -322,11 +371,13 @@ def _zf(xr, xi, chr_, chi):
     return (xr * chr_ + xi * chi) / den, (xi * chr_ - xr * chi) / den, den
 
 
-def _rx_core_plain(cfg, k, stacks, pre_r, pre_i, fr_r, fr_i, opts: _RxOptions, ic_op):
+def _rx_core_plain(cfg, k, stacks, pre_r, pre_i, fr_r, fr_i, opts: _RxOptions, ic_op,
+                   gdot=None):
+    gdot = gdot or _gdot
     n, half = cfg.block_len, 2 * cfg.subcarriers
     n_cnr, met_w = _met_layout(cfg)
-    chr_, chi = _gdot(pre_r, pre_i, stacks["E_G"], half)
-    fr, fi = _gdot(pre_r, pre_i, stacks["F2_G"], half)
+    chr_, chi = gdot(pre_r, pre_i, stacks["E_G"], half)
+    fr, fi = gdot(pre_r, pre_i, stacks["F2_G"], half)
     p = fr * fr + fi * fi
     sig = p[:, k["sig_idx"]].sum(dim=1, keepdim=True)
     noise = p[:, k["noise_idx"]].sum(dim=1, keepdim=True)
@@ -336,7 +387,7 @@ def _rx_core_plain(cfg, k, stacks, pre_r, pre_i, fr_r, fr_i, opts: _RxOptions, i
     met[:, :1] = snr
     met[:, 1 : 1 + n_cnr] = cnr
 
-    xr, xi = _gdot(fr_r, fr_i, stacks["F_G"], n)
+    xr, xi = gdot(fr_r, fr_i, stacks["F_G"], n)
     yr, yi, den = _zf(xr, xi, chr_, chi)
     if opts.equalizer == "mmse":
         w = den / (den + 1.0 / torch.clamp(snr, min=1e-6))
@@ -345,21 +396,21 @@ def _rx_core_plain(cfg, k, stacks, pre_r, pre_i, fr_r, fr_i, opts: _RxOptions, i
         cb = torch.clamp(torch.clamp(cnr, min=0.0) @ k["CNRI_T"], min=1e-6)
         w = cb / (cb + 1.0)
         yr, yi = yr * w, yi * w
-    d0r, d0i = _gdot(yr, yi, stacks["Bfd_G"], n)
-    dr, di = _cancel_plain(cfg, k["act"], d0r, d0i, opts, ic_op)
+    d0r, d0i = gdot(yr, yi, stacks["Bfd_G"], n)
+    dr, di = _cancel_plain(cfg, k["act"], d0r, d0i, opts, ic_op, gdot)
     return chr_, chi, met, dr, di
 
 
 def _tx_frame_plain(cfg: GfdmConfig, data: torch.Tensor, shift_index: int = 0,
-                    dtype_name: str = "float32"):
+                    dtype_name: str = "float32", gdot=None):
     """(B, 2 n_data) payload rows -> (B, 2 frame_len) burst rows."""
     k = _kernel_consts(cfg, data.device)
     n, n_d = cfg.block_len, cfg.n_data_symbols
     cp, cs = cfg.cp_len, cfg.cs_len
     shift = int(cfg.cyclic_shifts[shift_index])
     pre = k["preambles"][shift_index]
-    core = _gdot(data[:, :n_d], data[:, n_d:], _stacks(cfg, data.device, dtype_name)["T_G"],
-                 n_d)
+    core = (gdot or _gdot)(data[:, :n_d], data[:, n_d:],
+                           _stacks(cfg, data.device, dtype_name)["T_G"], n_d)
     planes = []
     for p, c in enumerate(core):
         framed = torch.cat([c[:, n - cp - shift :], c, c[:, : cs - shift]], dim=1)
@@ -375,9 +426,10 @@ def _tx_cdd_plain(cfg: GfdmConfig, data: torch.Tensor):
 
 
 def _rx_receiver_plain(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: int,
-                       ic_mode: str, dtype_name: str = "float32", **options):
+                       ic_mode: str, dtype_name: str = "float32", gdot=None, **options):
     """(B, 2 frame_len) burst rows -> chan (B, 2N), symbols (B, 2N), met.
-    ``options``: constellation, equalizer, phase_compensation, qpsk_amp."""
+    ``options``: constellation, equalizer, phase_compensation, qpsk_amp;
+    ``gdot``: the Gauss product (default _gdot)."""
     opts = _rx_options(ic_iterations, ic_mode, **options)
     k = _kernel_consts(cfg, bursts.device)
     n, half, L = cfg.block_len, 2 * cfg.subcarriers, cfg.frame_len
@@ -386,19 +438,26 @@ def _rx_receiver_plain(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: int
         cfg, k, _stacks(cfg, bursts.device, dtype_name),
         bursts[:, cp : cp + half], bursts[:, L + cp : L + cp + half],
         bursts[:, fs : fs + n], bursts[:, L + fs : L + fs + n],
-        opts, _ic_operand(cfg, ic_mode, bursts.device, opts.amp),
+        opts, _ic_operand(cfg, ic_mode, bursts.device, opts.amp), gdot,
     )
     return torch.cat([chr_, chi], dim=1), torch.cat([dr, di], dim=1), met
 
 
 def _link_single_plain(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int,
                        ic_mode: str, constellation: str = "qpsk", qpsk_amp=None,
-                       dtype_name: str = "float32"):
-    """(B, 2 n_data) payload rows -> data estimate (B, 2 n_data), met."""
+                       dtype_name: str = "float32", sum64: bool = False):
+    """(B, 2 n_data) payload rows -> data estimate (B, 2 n_data), met.
+    ``sum64``: every Gauss product summed in float64 and rounded once
+    (_gdot64). With bf16 stacks the next product rounds its activations to
+    bf16, and float32 sums in two orders leave a few of them on either side
+    of a rounding boundary; the link kernels sum the products whose outputs
+    are rounded so (Tx, estimate) in float64, and are held to this."""
     k = _kernel_consts(cfg, data.device)
-    bursts = _tx_frame_plain(cfg, data, 0, dtype_name)
+    gdot = _gdot64 if sum64 else None
+    bursts = _tx_frame_plain(cfg, data, 0, dtype_name, gdot)
     _chan, sym, met = _rx_receiver_plain(cfg, bursts, ic_iterations, ic_mode, dtype_name,
-                                         constellation=constellation, qpsk_amp=qpsk_amp)
+                                         gdot, constellation=constellation,
+                                         qpsk_amp=qpsk_amp)
     n, idx = cfg.block_len, k["demap_idx"]
     return torch.cat([sym[:, :n][:, idx], sym[:, n:][:, idx]], dim=1), met
 
@@ -513,18 +572,113 @@ def _rx_receiver_cuda(cfg, bursts, opts: _RxOptions):
     return chan, sym, met
 
 
-def _link_single_cuda(cfg, data, opts: _RxOptions, dtype_name: str):
-    k = _kernel_consts(cfg, data.device)
-    B = data.shape[0]
-    kw = dict(dtype=torch.float32, device=data.device)
+def _inv_demap(cfg: GfdmConfig, device) -> torch.Tensor:
+    """(N,) int32: the payload index of each frame position, -1 elsewhere
+    (the link's last stage scatters through it in place of the gather)."""
+    def build():
+        idx = _small_consts(cfg, "float32")["demap_idx"]
+        inv = np.full(cfg.block_len, -1, dtype=np.int32)
+        inv[idx] = np.arange(idx.size, dtype=np.int32)
+        return _to_tensor(inv, device)
+
+    return _extra(cfg, device, "inv_demap", build)
+
+
+def _link_operands(cfg: GfdmConfig, device, opts: _RxOptions, dtype_name: str) -> dict:
+    """The link stages' constants (gfdm::Consts fields): the host's Gauss
+    stacks as built, unpadded (the kernels zero-fill ragged slabs), the
+    window, the shift-0 preamble and the receiver's small constants."""
+    k = _kernel_consts(cfg, device)
+    return dict(t_g=_stacks(cfg, device, dtype_name)["T_G"], win=k["win"],
+                pre=k["preambles"][0], **_rx_consts(cfg, device, opts, dtype_name))
+
+
+def _link_single_cuda(cfg, data, opts: _RxOptions, dtype_name: str, events=None,
+                      buffers=None):
+    """The link's stages on the current stream (csrc/link.cu). ``events``: a
+    list that takes a recorded CUDA event before each launch and after the
+    last (chip_smoke.py's per-stage times); ``buffers``: a dict that takes
+    the intermediates F, Y, D0 and each burst's preamble window P (with IC,
+    F and Y end holding decisions)."""
+    from .cuda_lib import LinkIO, launch
+
+    dev = data.device
+    B, n = data.shape[0], cfg.block_len
+    kw = dict(dtype=torch.float32, device=dev)
     out = torch.empty(B, 2 * cfg.n_data_symbols, **kw)
     met = torch.empty(B, _met_layout(cfg)[1], **kw)
-    consts = _consts(t_g=_stacks(cfg, data.device, dtype_name)["T_G"], win=k["win"],
-                     pre=k["preambles"][0], demap_idx=k["demap_idx"],
-                     **_rx_consts(cfg, data.device, opts, dtype_name))
-    _run("link", "link", _dims(cfg, B, opts, bf16=dtype_name == "bfloat16"), consts,
-         data.data_ptr(), out.data_ptr(), met.data_ptr(), device=data.device)
+    if B == 0:
+        return out, met
+    f, y, d0 = (torch.empty(B, 2 * n, **kw) for _ in range(3))
+    pw = torch.empty(B, 2 * cfg.subcarriers, **kw)
+    pre = torch.empty(B, 4 * cfg.subcarriers, **kw)
+    consts = _consts(**_link_operands(cfg, dev, opts, dtype_name))
+    io = LinkIO(data=data.data_ptr(), out=out.data_ptr(), met=met.data_ptr(),
+                f=f.data_ptr(), y=y.data_ptr(), d0=d0.data_ptr(), pw=pw.data_ptr(),
+                pre=pre.data_ptr(), inv_demap=_inv_demap(cfg, dev).data_ptr())
+    dims = _dims(cfg, B, opts, bf16=dtype_name == "bfloat16")
+
+    def record():
+        if events is not None:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+    for name, stage, it in _link_plan(opts.ic_iterations):
+        record()
+        launch("gfdm_link_stage",
+               (ctypes.byref(dims), ctypes.byref(consts), ctypes.byref(io), stage, it), dev,
+               hint=lambda lib, name=name, it=it: f" (link stage {name}, iteration {it})")
+        LAUNCHES["link"] += 1
+    record()
+    if buffers is not None:
+        buffers.update(f=f, y=y, d0=d0, pre=pre)
     return out, met
+
+
+def _link_stages(cfg: GfdmConfig, data: torch.Tensor, dtype_name: str = "float32") -> dict:
+    """The link kernels' product stages on the card beside the plain
+    version's same stages on the kernel's own inputs: {stage: (kernel
+    output, reference)} for "tx" (the payload block F), "est_zf" (the
+    equalized spectrum Y, from each burst's preamble window P) and "demod"
+    (D0). data: (B, 2 n_data) rows on the card."""
+    bufs = {}
+    _link_single_cuda(cfg, data, _rx_options(0, "matmul"), dtype_name, buffers=bufs)
+    n, nd, half, cp = cfg.block_len, cfg.n_data_symbols, 2 * cfg.subcarriers, cfg.cp_len
+    k, st = _kernel_consts(cfg, data.device), _stacks(cfg, data.device, dtype_name)
+    f, y = bufs["f"], bufs["y"]
+    win = k["win"][cp : cp + n].repeat(2)
+
+    def prod(x, g, n_in):
+        return torch.cat(_gdot(x[:, :n_in], x[:, n_in:], g, n_in), 1)
+
+    chan = prod(bufs["pre"], st["E_G"], half)
+    x = prod(f, st["F_G"], n)
+    yr, yi, _den = _zf(x[:, :n], x[:, n:], chan[:, :n], chan[:, n:])
+    return {"tx": (f, prod(data, st["T_G"], nd) * win),
+            "est_zf": (y, torch.cat([yr, yi], 1)),
+            "demod": (bufs["d0"], prod(y, st["Bfd_G"], n))}
+
+
+def _link_stage_errors(cfg: GfdmConfig, data: torch.Tensor, dtype_name: str = "float32"):
+    """Each product stage of the link kernels against the plain stage on
+    the kernel's own inputs, per burst, relative to the stage's largest
+    magnitude: on identical inputs no activation can round to bf16 on
+    another side, so this holds each stage's arithmetic apart from the
+    rest of the chain, whatever the stacks' type."""
+    return {name: (got - ref).abs().amax(dim=1) / ref.abs().max()
+            for name, (got, ref) in _link_stages(cfg, data, dtype_name).items()}
+
+
+def _tf32_split_cuda(x: torch.Tensor):
+    """The kernels' device split (csrc/link.cu tf32_split) of a float32
+    CUDA tensor: (hi, lo)."""
+    from .cuda_lib import launch
+
+    x = x.contiguous()
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    launch("gfdm_tf32_split", (x.numel(), x.data_ptr(), hi.data_ptr(), lo.data_ptr()),
+           x.device)
+    return hi, lo
 
 
 def _rx_variant_cuda(key: str, cfg, x, chan, ic_iterations: int, amp: float):
@@ -661,16 +815,22 @@ def link_step_fused(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 2)
 def link_single_fused(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 2,
                       qpsk_amp: float | None = None, dtype_name: str = "float32",
                       constellation: str = "qpsk", ic_mode: str = "conv"):
-    """One-kernel end-to-end link: payload -> Tx -> on-chip burst -> Rx -> data.
+    """End-to-end loopback link: payload -> Tx -> burst -> Rx -> data.
 
     data: (B, 2, n_data) planar payload. Returns (data_hat (B, 2, n_data),
-    snr_lin (B,), evm scalar) - the link_step_fused contract, with the burst
-    never leaving the chip. ``dtype_name="bfloat16"`` runs the five Gauss
-    products with bf16 stacks and bf16-rounded activations (float32
-    accumulation); ``constellation`` sets the IC decisions and amplitude.
+    snr_lin (B,), evm scalar) - the link_step_fused contract. On a CUDA
+    tensor it runs the staged tensor-core kernels of csrc/link.cu
+    (``link_launches(ic_mode, ic_iterations)`` launches); the framed burst
+    never leaves the device, its payload block goes straight to the
+    receiver. ``dtype_name="bfloat16"`` runs the five Gauss products with
+    bf16 stacks and bf16-rounded activations (float32 accumulation);
+    ``constellation`` sets the IC decisions and amplitude. A config whose
+    dense operators exceed 256 MiB a stack (K = 1024 at M = 9) raises
+    ValueError: it takes link_step_factored.
     """
     opts = _rx_options(ic_iterations, ic_mode, constellation, qpsk_amp=qpsk_amp)
     _choice("dtype_name", dtype_name, _DTYPES)
+    _check_link_size(cfg)
     cuda = _on_cuda(data, cfg.n_data_symbols, "link_single_fused")
     flat = data.reshape(data.shape[0], -1)
     if cuda:

@@ -17,7 +17,7 @@ from gfdm_tpu_torch.kernels import fused
 
 pytestmark = pytest.mark.gpu
 
-B = 1027  # not a multiple of the 8-burst tile: the last tile is masked
+B = 1027  # not a multiple of the receiver's 8-burst tile nor the link's 128: masked
 CONFIGS = {
     "canonical": GfdmConfig(),
     "k32m5": GfdmConfig(subcarriers=32, active_subcarriers=24, timeslots=5,
@@ -78,7 +78,7 @@ def test_link_kernel_matches_plain(ic_mode, name):
     data = _payload(cfg, 80, dev)
     before = fused.LAUNCHES["link"]
     d_hat, _snr, evm = fused.link_single_fused(cfg, data, ic_mode=ic_mode)
-    assert fused.LAUNCHES["link"] == before + 1
+    assert fused.LAUNCHES["link"] == before + fused.link_launches(ic_mode, 2)
     ref, _met = fused._link_single_plain(cfg, data.reshape(B, -1), 2, ic_mode)
     assert _max_err(d_hat, ref) < 1e-4
     assert 0.0 < float(evm) < 0.025
@@ -94,8 +94,9 @@ def _rx_tile_bursts(cfg, batch):
 
 @pytest.mark.parametrize("K,tile", [(128, 4), (256, 2)])
 def test_rx_and_link_kernels_at_large_n_match_plain(K, tile):
-    """N = 1152 and 2304 take a 4- and a 2-burst tile (the JAX package runs
-    its dense kernels there too); the ragged last tile is masked."""
+    """N = 1152 and 2304: the receiver takes a 4- and a 2-burst tile, the
+    link its 128-burst tiles (the JAX package runs its dense kernels there
+    too); the ragged last tile is masked."""
     from gfdm_tpu_torch.entry import large_k_config
 
     dev = _cuda()
@@ -109,7 +110,7 @@ def test_rx_and_link_kernels_at_large_n_match_plain(K, tile):
     chan, sym, _met = fused.rx_receiver_fused(cfg, bursts)
     d_hat, _snr, evm = fused.link_single_fused(cfg, data)
     assert fused.LAUNCHES["rx"] == before["rx"] + 1
-    assert fused.LAUNCHES["link"] == before["link"] + 1
+    assert fused.LAUNCHES["link"] == before["link"] + fused.link_launches("conv", 2)
     rchan, rsym, _rmet = fused._rx_receiver_plain(cfg, bursts.reshape(B, -1), 2, "conv")
     assert _max_err(chan, rchan) < 2e-4
     assert _max_err(sym, rsym) < 5e-4
@@ -119,9 +120,11 @@ def test_rx_and_link_kernels_at_large_n_match_plain(K, tile):
 
 
 def test_rx_and_link_kernels_refuse_k1024():
-    """N = 9216 needs ~314 KB of shared memory even for a one-burst tile:
-    the launch is refused and each wrapper raises, naming the bytes and the
-    factored receiver."""
+    """N = 9216: the receiver needs ~314 KB of shared memory even for a
+    one-burst tile, so its launch is refused and the wrapper raises, naming
+    the bytes and the factored receiver; the link's dense stacks would take
+    1 GB each, so its wrapper raises before building any, naming the
+    factored link."""
     from gfdm_tpu_torch.entry import large_k_config
 
     dev = _cuda()
@@ -131,8 +134,7 @@ def test_rx_and_link_kernels_refuse_k1024():
     with pytest.raises(RuntimeError, match="gfdm_rx kernel failed to launch.*"
                                            "314[0-9]{3} B.*rx_receiver_factored"):
         fused.rx_receiver_fused(cfg, torch.zeros(4, 2, cfg.frame_len, device=dev))
-    with pytest.raises(RuntimeError, match="gfdm_link kernel failed to launch.*"
-                                           "rx_receiver_factored"):
+    with pytest.raises(ValueError, match="link_single_fused: N = 9216.*link_step_factored"):
         fused.link_single_fused(cfg, torch.zeros(4, 2, cfg.n_data_symbols, device=dev))
     assert fused.LAUNCHES == before
 
@@ -373,20 +375,22 @@ def test_link_kernel_options_match_plain(name, dtype_name):
     """The link at qam16 / qam64 decisions, float32 or bf16 stacks. A burst
     whose last IC decisions (made after one iteration) differ between kernel
     and plain version is left out: qam64's clean loopback has decisions near
-    the level boundaries (at most 1% of the bursts), and with bf16 an
-    activation that float32 sums in another order leave on the other side of
-    a bf16 rounding boundary moves its burst by up to ~5e-3 (at most 2%)."""
+    the level boundaries (at most 1% of the bursts; 2% with bf16). With bf16
+    the plain version sums in float64 (sum64), as the kernels' Tx and
+    estimate stages do: float32 sums in another order would leave some
+    activations on the other side of a bf16 rounding boundary."""
     dev = _cuda()
     cfg = CONFIGS["canonical"]
     data = _qam_payload(cfg, name, 81, dev)
     kw = dict(constellation=name, dtype_name=dtype_name, ic_mode="matmul")
+    pkw = dict(dtype_name=dtype_name, sum64=dtype_name == "bfloat16")
     before = fused.LAUNCHES["link"]
     d_hat, _snr, evm = fused.link_single_fused(cfg, data, **kw)
-    assert fused.LAUNCHES["link"] == before + 1
+    assert fused.LAUNCHES["link"] == before + fused.link_launches("matmul", 2)
     flat = data.reshape(B, -1)
-    ref, _met = fused._link_single_plain(cfg, flat, 2, "matmul", name, dtype_name=dtype_name)
+    ref, _met = fused._link_single_plain(cfg, flat, 2, "matmul", name, **pkw)
     k = fused.link_single_fused(cfg, data, ic_iterations=1, **kw)[0].reshape(B, -1)
-    p = fused._link_single_plain(cfg, flat, 1, "matmul", name, dtype_name=dtype_name)[0]
+    p = fused._link_single_plain(cfg, flat, 1, "matmul", name, **pkw)[0]
     flipped = (fused._ic_level(k, name) != fused._ic_level(p, name)).any(dim=1)
     assert int(flipped.sum()) <= (0.01 if dtype_name == "float32" else 0.02) * B
     tol = 1e-4 if dtype_name == "float32" else 1e-2
@@ -394,6 +398,126 @@ def test_link_kernel_options_match_plain(name, dtype_name):
     assert float((d_hat.reshape(B, -1)[keep] - ref[keep]).abs().max()) < tol
     ref_evm = float(((ref - data.reshape(B, -1)) ** 2).sum() / (data**2).sum()) ** 0.5
     assert abs(float(evm) - ref_evm) < 1e-4
+
+
+def _link_vs_plain(cfg, data, ic_mode, dtype_name="float32", name="qpsk", ic_iterations=2):
+    """The link kernels against the plain version: launches, then the data
+    of the bursts whose last IC decisions agree (1e-4 float32, 1e-2 bf16;
+    at most max(1, 1% / 2%) of the bursts differ there, each a decision at
+    a level boundary), and the EVM within 1e-4. With bf16 stacks the plain
+    version sums in float64 (sum64), as the kernels' Tx and estimate stages
+    do, and each product stage is held to the plain stage on the kernel's
+    own inputs (1e-5 of its largest magnitude)."""
+    nb = data.shape[0]
+    kw = dict(constellation=name, dtype_name=dtype_name, ic_mode=ic_mode)
+    before = fused.LAUNCHES["link"]
+    d_hat, snr, evm = fused.link_single_fused(cfg, data, ic_iterations=ic_iterations, **kw)
+    assert fused.LAUNCHES["link"] == before + fused.link_launches(ic_mode, ic_iterations)
+    assert d_hat.shape == data.shape and snr.shape == (nb,)
+    flat = data.reshape(nb, -1)
+    bf16 = dtype_name == "bfloat16"
+    pkw = dict(dtype_name=dtype_name, sum64=bf16)
+    ref, _met = fused._link_single_plain(cfg, flat, ic_iterations, ic_mode, name, **pkw)
+    keep = torch.ones(nb, dtype=torch.bool, device=data.device)
+    if ic_iterations > 0:
+        it = ic_iterations - 1
+        k = fused.link_single_fused(cfg, data, ic_iterations=it, **kw)[0].reshape(nb, -1)
+        p = fused._link_single_plain(cfg, flat, it, ic_mode, name, **pkw)[0]
+        keep = ~(fused._ic_level(k, name) != fused._ic_level(p, name)).any(dim=1)
+    err = (d_hat.reshape(nb, -1) - ref).abs().amax(dim=1)
+    if bf16:
+        for stage, e in fused._link_stage_errors(cfg, flat, dtype_name).items():
+            assert float(e.max()) < 1e-5, (stage, float(e.max()))
+    share = 0.02 if bf16 else 0.01
+    assert int((~keep).sum()) <= max(1.0, share * nb)
+    assert float(err[keep].max()) < (1e-2 if bf16 else 1e-4), float(err[keep].max())
+    ref_evm = float(((ref - flat) ** 2).sum() / (flat**2).sum()) ** 0.5
+    assert abs(float(evm) - ref_evm) < 1e-4
+    return float(evm)
+
+
+@pytest.mark.parametrize("name", ["qam16", "qam64"])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ic_mode", ["conv", "matmul"])
+@pytest.mark.parametrize("batch", [80, 130, 4099])
+def test_link_kernel_ragged_batches_match_plain(batch, ic_mode, dtype_name, name):
+    """Batches that are not a multiple of the 128-burst tile (80: one partial
+    tile; 130; 4,099): the rows past the batch are zero-filled and never
+    written."""
+    dev = _cuda()
+    cfg = CONFIGS["canonical"]
+    from gfdm_tpu_torch.ops.rx import constellation_points
+
+    pts = constellation_points(name)
+    idx = np.random.default_rng(batch).integers(0, pts.size, (batch, cfg.n_data_symbols))
+    sym = np.stack([pts[idx].real, pts[idx].imag], 1).astype(np.float32)
+    _link_vs_plain(cfg, torch.from_numpy(sym).to(dev), ic_mode, dtype_name, name)
+
+
+@pytest.mark.parametrize("ic_iterations", [0, 1, 2])
+@pytest.mark.parametrize("ic_mode", ["conv", "matmul"])
+def test_link_kernel_ic_iterations_match_plain(ic_mode, ic_iterations):
+    """0 iterations: the demod stage writes the output (EVM at the MF
+    floor, ~0.203); 1 and 2: the IC stages ping-pong their decisions and
+    the last one demaps."""
+    dev = _cuda()
+    cfg = CONFIGS["canonical"]
+    evm = _link_vs_plain(cfg, _payload(cfg, 82, dev), ic_mode, ic_iterations=ic_iterations)
+    assert 0.0 < evm < (0.025 if ic_iterations else 0.25)
+
+
+@pytest.mark.parametrize("ic_mode", ["conv", "matmul"])
+def test_link_kernel_at_k512_matches_plain(ic_mode):
+    """K = 512 (N = 4608), the largest config the link takes; 130 bursts."""
+    from gfdm_tpu_torch.entry import large_k_config
+
+    dev = _cuda()
+    cfg = large_k_config(512)
+    data = torch.from_numpy(planar_payload(cfg, 130, 92)).to(dev)
+    evm = _link_vs_plain(cfg, data, ic_mode)
+    assert 0.0 < evm < 0.025
+
+
+def test_link_bf16_rounded_stages_are_the_float64_sums():
+    """With bf16 stacks the Tx stage's F and the estimate stage's Y, which
+    the next stages round to bf16, are the plain stages summed in float64
+    (_gdot64) on the kernel's own inputs, rounded once: they round to bf16
+    alike, but for ties of float64 sums (at most 1e-5 of the elements)."""
+    dev = _cuda()
+    cfg = CONFIGS["canonical"]
+    data = _payload(cfg, 83, dev).reshape(B, -1)
+    bufs = {}
+    fused._link_single_cuda(cfg, data, fused._rx_options(0, "matmul"), "bfloat16", buffers=bufs)
+    n, nd, half, cp = cfg.block_len, cfg.n_data_symbols, 2 * cfg.subcarriers, cfg.cp_len
+    k, st = fused._kernel_consts(cfg, dev), fused._stacks(cfg, dev, "bfloat16")
+
+    def prod(x, g, n_in):
+        return torch.cat(fused._gdot64(x[:, :n_in], x[:, n_in:], g, n_in), 1)
+
+    f = prod(data, st["T_G"], nd) * k["win"][cp : cp + n].repeat(2)
+    chan, x = prod(bufs["pre"], st["E_G"], half), prod(bufs["f"], st["F_G"], n)
+    y = torch.cat(fused._zf(x[:, :n], x[:, n:], chan[:, :n], chan[:, n:])[:2], 1)
+    for got, want in ((bufs["f"], f), (bufs["y"], y)):
+        flips = (got.bfloat16() != want.bfloat16()).float().mean()
+        assert float(flips) <= 1e-5
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_tf32_split_kernel_matches_emulation():
+    """The kernels' operand split (cvt.rna) equals the CPU emulation bit for
+    bit, and hi + lo recovers x to 2^-22 relative (float64)."""
+    from tf32_emulation import tf32_split
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal(1 << 16) * 10.0 ** rng.uniform(-30, 30, 1 << 16)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    hi, lo = fused._tf32_split_cuda(xt.to(dev))
+    eh, el = tf32_split(xt)
+    assert torch.equal(hi.cpu(), eh) and torch.equal(lo.cpu(), el)
+    x64 = xt.double()
+    rel = ((hi.cpu().double() + lo.cpu().double() - x64).abs() / x64.abs()).max()
+    assert float(rel) <= 2.0**-22
 
 
 @pytest.mark.parametrize("shifts", [(0, 2), (0, 3, 7)])
