@@ -9,16 +9,17 @@ Phases, one line each (any failure exits non-zero and prints no result):
 1. device  - requires CUDA; prints the card's name and power limit.
 2. build   - compiles the CUDA kernels of gfdm_tpu_torch/csrc with nvcc.
 3. check   - each kernel against its plain torch version on the same CUDA
-             inputs: the Tx at a ragged batch and shifts (0, 4), the
-             receiver on noisy bursts (AWGN 20 dB) and the one-kernel link,
-             both IC modes; both detection kernels on the service's 4,096
-             friendly chunks and on 37 chunks of a T that is not 128-aligned.
+             inputs: the Tx at a ragged batch and shifts (0, 4), the staged
+             receiver on noisy bursts (AWGN 20 dB) and the staged link,
+             both IC modes, at the full batch and a ragged one (4,099); both
+             detection kernels on the service's 4,096 friendly chunks and on
+             37 chunks of a T that is not 128-aligned.
 4. main    - the entry step (link_single_fused, matmul IC) and
-             link_step_fused (Tx kernel -> receiver kernel) at full batch,
-             with the launch counters reset just before; EVM against the
-             plain versions and the planar torch-op link.
+             link_step_fused (Tx kernel -> the receiver's stages) at full
+             batch, with the launch counters reset just before; EVM against
+             the plain versions and the planar torch-op link.
 5. time    - each link kernel and its plain version, CUDA events after
-             warm-up.
+             warm-up; the link's and the receiver's time a stage.
 6. service - StreamingReceiver(engine="fused") on the synthetic service
              streams (entry.service_stream, seed 0): friendly (20 dB AWGN,
              one burst a chunk, k = 1) under DETECT_IMPL "pallas2" (lean
@@ -28,17 +29,20 @@ Phases, one line each (any failure exits non-zero and prints no result):
              runs once under torch's sync debug mode, which fails on any
              host sync inside it; then once with the launch counters reset
              just before, through StreamingReceiver.step: found fraction,
-             device-step samples/s (CUDA events), launches, and on the
+             device-step samples/s (CUDA events), the device's busy time a
+             step and the receiver's part of it (torch.profiler), launches,
+             and on the
              friendly stream the EVM of the found slots against the sent
-             payload; then the detection kernels' times and one serve()
+             payload; then the detection kernels' times, the receiver's
+             time a stage at the service's 4,096 slots, and one serve()
              loop (batch 256, super-batch 1,024, pipeline depth 2).
 7. large K - the factored kernels (entry.large_k_config, the crossover
              study's M = 9 configs): at K = 512, B = 4,096 the Tx kernel and
              the receiver kernel with the channel read (estimator="fast"), at
              K = 128, B = 4,096 the receiver kernel with its own dense
              estimator, each against its plain version on noisy bursts
-             (AWGN 20 dB); the dense receiver and link kernels at K = 128
-             (their 4-burst tile). Then, with the launch counters reset just
+             (AWGN 20 dB); the staged dense receiver and link at K = 128,
+             256 and 512 (128-burst tiles). Then, with the launch counters reset just
              before, the large-K link link_step_factored (Tx kernel ->
              torch-op estimate -> receiver kernel -> demap) at K = 512,
              B = 4,096 and the estimator="fused" link at K = 128: hard
@@ -48,7 +52,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
              K = 256, 512 (B = 4,096) and 1,024 (B = 2,048), and the
              estimator="fused" receiver kernel at K = 128.
 
-8. options - the receiver kernel against its plain version at B = 16,384
+8. options - the receiver's stages against their plain version (summed in
+             float64, as the stages sum) at B = 16,384
              noisy bursts for each option combination the JAX package's
              tests cover: (mmse, qpsk), (mmse_cnr, qpsk), (mmse_cnr, qam16),
              (mmse, qam64), phase compensation on a 0.1 rad rotation of the
@@ -56,7 +61,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
              decisions differ between kernel and plain version (a decision
              within float rounding of a level boundary; found by running
              both at 0 and 1 IC iterations) are counted and left out of the
-             max-abs check. The link kernel at qam16, qam64 and bf16 stacks.
+             max-abs check; beside that count, the same count against the
+             float32 plain version (printed, no limit); the receiver's
+             launches (the phase stage included) and each product stage
+             against the plain stage on its own inputs under each equalizer.
+             The link kernel at qam16,
+             qam64 and bf16 stacks.
              Then, with the launch counters reset just before, the service
              (fused engine vs the torch-op xla engine) on 4,096-chunk qam16
              (mmse_cnr, 30 dB) and qam64 (mmse, 36 dB) streams.
@@ -81,9 +91,13 @@ Phases, one line each (any failure exits non-zero and prints no result):
 Then a JSON line of per-kernel results (launches on the main paths, error
 against the plain version, kernel, plain and library ms, the bound: the
 larger of the operations over the card's peak for their type - 67 TFLOP/s
-of fp32 FMA, 989 TFLOP/s of dense bf16, 1,979 TOP/s of dense int8 - and the
-bytes, each input read once and each output written once, over 3.35 TB/s,
-at the timed shapes), the card line, and as the last line
+of fp32 FMA, 495 TFLOP/s of dense TF32 (three products a float32-stack
+product in the staged link and receiver), 67 TFLOP/s of FP64 tensor cores
+(the bf16 link's float64 sums; the receiver's beside its bound), 989
+TFLOP/s of dense bf16, 1,979 TOP/s of dense
+int8 - and the bytes, each input read once and each output
+written once, over 3.35 TB/s, at the timed shapes), the card line, and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -142,8 +156,8 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 FMA (no TF32), HBM3
 PEAK_TF32, PEAK_BF16, PEAK_FP64_TC = 495e12, 989e12, 67e12
 # the chain modes' operations run at their own dense peaks (H100 SXM)
 PEAK_OPS = {"chain_bf16": PEAK_BF16, "chain_int8": 1979e12}
-N_RAGGED_LINK = 4099  # phase 3: not a multiple of the link's 128-burst tile
-LINK_K = (128, 256, 512)  # phase 7: the dense link at larger K, B = B_LARGE_K
+N_RAGGED_LINK = 4099  # phase 3: not a multiple of the stages' 128-burst tile
+LINK_K = (128, 256, 512)  # phase 7: the dense receiver and link at larger K, B = B_LARGE_K
 N_CHUNKS = 4096  # service batch: 8.4 M owned samples a step
 CHUNK_LEN = 2048
 N_RAGGED, RAGGED_TRIM = 37, 5  # chunks of T - 5 samples: not 128-aligned
@@ -152,7 +166,7 @@ SOURCES = {
            "gfdm_tpu/kernels/fused.py:1662"),
     "tx_cdd": ("tx_cdd_fused", "gfdm_tpu_torch/csrc/tx.cu",
                "gfdm_tpu/kernels/fused.py:1709"),
-    "rx": ("rx_receiver_fused", "gfdm_tpu_torch/csrc/rx.cu",
+    "rx": ("rx_receiver_fused", "gfdm_tpu_torch/csrc/link.cu",
            "gfdm_tpu/kernels/fused.py:343"),
     "link": ("link_single_fused", "gfdm_tpu_torch/csrc/link.cu",
              "gfdm_tpu/kernels/fused.py:1403"),
@@ -231,6 +245,30 @@ def _timed(torch, fn_k, fn_p):
     return (k1 + k2) / 2, (p1 + p2) / 2, f"{k1:.3f}/{k2:.3f}", f"{p1:.3f}/{p2:.3f}"
 
 
+def _device_busy(torch, fn, calls: int = 3):
+    """(device busy ms a call of ``fn``, the part of it in the staged
+    receiver's kernels): torch.profiler's device time of every kernel over
+    ``calls`` calls after a warm-up; None where the profiler records no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy = rx = 0.0
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        busy += us
+        if "gfdm::lg::" in ev.key:
+            rx += us
+    if busy == 0.0:
+        return None
+    return busy / 1e3 / calls, rx / 1e3 / calls
+
+
 def _noisy(torch, bursts, seed: int, snr_db: float = 20.0):
     """bursts + AWGN at snr_db (noise drawn with numpy from ``seed``)."""
     sig_pow = float((bursts**2).sum(dim=1).mean())  # mean |x|^2 per sample
@@ -307,7 +345,7 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
 
     Returns the detection kernels' launch counts from their main-path runs
     and their (kernel, plain) times at the service's shapes."""
-    from gfdm_tpu_torch.kernels import detect
+    from gfdm_tpu_torch.kernels import detect, fused
     from gfdm_tpu_torch.ops import planar_pipeline as pp
     from gfdm_tpu_torch.runtime.service import ServiceStats, StreamingReceiver
 
@@ -342,6 +380,7 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
         host_s = time.perf_counter() - t0
         run = _launches()
         ms = _time_ms(torch, lambda: rx._step(dev_chunks))
+        busy = _device_busy(torch, lambda: rx._step(dev_chunks))
         found = float(out["found"].sum()) / float(counts.sum())
         fmask = out["found"]
         shapes = out["data"].shape == (N_CHUNKS * k, 2, cfg.n_data_symbols)
@@ -352,6 +391,9 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
             if run[key] < 1:
                 failures.append(f"kernel {key} was not launched on the service path "
                                 f"({stream_name}, {impl})")
+        if run["rx"] != fused.rx_launches(2):
+            failures.append(f"service[{stream_name},{impl}]: {run['rx']} receiver launches "
+                            f"a step, expected {fused.rx_launches(2)} (one receiver call)")
         if impl not in kernel_of and (run["detect_front"] or run["detect_lean"]):
             failures.append(f"twostage launched a detection kernel: {run}")
         evm = float("nan")
@@ -364,8 +406,11 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
         print(f"[6 service] {stream_name} k={k} DETECT_IMPL={impl}: found="
               f"{int(out['found'].sum())}/{int(counts.sum())}={found:.6f} "
               + (f"evm_found={evm:.6f} " if stream_name == "friendly" else "")
-              + f"step {ms:.3f} ms = {samples / (ms / 1e3):.4e} samples/s "
-              f"(host step incl. copies {host_s * 1e3:.1f} ms) launches="
+              + f"device step {ms:.3f} ms = {samples / (ms / 1e3):.4e} samples/s "
+              + ("device busy not measured " if busy is None else
+                 f"device busy {busy[0]:.3f} ms (receiver {busy[1]:.3f} ms, idle "
+                 f"{1 - busy[0] / ms:.1%}) ")
+              + f"(host step incl. copies {host_s * 1e3:.1f} ms) launches="
               f"{{detect_front: {run['detect_front']}, detect_lean: "
               f"{run['detect_lean']}, rx: {run['rx']}}} ({N_CHUNKS} chunks x "
               f"{CHUNK_LEN}, {card})", flush=True)
@@ -443,13 +488,11 @@ def _large_k_phase(torch, dev, card, check, failures):
     """Phase 7: the factored kernels and the large-K link.
 
     Returns the factored kernels' launch counts from the main-path run,
-    their max errors against the plain versions, the dense receiver and
-    link kernels' errors at K = 128, and (kernel, plain) times at the
+    their max errors against the plain versions, the dense receiver's and
+    link's errors at K = 128-512, and (kernel, plain) times at the
     full-width points."""
-    import ctypes
-
     from gfdm_tpu_torch.entry import large_k_config, planar_payload
-    from gfdm_tpu_torch.kernels import cuda_lib, fused
+    from gfdm_tpu_torch.kernels import fused
     from gfdm_tpu_torch.ops.planar_pipeline import evm, link_step_planar
 
     batch = {K_ESTIMATOR: B_LARGE_K, **dict(LARGE_K)}
@@ -479,29 +522,21 @@ def _large_k_phase(torch, dev, card, check, failures):
         ]), flush=True)
         del bursts, noisy, chan, sym, rchan, rsym
 
-    # 7a. the dense receiver and link kernels at K = 128, where they take a
-    # tile of fewer bursts than the canonical 8
-    cfg, data = cfgs[K_ESTIMATOR], payload[K_ESTIMATOR]
-    B128 = batch[K_ESTIMATOR]
-    tile = cuda_lib.library().gfdm_rx_tile_bursts(ctypes.byref(fused._dims(cfg, B128)))
-    noisy = _noisy(torch, fused.tx_frame_fused(cfg, data), 3).reshape(B128, -1)
-    chan, sym, _met = fused.rx_receiver_fused(cfg, noisy.reshape(B128, 2, -1))
-    rchan, rsym, _rmet = fused._rx_receiver_plain(cfg, noisy, 2, "conv")
-    d_hat, _snr, _evm = fused.link_single_fused(cfg, data)
-    ref, _met = fused._link_single_plain(cfg, data.reshape(B128, -1), 2, "conv")
-    ec = _max_abs(chan.reshape(B128, -1), rchan)
-    es = _max_abs(sym.reshape(B128, -1), rsym)
-    err["rx"], err["link"] = max(ec, es), _max_abs(d_hat.reshape(B128, -1), ref)
-    print(f"[7 check] dense kernels at K={K_ESTIMATOR} B={B128}: tile={tile} bursts "
-          + " ".join([check("tile!=4", float(tile != 4), 0.0),
-                      check("rx:chan", ec, TOL["chan"]),
-                      check("rx:symbols", es, TOL["symbols"]),
-                      check("link:data", err["link"], TOL["data"])]), flush=True)
-    del noisy, chan, sym, rchan, rsym, d_hat, ref
-
-    # 7a. the staged link kernels at K = 128, 256 and 512 (N = 1152 .. 4608)
+    # 7a. the staged dense receiver and link at K = 128, 256 and 512
+    # (N = 1152 .. 4608), in their 128-burst tiles
     for K in LINK_K:
-        parts = []
+        Bk = batch[K]
+        noisy = _noisy(torch, fused.tx_frame_fused(cfgs[K], payload[K]), K + 1).contiguous()
+        before = fused.LAUNCHES["rx"]
+        chan, sym, _met = fused.rx_receiver_fused(cfgs[K], noisy)
+        n_launch = fused.LAUNCHES["rx"] - before
+        rchan, rsym, _rmet = fused._rx_receiver_plain(cfgs[K], noisy.reshape(Bk, -1), 2, "conv")
+        ec = _max_abs(chan.reshape(Bk, -1), rchan)
+        es = _max_abs(sym.reshape(Bk, -1), rsym)
+        err["rx"] = max(err["rx"], ec, es)
+        parts = [check("rx:chan", ec, TOL["chan"]), check("rx:symbols", es, TOL["symbols"]),
+                 check("rx:launches!=plan", float(n_launch != fused.rx_launches(2)), 0.0)]
+        del noisy, chan, sym, rchan, rsym
         for mode in ("conv", "matmul"):
             d_hat, _snr, evm_k = fused.link_single_fused(cfgs[K], payload[K], ic_mode=mode)
             ref, _met = fused._link_single_plain(cfgs[K], payload[K].reshape(batch[K], -1), 2,
@@ -513,8 +548,8 @@ def _large_k_phase(torch, dev, card, check, failures):
                       check("|d_evm|", abs(float(evm_k) - evm_p), TOL["evm"]),
                       check("evm", float(evm_k), TOL["evm_max"])]
             del d_hat, ref
-        print(f"[7 check] dense link kernels at K={K} B={batch[K]} " + " ".join(parts),
-              flush=True)
+        print(f"[7 check] dense receiver and link at K={K} B={Bk} (128-burst tiles) "
+              + " ".join(parts), flush=True)
 
     # 7b. the large-K link through the user's entry points, launches counted
     _reset_launches()
@@ -589,26 +624,34 @@ def _large_k_phase(torch, dev, card, check, failures):
     return launches, err, times
 
 
-def _link_stage_times(torch, cfg, flat, card, reps: int = 3) -> None:
+def _stage_ms(run, plan, reps: int = 3) -> tuple[list, list]:
+    """(stage names, device ms of each launch) of ``run(events)``, which
+    records a CUDA event before each launch of ``plan`` and after the last:
+    the mean of ``reps`` calls after a warm-up."""
+    run(None)
+    ms = [0.0] * len(plan)
+    for _ in range(reps):
+        ev = []
+        run(ev)
+        ev[-1].synchronize()
+        for i in range(len(plan)):
+            ms[i] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return [name if name != "ic" else f"ic{it}" for name, _s, it in plan], ms
+
+
+def _link_stage_times(torch, cfg, flat, card) -> None:
     """Phase 5: the link's device time a stage (CUDA events around each
-    launch, mean of ``reps`` calls after a warm-up) at the main path's batch,
-    both IC modes and both stack dtypes, and what an IC iteration costs."""
+    launch) at the main path's batch, both IC modes and both stack dtypes,
+    and what an IC iteration costs."""
     from gfdm_tpu_torch.kernels import fused
 
     ic = {}
     for dtype_name in ("float32", "bfloat16"):
         for mode in ("matmul", "conv"):
             opts = fused._rx_options(2, mode)
-            plan = fused._link_plan(opts.ic_iterations)
-            names = [name if name != "ic" else f"ic{it}" for name, _s, it in plan]
-            fused._link_single_cuda(cfg, flat, opts, dtype_name)
-            ms = [0.0] * len(plan)
-            for _ in range(reps):
-                ev = []
-                fused._link_single_cuda(cfg, flat, opts, dtype_name, events=ev)
-                ev[-1].synchronize()
-                for i in range(len(plan)):
-                    ms[i] += ev[i].elapsed_time(ev[i + 1]) / reps
+            names, ms = _stage_ms(
+                lambda ev: fused._link_single_cuda(cfg, flat, opts, dtype_name, events=ev),
+                fused._link_plan(opts.ic_iterations))
             ic[(mode, dtype_name)] = sum(ms[len(fused.LINK_STAGES):]) / opts.ic_iterations
             print(f"[5 stages] link[{mode},{dtype_name}] B={flat.shape[0]}: "
                   + " ".join(f"{n} {t:.3f}" for n, t in zip(names, ms))
@@ -618,6 +661,53 @@ def _link_stage_times(torch, cfg, flat, card, reps: int = 3) -> None:
               f"{ic[('matmul', dtype_name)]:.3f} ms (bf16 operator on tensor cores), conv "
               f"{ic[('conv', dtype_name)]:.3f} ms (M-tap stencil); entry() runs matmul "
               f"({card})", flush=True)
+
+
+def _rx_stage_times(cfg, flat, card, phase: str) -> None:
+    """The receiver's device time a stage (CUDA events around each launch)
+    on the burst rows ``flat``, both IC modes and, with the conv IC, the
+    phase stage."""
+    from gfdm_tpu_torch.kernels import fused
+
+    for mode, comp in (("conv", False), ("matmul", False), ("conv", True)):
+        opts = fused._rx_options(2, mode, phase_compensation=comp)
+        names, ms = _stage_ms(lambda ev: fused._rx_receiver_cuda(cfg, flat, opts, events=ev),
+                              fused._rx_plan(opts.ic_iterations, comp))
+        label = mode + (",phase" if comp else "")
+        print(f"[{phase} stages] rx[{label}] B={flat.shape[0]}: "
+              + " ".join(f"{n} {t:.3f}" for n, t in zip(names, ms))
+              + f" = {sum(ms):.3f} ms ({card})", flush=True)
+
+
+def _rx_bound(cfg, batch: int, ic_mode: str = "conv",
+              fp64: bool = False) -> tuple[float, str, float]:
+    """The staged receiver's bound, stated as the link's: its four
+    float32-stack Gauss products (estimate, preamble DFT, block DFT, demod)
+    as three TF32 products each at 495 TFLOP/s (the card's fastest
+    float32-accurate products; ``fp64``: at the FP64 tensor cores' 67
+    TFLOP/s, where the kernel sums them), the bf16 IC operator at 989
+    TFLOP/s or the conv IC's taps at the fp32 FMA rate, against its bytes
+    (bursts in, channel, symbols and metrics out, constants once). Returns
+    (bound ms, what bounds it, ms of the design's intermediates: Y, D0, the
+    decisions and the preamble power, each written once and read by each
+    stage that takes it)."""
+    from gfdm_tpu_torch.kernels import fused
+
+    n, half, M, fl = cfg.block_len, 2 * cfg.subcarriers, cfg.timeslots, cfg.frame_len
+    met_w, it = fused._met_layout(cfg)[1], 2
+    stacks = 6.0 * batch * (half * n + half * half + 2 * n * n)
+    t_ops = stacks / PEAK_FP64_TC if fp64 else 3 * stacks / PEAK_TF32
+    if ic_mode == "matmul":
+        t_ops += it * 6.0 * batch * n * n / PEAK_BF16
+        ic_bytes = 2 * 3 * n * n
+    else:
+        t_ops += it * 8.0 * batch * M * n / PEAK_FLOPS
+        ic_bytes = 4 * 2 * M
+    wbytes = 4 * 3 * (half * n + half * half + 2 * n * n)
+    t_bytes = (4.0 * batch * (2 * fl + 4 * n + met_w) + wbytes + ic_bytes) / PEAK_BYTES
+    inter = 4.0 * batch * (2 * 2 * n + (1 + it) * 2 * n + 2 * it * 2 * n + 2 * half)
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * inter / PEAK_BYTES)
 
 
 def _link_bound(cfg, batch: int, ic_mode: str = "matmul",
@@ -804,6 +894,7 @@ def _options_phase(torch, cfg, dev, card, check, failures):
     act = fused._kernel_consts(cfg, dev)["act"]
     act2 = torch.cat([act, act])
     err = {"rx": 0.0, "link": 0.0}
+    staged = {}
     cases = (("mmse", "qpsk", False, "conv"), ("mmse_cnr", "qpsk", False, "conv"),
              ("mmse_cnr", "qam16", False, "conv"), ("mmse", "qam64", False, "conv"),
              ("zf", "qpsk", True, "conv"), ("zf", "qam16", False, "matmul"))
@@ -815,28 +906,47 @@ def _options_phase(torch, cfg, dev, card, check, failures):
         noisy = _noisy(torch, bursts, 90 + ci).contiguous()
         flat = noisy.reshape(Bo, -1)
         kw = dict(constellation=name, equalizer=eq, phase_compensation=phase)
+        before = fused.LAUNCHES["rx"]
         chan, sym, met = fused.rx_receiver_fused(cfg, noisy, ic_mode=mode, **kw)
-        rchan, rsym, rmet = fused._rx_receiver_plain(cfg, flat, 2, mode, **kw)
+        n_launch = fused.LAUNCHES["rx"] - before
+        # the plain version summed in float64, as the kernels sum their
+        # float32-stack products
+        rchan, rsym, rmet = fused._rx_receiver_plain(cfg, flat, 2, mode, gdot=fused._gdot64,
+                                                     **kw)
         # bursts whose decisions of iteration 0 or 1 differ
         runs = [(fused.rx_receiver_fused(cfg, noisy, ic_iterations=it, ic_mode=mode,
                                          **kw)[1].reshape(Bo, -1),
-                 fused._rx_receiver_plain(cfg, flat, it, mode, **kw)[1]) for it in (0, 1)]
+                 fused._rx_receiver_plain(cfg, flat, it, mode, gdot=fused._gdot64, **kw)[1])
+                for it in (0, 1)]
         differ, explained = _flipped_bursts(runs, name, TOL["boundary"], act2, phase)
-        del runs
+        # beside it, the same count against the float32 plain version, which
+        # sums at float32 level in cuBLAS's order (no limit: ~1e-3 of noisy
+        # qam64 bursts, tests/test_torch_rx_tc.py)
+        runs32 = [(k, fused._rx_receiver_plain(cfg, flat, it, mode, **kw)[1])
+                  for it, (k, _p) in enumerate(runs)]
+        differ32, explained32 = _flipped_bursts(runs32, name, TOL["boundary"], act2, phase)
+        del runs, runs32
         keep = ~differ
-        n_ex = int(differ.sum())
-        if not explained:
+        n_ex, n_ex32 = int(differ.sum()), int(differ32.sum())
+        if not (explained and explained32):
             failures.append(f"rx[{eq},{name}]: a decision differs away from a boundary")
         ec = _max_abs(chan.reshape(Bo, -1), rchan)
         es = _max_abs(sym.reshape(Bo, -1)[keep], rsym[keep])
         err["rx"] = max(err["rx"], ec, es)
         label = f"{eq},{name}" + (",phase 0.1 rad" if phase else "") + f",{mode}"
-        print(f"[8 check] rx[{label}] B={Bo} excluded={n_ex} " + " ".join([
+        print(f"[8 check] rx[{label}] B={Bo} vs plain(sum64) excluded={n_ex} " + " ".join([
             check("excluded_share", n_ex / Bo, TOL["excluded_share"]),
             check("chan", ec, TOL["chan"]),
             check("symbols", es, TOL["symbols"]),
             check("snr_rel", _max_rel(met[:, 0], rmet[:, 0]), TOL["snr_rtol"]),
-        ]), flush=True)
+            check("launches-plan", abs(n_launch - fused.rx_launches(2, phase)), 0.0),
+        ]) + f" launches={n_launch}; vs plain(f32) excluded={n_ex32} "
+            f"share={n_ex32 / Bo:.3e} at_boundary={explained32}", flush=True)
+        if eq not in staged:  # the product stages on the kernel's own inputs
+            staged[eq] = max(float(v.max()) for v in fused._rx_stage_errors(cfg, flat, eq)
+                             .values())
+            print(f"[8 check] rx stages[{eq}] on their own inputs "
+                  + check("stages", staged[eq], TOL["stages"]), flush=True)
         if phase:  # the correction must matter: off, the symbols stay rotated
             idx = fused._kernel_consts(cfg, dev)["demap_idx"]
             e = {}
@@ -1231,21 +1341,32 @@ def main() -> int:
 
     noisy = _noisy(torch, bursts, 1)
     noisy_flat = noisy.reshape(B, -1)
+    sent = noisy.clone()
+    n_cnr = fused._met_layout(cfg)[0]
     for mode in ("conv", "matmul"):
-        chan, sym, met = fused.rx_receiver_fused(cfg, noisy, ic_mode=mode)
-        rchan, rsym, rmet = fused._rx_receiver_plain(cfg, noisy_flat, 2, mode)
-        n_cnr = fused._met_layout(cfg)[0]
-        ec, es = _max_abs(chan.reshape(B, -1), rchan), _max_abs(sym.reshape(B, -1), rsym)
-        err["rx"] = max(err["rx"], ec, es)
-        print(f"[3 check] rx[{mode}] " + " ".join([
-            check("chan", ec, TOL["chan"]),
-            check("symbols", es, TOL["symbols"]),
-            check("snr_rel", _max_rel(met[:, 0], rmet[:, 0]), TOL["snr_rtol"]),
-            check("cnr_rel", _max_rel(met[:, 1 : 1 + n_cnr], rmet[:, 1 : 1 + n_cnr]),
-                  TOL["cnr_rtol"]),
-            check("pad", float(met[:, 1 + n_cnr :].abs().max()), 0.0),
-        ]), flush=True)
-        del chan, sym, met, rchan, rsym, rmet
+        parts = []
+        for nb in (B, N_RAGGED_LINK):
+            before = fused.LAUNCHES["rx"]
+            chan, sym, met = fused.rx_receiver_fused(cfg, noisy[:nb], ic_mode=mode)
+            n_launch = fused.LAUNCHES["rx"] - before
+            rchan, rsym, rmet = fused._rx_receiver_plain(cfg, noisy_flat[:nb], 2, mode)
+            ec = _max_abs(chan.reshape(nb, -1), rchan)
+            es = _max_abs(sym.reshape(nb, -1), rsym)
+            err["rx"] = max(err["rx"], ec, es)
+            parts += [
+                check(f"chan[B={nb}]", ec, TOL["chan"]),
+                check(f"symbols[B={nb}]", es, TOL["symbols"]),
+                check("snr_rel", _max_rel(met[:, 0], rmet[:, 0]), TOL["snr_rtol"]),
+                check("cnr_rel", _max_rel(met[:, 1 : 1 + n_cnr], rmet[:, 1 : 1 + n_cnr]),
+                      TOL["cnr_rtol"]),
+                check("pad", float(met[:, 1 + n_cnr :].abs().max()), 0.0),
+                check("launches!=plan", float(n_launch != fused.rx_launches(2)), 0.0),
+            ]
+            del chan, sym, met, rchan, rsym, rmet
+        print(f"[3 check] rx[{mode}] " + " ".join(parts), flush=True)
+    if not torch.equal(noisy, sent):
+        failures.append("rx_receiver_fused wrote into its bursts")
+    del sent
     ragged = data[:N_RAGGED_LINK]
     for mode in ("conv", "matmul"):
         d_hat, _snr, _evm = fused.link_single_fused(cfg, data, ic_mode=mode)
@@ -1307,6 +1428,9 @@ def main() -> int:
     if launches["link"] != fused.link_launches("matmul", 2):
         failures.append(f"link: {launches['link']} launches on the main path, expected "
                         f"{fused.link_launches('matmul', 2)} (one a stage)")
+    if launches["rx"] != fused.rx_launches(2):
+        failures.append(f"rx: {launches['rx']} launches on the main path, expected "
+                        f"{fused.rx_launches(2)} (one a stage)")
     print(f"[4 main] B={B} ({B * cfg.frame_len / 1e6:.1f} M samples/step) "
           f"launches={launches} host {host_s * 1e3:.1f} ms | "
           + " ".join([
@@ -1346,10 +1470,13 @@ def main() -> int:
         print(f"[5 time] {name}: kernel {ks} ms, plain {ps} ms, kernel {rate:.4e} "
               f"samples/s (B={B}, {card})", flush=True)
     _link_stage_times(torch, cfg, flat, card)
+    _rx_stage_times(cfg, noisy_flat, card, "5")
 
-    # 6. the streaming receive service
+    # 6. the streaming receive service; the receiver's stages at its 4,096
+    # slots (the friendly stream's)
     svc_launches, det_times = _service_phase(torch, cfg, dev, streams, card,
                                              check, failures)
+    _rx_stage_times(cfg, noisy_flat[:N_CHUNKS], card, "6")
     launches.update(svc_launches)
     times.update(det_times)
 
@@ -1402,6 +1529,15 @@ def main() -> int:
         kcfg, kb, kw = shapes[key]
         bound_ms, bound_by = _bound(key, kcfg, kb, **kw)
         extra, note = {}, ""
+        if key == "rx":  # restated as the link's; fp32 FMA and FP64 beside it
+            extra["fma_bound_ms"] = bound_ms
+            bound_ms, bound_by, inter_ms = _rx_bound(kcfg, kb)
+            mm_ms, mm_by, _ = _rx_bound(kcfg, kb, "matmul")
+            f64_ms = _rx_bound(kcfg, kb, fp64=True)[0]
+            note = (f" (conv IC); fp32 FMA bound {extra['fma_bound_ms']:.3f} ms; FP64 tensor "
+                    f"cores {f64_ms:.3f} ms; the design's intermediates {inter_ms:.3f} ms; "
+                    f"matmul IC {mm_ms:.3f} ms ({mm_by}) against rx_matmul "
+                    f"{times['rx_matmul'][0]:.3f} ms = {mm_ms / times['rx_matmul'][0]:.1%}")
         if key == "link":  # tensor-core bound; the fp32 FMA one as PRs 1-6 gave it
             extra["fma_bound_ms"] = bound_ms
             bound_ms, bound_by, inter_ms = _link_bound(kcfg, kb, **kw)

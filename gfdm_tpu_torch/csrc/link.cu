@@ -1,26 +1,19 @@
-// The GFDM loopback link for Hopper (sm_90a), as staged tensor-core products.
+// The GFDM loopback link and the dense receiver for Hopper (sm_90a), as
+// staged tensor-core products.
 //
-// Replaces the Pallas kernel gfdm_tpu/kernels/fused.py::_link_kernel (:1403;
-// wrapper link_single_fused): payload (B, 2 n_data) -> the transmitter at
-// cyclic shift 0 -> the receiver on the framed burst (channel estimate,
-// SNR/CNR metrics, N-point DFT, ZF with |C|^2 clamped at 1e-30, FD demod,
-// ic_iterations of decision-directed IC with QPSK, qam16 or qam64 decisions,
-// either IC mode) -> demap -> data estimate (B, 2 n_data) and metrics
-// (B, met_w). Every burst's estimate and metrics come from its own preamble
-// window. EVM is reduced outside.
+// Two launch plans over one set of stage kernels (gfdm_link_stage):
 //
-// The TPU kernel keeps a block of bursts and every operator stack in VMEM
-// for the whole chain. On Hopper that design (the previous link kernel here)
-// fits 8 bursts in a CTA's shared memory, streams all 16 MB of operator
-// stacks from L2 for every 8 bursts (~133 GB of L2 reads a step at
-// B = 65,536), issues scalar loads and FMAs (6 global + 16 shared loads per
-// 48 FMAs) with no copy overlap, and never touches the tensor cores: 18% of
-// its fp32 FMA bound. This design lets the intermediates go through device
-// memory instead, one launch a stage (gfdm_link_stage):
+// The link replaces the Pallas kernel gfdm_tpu/kernels/fused.py::
+// _link_kernel (:1403; wrapper link_single_fused): payload (B, 2 n_data) ->
+// the transmitter at cyclic shift 0 -> the receiver on the framed burst
+// (channel estimate, SNR/CNR metrics, N-point DFT, ZF with |C|^2 clamped at
+// 1e-30, FD demod, ic_iterations of decision-directed IC with QPSK, qam16
+// or qam64 decisions, either IC mode) -> demap -> data estimate
+// (B, 2 n_data) and metrics (B, met_w). Stages, in order:
 //   0 tx      F  = (payload @ T_G) * win[cp + col], and P, the framed
 //             burst's preamble window (columns cp .. cp + 2K of each plane)
 //   1 est_zf  C  = P @ E_G (parked in shared memory), X = F @ F_G,
-//             Y  = ZF(X, C); C never reaches memory
+//             Y  = ZF(X, C) times the equalizer's weight
 //   2 pre_dft pw = |P @ F2_G|^2
 //   3 metrics met rows from pw's signal and noise bins
 //   4 demod   D0 = Y @ Bfd_G; then Q = level(D0) * act, or (no IC) the
@@ -30,34 +23,60 @@
 //             then the next Q, or the last iteration's demapped output
 // P is a (B, 4K) buffer like F: each burst's estimate and metrics read its
 // own row, as the TPU kernel reads each burst's own window. Q ping-pongs
-// through F and Y, which are dead by then. Each product stage is
-// the engine of link_gemm.cuh: 128-burst x 64-column tiles, column tile
-// fastest in the grid (the tiles of one burst tile run together and share
-// its activation rows in L2), operator and activation slabs staged by
-// cp.async in a two-slot ring, so each operator is read once per 128
-// bursts (~8 GB of L2 reads a step), products on tensor cores: 3xTF32 for
-// the float32 stacks, bf16 for the IC operator and, with dtype
-// "bfloat16" (Dims::bf16), for all five stacks, the Tx and estimate
-// stages' exact bf16 products summed in float64 (ROUNDED below).
+// through F and Y, which are dead by then.
 //
-// Bound (H100 SXM, B = 65,536, canonical config): 4.02e11 float32-stack
-// operations x 3 TF32 products at 495 TFLOP/s plus 2.61e11 IC operations
-// at 989 TFLOP/s: 2.70 ms, operation-bound; the design's intermediates
-// (F, P, Y, D0, Q, pw, each written once and read by each stage that takes
-// it: ~55 KB a burst, 3.6 GB) take 1.07 ms at 3.35 TB/s. With bf16 stacks
-// the Tx and estimate products take 4.0 ms at the FP64 tensor cores' 67
-// TFLOP/s, the rest (preamble DFT, demod, IC) 0.4 ms: 4.4 ms,
-// operation-bound. What bounds the
-// kernels instead (PERF.md §6): one CTA of 8 warps an SM, so a float32
-// slab's 3xTF32 splits, fragment loads and dependent mma.sync chains run
-// with little latency hidden, and a bf16 slab waits on its copies with one
-// slab in flight.
+// The dense receiver replaces the Pallas kernel _rx_ic_circ_kernel (:343;
+// wrappers rx_receiver_fused, receive_bursts_fused) with every option:
+// bursts (B, 2 frame_len) -> channel (B, 2N), symbols (B, 2N) and metrics
+// (B, met_w). Its stages read the caller's bursts in place: P and F are
+// Acts into each burst row (the preamble window at cp, the payload block
+// at preamble_len + cp, plane pitch frame_len), never copied and never
+// written. Plan: pre_dft, metrics, est_zf (which reads the metrics for the
+// mmse / mmse_cnr weight and writes the channel), demod, 6 phase (with
+// phase_comp and IC: the one-shot common-phase correction of D0, one warp a
+// burst), then one IC launch an iteration. Q has its own buffer and
+// ping-pongs with Y; the last stage writes the symbols whole (no demap).
+// Its float32-stack products sum in float64 on the FP64 tensor cores
+// (Dims::sum64; float32 operands multiply exactly there) and round once:
+// with 3xTF32 float32-level sums in another order than the plain
+// version's, 24 of 16,384 noisy qam64 bursts (1.5e-3) took an IC decision
+// on the other side of a level boundary; so it matches the plain version
+// summed in float64 decision for decision.
+//
+// Each product stage is the engine of link_gemm.cuh: 128-burst x 64-column
+// tiles, column tile fastest in the grid (the tiles of one burst tile run
+// together and share its activation rows in L2), operator and activation
+// slabs staged by cp.async in a two-slot ring, so each operator is read
+// once per 128 bursts (~8 GB of L2 reads a step at B = 65,536), products on
+// tensor cores: 3xTF32 for the float32 stacks, bf16 for the IC operator
+// and, with the link's dtype "bfloat16" (Dims::bf16), for all five stacks,
+// the Tx and estimate stages' exact bf16 products summed in float64
+// (ROUNDED below). Any batch, ragged too, at any N whose stacks fit.
+//
+// Bound (H100 SXM, B = 65,536, canonical config): the link 4.02e11
+// float32-stack operations x 3 TF32 products at 495 TFLOP/s plus 2.61e11 IC
+// operations at 989 TFLOP/s: 2.70 ms, operation-bound; the design's
+// intermediates (F, P, Y, D0, Q, pw, each written once and read by each
+// stage that takes it: ~55 KB a burst, 3.6 GB) take 1.07 ms at 3.35 TB/s.
+// With bf16 stacks the Tx and estimate products take 4.0 ms at the FP64
+// tensor cores' 67 TFLOP/s, the rest (preamble DFT, demod, IC) 0.4 ms:
+// 4.4 ms, operation-bound. The receiver, bounded as the link: 2.96e11
+// float32-stack operations x 3 TF32 products at 495 TFLOP/s, 1.88 ms with
+// the conv IC and 2.06 with the matmul IC, operation-bound (at the FP64
+// tensor cores' 67 TFLOP/s, where it sums them, 4.50 / 4.69 ms); its bursts
+// in and channel, symbols
+// and metrics out 0.31 ms, its intermediates (Y, D0, Q, pw) ~0.8 ms. What
+// bounds the kernels instead
+// (PERF.md §6): one CTA of 8 warps an SM, so a float32 slab's 3xTF32
+// splits, fragment loads and dependent mma.sync chains run with little
+// latency hidden, and a bf16 slab waits on its copies with one slab in
+// flight.
 #include "link_gemm.cuh"
 
 namespace gfdm {
 namespace lg {
 
-enum Stage { TX = 0, EST_ZF = 1, PRE_DFT = 2, METRICS = 3, DEMOD = 4, IC = 5 };
+enum Stage { TX = 0, EST_ZF = 1, PRE_DFT = 2, METRICS = 3, DEMOD = 4, IC = 5, PHASE = 6 };
 
 // With bf16 stacks the next stage rounds F and Y to bf16, so a float32 sum
 // in any order but the reference's own puts a few activations on the other
@@ -84,17 +103,21 @@ __device__ __forceinline__ void for_tile(const TileIdx& t, int n_out, F f) {
   }
 }
 
-// the preamble window P: each burst's own row [re | im], 2K samples a plane
-__device__ __forceinline__ Act preamble(const Dims& d, const LinkIO& io) {
-  return Act{io.pre, 2 * d.half, d.half, d.half};
+// The first IC decisions' buffer: the receiver's own Q, else the link's F.
+__host__ __device__ __forceinline__ float* first_q(const LinkIO& io) {
+  return io.q != nullptr ? io.q : io.f;
 }
 
 // after D (vr, vi) at frame column col of burst row: the next IC decisions
-// Q = level(D) * act, or (last) the demapped output
+// Q = level(D) * act, or (last) the demapped output, or the symbols
 __device__ __forceinline__ void decide_or_demap(const Dims& d, const Consts& c,
                                                 const LinkIO& io, float* q_out, bool last,
                                                 size_t row, int col, float vr, float vi) {
-  if (last) {
+  if (last && io.inv_demap == nullptr) {
+    float* s = io.sym + row * 2 * d.n;
+    s[col] = vr;
+    s[d.n + col] = vi;
+  } else if (last) {
     const int t = io.inv_demap[col];
     if (t >= 0) {
       float* o = io.out + row * 2 * d.n_data;
@@ -107,6 +130,24 @@ __device__ __forceinline__ void decide_or_demap(const Dims& d, const Consts& c,
     q[col] = ic_level(vr, d.dec_kind) * a;
     q[d.n + col] = ic_level(vi, d.dec_kind) * a;
   }
+}
+
+// The equalizer's weight of bin col of burst row after ZF (den = |C|^2
+// clamped), from the burst's metrics row [snr | cnrs]:
+//   zf:       1
+//   mmse:     den / (den + 1 / max(snr, 1e-6))
+//   mmse_cnr: cb / (cb + 1), cb = max(sum_j max(cnr_j, 0) cnri[j, col], 1e-6)
+__device__ __forceinline__ float eq_weight(const Dims& d, const Consts& c, const LinkIO& io,
+                                           size_t row, int col, float den) {
+  const float* m = io.met + row * d.met_w;
+  if (d.equalizer == 1) return den / (den + 1.f / fmaxf(m[0], 1e-6f));
+  if (d.equalizer != 2) return 1.f;
+  float cb = 0.f;
+  for (int j = 0; j < d.n_cnr; ++j) {
+    cb = fmaf(fmaxf(m[1 + j], 0.f), __ldg(c.cnri + static_cast<size_t>(j) * d.n + col), cb);
+  }
+  cb = fmaxf(cb, 1e-6f);
+  return cb / (cb + 1.f);
 }
 
 template <typename W>
@@ -133,36 +174,43 @@ __global__ void __launch_bounds__(THREADS, 1) tx_stage(Dims d, Consts c, LinkIO 
   }
 }
 
-template <typename W>
+template <typename W, bool S64>
 __global__ void __launch_bounds__(THREADS, 1) est_zf_stage(Dims d, Consts c, LinkIO io) {
   extern __shared__ __align__(128) unsigned char smem[];
   const TileIdx t(d.batch);
   float* chan = reinterpret_cast<float*>(smem + ring_bytes<W>());
   float* o = reinterpret_cast<float*>(smem);
-  gauss_tile<W, ROUNDED<W>>(smem, preamble(d, io), static_cast<const W*>(c.e_g), d.n, t.row0,
-                            t.rows, t.col0, chan);
-  gauss_tile<W, ROUNDED<W>>(smem, Act{io.f, 2 * d.n, d.n, d.n}, static_cast<const W*>(c.f_g),
-                            d.n, t.row0, t.rows, t.col0, o);
+  gauss_tile<W, ROUNDED<W> || S64>(smem, io.p_in, static_cast<const W*>(c.e_g), d.n, t.row0,
+                                   t.rows, t.col0, chan);
+  gauss_tile<W, ROUNDED<W> || S64>(smem, io.f_in, static_cast<const W*>(c.f_g), d.n, t.row0,
+                                   t.rows, t.col0, o);
   for_tile(t, d.n, [&](int r, int cc, int col) {
+    const size_t row = t.row0 + r;
     const float hr = chan[r * LDO + cc], hi = chan[(BM + r) * LDO + cc];
     const float xr = o[r * LDO + cc], xi = o[(BM + r) * LDO + cc];
     // rounded as the plain version's separate products and sums (no FMA
     // contraction), so that Y, rounded to bf16 by the demod with bf16
     // stacks, matches it as closely as it can
     const float den = fmaxf(__fadd_rn(__fmul_rn(hr, hr), __fmul_rn(hi, hi)), 1e-30f);
-    float* y = io.y + static_cast<size_t>(t.row0 + r) * 2 * d.n;
-    y[col] = __fadd_rn(__fmul_rn(xr, hr), __fmul_rn(xi, hi)) / den;
-    y[d.n + col] = __fsub_rn(__fmul_rn(xi, hr), __fmul_rn(xr, hi)) / den;
+    const float w = eq_weight(d, c, io, row, col, den);
+    float* y = io.y + row * 2 * d.n;
+    y[col] = __fadd_rn(__fmul_rn(xr, hr), __fmul_rn(xi, hi)) / den * w;
+    y[d.n + col] = __fsub_rn(__fmul_rn(xi, hr), __fmul_rn(xr, hi)) / den * w;
+    if (io.chan != nullptr) {
+      float* h = io.chan + row * 2 * d.n;
+      h[col] = hr;
+      h[d.n + col] = hi;
+    }
   });
 }
 
-template <typename W>
+template <typename W, bool S64>
 __global__ void __launch_bounds__(THREADS, 1) pre_dft_stage(Dims d, Consts c, LinkIO io) {
   extern __shared__ __align__(128) unsigned char smem[];
   const TileIdx t(d.batch);
   float* o = reinterpret_cast<float*>(smem);
-  gauss_tile<W>(smem, preamble(d, io), static_cast<const W*>(c.f2_g), d.half, t.row0, t.rows,
-                t.col0, o);
+  gauss_tile<W, S64>(smem, io.p_in, static_cast<const W*>(c.f2_g), d.half, t.row0, t.rows, t.col0,
+                o);
   for_tile(t, d.half, [&](int r, int cc, int col) {
     const float yr = o[r * LDO + cc], yi = o[(BM + r) * LDO + cc];
     io.pw[static_cast<size_t>(t.row0 + r) * d.half + col] = __fadd_rn(__fmul_rn(yr, yr), __fmul_rn(yi, yi));
@@ -191,12 +239,12 @@ __global__ void __launch_bounds__(256) metrics_stage(Dims d, Consts c, LinkIO io
   }
 }
 
-template <typename W>
+template <typename W, bool S64>
 __global__ void __launch_bounds__(THREADS, 1) demod_stage(Dims d, Consts c, LinkIO io) {
   extern __shared__ __align__(128) unsigned char smem[];
   const TileIdx t(d.batch);
   float* o = reinterpret_cast<float*>(smem);
-  gauss_tile<W>(smem, Act{io.y, 2 * d.n, d.n, d.n}, static_cast<const W*>(c.bfd_g), d.n,
+  gauss_tile<W, S64>(smem, Act{io.y, 2 * d.n, d.n, d.n}, static_cast<const W*>(c.bfd_g), d.n,
                 t.row0, t.rows, t.col0, o);
   const bool last = d.ic_iterations == 0;
   for_tile(t, d.n, [&](int r, int cc, int col) {
@@ -205,8 +253,45 @@ __global__ void __launch_bounds__(THREADS, 1) demod_stage(Dims d, Consts c, Link
     float* d0 = io.d0 + row * 2 * d.n;
     d0[col] = vr;
     d0[d.n + col] = vi;
-    decide_or_demap(d, c, io, io.f, last, row, col, vr, vi);
+    decide_or_demap(d, c, io, first_q(io), last, row, col, vr, vi);
   });
+}
+
+// One-shot common-phase correction of D0 from the decisions Q on the
+// unrotated D0 (advanced_receiver_kernel_cc.cc:56-91, JAX fused.py:428-448):
+// one warp a burst. phi = the mean over the active symbols of the A&S 4.4.49
+// arctan of clip(Im / max(Re, 1e-20), -1, 1) of q conj(d0), then D0 rotated
+// by phi in place with Taylor cos / sin. The polynomials are the JAX
+// kernel's, not atanf / sincosf, so the kernel and its plain version agree
+// to float rounding.
+__global__ void __launch_bounds__(256) phase_stage(Dims d, Consts c, LinkIO io,
+                                                   const float* q) {
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.x * 8 + threadIdx.x / 32;
+  if (b >= d.batch) return;  // uniform over the warp
+  const int n = d.n;
+  const float* qb = q + static_cast<size_t>(b) * 2 * n;
+  float* d0 = io.d0 + static_cast<size_t>(b) * 2 * n;
+  float part = 0.f;
+  for (int col = lane; col < n; col += 32) {
+    const float qr = qb[col], qi = qb[n + col];
+    const float dr = d0[col], di = d0[n + col];
+    const float re = qr * dr + qi * di;
+    const float im = qi * dr - qr * di;
+    const float u = fminf(fmaxf(im / fmaxf(re, 1e-20f), -1.f), 1.f);
+    const float u2 = u * u;
+    const float delta = u * (0.9998660f + u2 * (-0.3302995f + u2 * (0.1801410f
+                            + u2 * (-0.0851330f + 0.0208351f * u2))));
+    part += delta * c.act[col];
+  }
+  const float p = warp_sum(part) / static_cast<float>(d.n_act), p2 = p * p;
+  const float cph = 1.f - p2 * (0.5f - p2 * (1.f / 24.f - p2 / 720.f));
+  const float sph = p * (1.f - p2 * (1.f / 6.f - p2 * (1.f / 120.f - p2 / 5040.f)));
+  for (int col = lane; col < n; col += 32) {
+    const float dr = d0[col], di = d0[n + col];
+    d0[col] = cph * dr - sph * di;
+    d0[n + col] = sph * dr + cph * di;
+  }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -285,7 +370,8 @@ int launch(void (*kernel)(P...), dim3 grid, int threads, size_t smem, cudaStream
 
 inline int tiles(int n, int t) { return (n + t - 1) / t; }
 
-template <typename W>
+// S64: the dense receiver's float32 stacks, every product summed in float64
+template <typename W, bool S64 = false>
 int product_stage(int stage, const Dims& d, const Consts& c, const LinkIO& io,
                   cudaStream_t st) {
   const dim3 grid(tiles(d.n, BN), tiles(d.batch, BM));
@@ -294,12 +380,12 @@ int product_stage(int stage, const Dims& d, const Consts& c, const LinkIO& io,
     case TX:
       return launch(tx_stage<W>, grid, THREADS, smem, st, d, c, io);
     case EST_ZF:
-      return launch(est_zf_stage<W>, grid, THREADS, smem + OUT_BYTES, st, d, c, io);
+      return launch(est_zf_stage<W, S64>, grid, THREADS, smem + OUT_BYTES, st, d, c, io);
     case PRE_DFT:
-      return launch(pre_dft_stage<W>, dim3(tiles(d.half, BN), grid.y), THREADS, smem, st, d,
-                    c, io);
+      return launch(pre_dft_stage<W, S64>, dim3(tiles(d.half, BN), grid.y), THREADS, smem, st,
+                    d, c, io);
     case DEMOD:
-      return launch(demod_stage<W>, grid, THREADS, smem, st, d, c, io);
+      return launch(demod_stage<W, S64>, grid, THREADS, smem, st, d, c, io);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -308,15 +394,21 @@ int product_stage(int stage, const Dims& d, const Consts& c, const LinkIO& io,
 int link_stage(const Dims& d, const Consts& c, const LinkIO& io, int stage, int it,
                cudaStream_t st) {
   if (tiles(d.batch, BM) > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  float* const q0 = first_q(io);
   if (stage == METRICS) {
     return launch(metrics_stage, dim3(tiles(d.batch, 8)), 256, 0, st, d, c, io);
   }
+  if (stage == PHASE) {
+    if (!d.phase_comp || d.ic_iterations == 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch(phase_stage, dim3(tiles(d.batch, 8)), 256, 0, st, d, c, io,
+                  static_cast<const float*>(q0));
+  }
   if (stage == IC) {
     if (it < 0 || it >= d.ic_iterations) return static_cast<int>(cudaErrorInvalidValue);
-    // decisions of the demod stage sit in F; each iteration reads the
+    // the demod stage's decisions sit in q0; each iteration reads the
     // buffer the previous one wrote and writes the other
-    const float* q_in = it % 2 == 0 ? io.f : io.y;
-    float* q_out = it % 2 == 0 ? io.y : io.f;
+    const float* q_in = it % 2 == 0 ? q0 : io.y;
+    float* q_out = it % 2 == 0 ? io.y : q0;
     const int last = it == d.ic_iterations - 1;
     if (d.ic_mode == 1) {
       return launch(ic_matmul_stage, dim3(tiles(d.n, BN), tiles(d.batch, BM)), THREADS,
@@ -324,6 +416,10 @@ int link_stage(const Dims& d, const Consts& c, const LinkIO& io, int stage, int 
     }
     return launch(ic_conv_stage, dim3(d.batch), 256, sizeof(float) * 2 * d.n, st, d, c, io,
                   q_in, q_out, last);
+  }
+  if (d.sum64) {
+    return d.bf16 ? static_cast<int>(cudaErrorInvalidValue)
+                  : product_stage<float, true>(stage, d, c, io, st);
   }
   return d.bf16 ? product_stage<bf16>(stage, d, c, io, st)
                 : product_stage<float>(stage, d, c, io, st);
@@ -333,8 +429,8 @@ int link_stage(const Dims& d, const Consts& c, const LinkIO& io, int stage, int 
 }  // namespace gfdm
 
 // One launch of stage `stage` (gfdm::lg::Stage; `it` the IC iteration) on
-// `stream`. The wrapper (kernels/fused.py::_link_single_cuda) runs stages
-// 0-4, then IC iterations 0 .. ic_iterations - 1, in order on one stream.
+// `stream`. The wrappers (kernels/fused.py::_link_single_cuda,
+// _rx_receiver_cuda) run their plan's stages in order on one stream.
 extern "C" int gfdm_link_stage(const gfdm::Dims* d, const gfdm::Consts* c,
                                const gfdm::lg::LinkIO* io, int stage, int it, void* stream) {
   if (d->batch <= 0) return 0;
@@ -354,13 +450,8 @@ extern "C" const char* gfdm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Bursts a receiver CTA takes on the current device (0: none fits).
-extern "C" int gfdm_rx_tile_bursts(const gfdm::Dims* d) {
-  return gfdm::rx_tile_bursts(*d);
-}
-
-// Shared memory of the receiver launch: the chosen tile, or one burst where
-// none fits.
+// Shared memory of a superseded receiver's launch: the chosen tile, or one
+// burst where none fits.
 extern "C" size_t gfdm_rx_smem_bytes(const gfdm::Dims* d) {
   const int tb = gfdm::rx_tile_bursts(*d);
   return sizeof(float) * gfdm::rx_smem_floats(*d, tb > 0 ? tb : 1);

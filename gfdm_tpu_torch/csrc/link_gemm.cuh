@@ -1,4 +1,5 @@
-// Staged tensor-core Gauss products of the one-kernel link (link.cu only).
+// Staged tensor-core Gauss products of the link and the dense receiver
+// (link.cu only).
 //
 // One engine, gauss_tile, computes a BM x BN tile (128 bursts x 64 output
 // columns) of the complex product y = x @ W with W's Gauss stack
@@ -59,22 +60,8 @@ __host__ __device__ constexpr size_t ring_bytes() {
 }
 static_assert(OUT_BYTES <= 2 * slot_bytes<bf16>(), "the output staging reuses the ring");
 
-// Sizes and buffers of one link call. Field order mirrors
-// kernels/cuda_lib.py::LinkIO.
-struct LinkIO {
-  const float* data;      // (B, 2 n_data) payload
-  float* out;             // (B, 2 n_data) data estimate
-  float* met;             // (B, met_w) metrics rows [snr | cnrs | 0-pad]
-  float* f;               // (B, 2N) payload block F; later IC decisions (even iterations)
-  float* y;               // (B, 2N) equalized spectrum Y; later IC decisions (odd)
-  float* d0;              // (B, 2N) demodulated symbols D0
-  float* pw;              // (B, 2K) preamble DFT power |P @ F2|^2
-  float* pre;             // (B, 4K) each burst's preamble window P [re | im]
-  const int* inv_demap;   // (N) payload index of each frame position, -1 elsewhere
-};
-
 // An activation: row r, plane q (0 re, 1 im), column k at
-// p[r * ld + q * im + k].
+// p[r * ld + q * im + k]. Field order mirrors kernels/cuda_lib.py::Act.
 struct Act {
   const float* p;
   int ld, im, n;
@@ -82,6 +69,27 @@ struct Act {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && ld % 4 == 0 && im % 4 == 0 &&
            n % 4 == 0;
   }
+};
+
+// Sizes and buffers of one call of the staged stages: the link's (payload
+// in, data estimate out) or the dense receiver's (bursts in, channel,
+// symbols out). Field order mirrors kernels/cuda_lib.py::LinkIO.
+struct LinkIO {
+  const float* data;      // (B, 2 n_data) payload (link)
+  float* out;             // (B, 2 n_data) data estimate (link)
+  float* met;             // (B, met_w) metrics rows [snr | cnrs | 0-pad]
+  float* f;               // (B, 2N) the link's payload block; later IC decisions
+  float* y;               // (B, 2N) equalized spectrum Y; later IC decisions
+  float* d0;              // (B, 2N) demodulated symbols D0
+  float* pw;              // (B, 2K) preamble DFT power |P @ F2|^2
+  float* pre;             // (B, 4K) the link's preamble windows [re | im]
+  const int* inv_demap;   // (N) payload index of each frame position, -1
+                          // elsewhere; null: the last stage writes sym
+  Act p_in;               // the preamble window P each burst's stages read
+  Act f_in;               // the payload block F the estimate stage reads
+  float* chan;            // (B, 2N) channel estimate, or null
+  float* sym;             // (B, 2N) symbols, written whole (inv_demap null)
+  float* q;               // (B, 2N) IC decisions (the receiver); null: f
 };
 
 // hi = tf32(x), lo = tf32(x - hi); x - hi is exact in float32
@@ -302,8 +310,8 @@ __device__ __forceinline__ void mma_slab(const bf16* sah, const bf16* sb, HC (&a
   }
 }
 
-// --- float64 sums of bf16 operands (the stages whose output is rounded to
-// bf16 by the next one) ---
+// --- float64 sums (the bf16 link's stages whose output is rounded to bf16
+// by the next one; the dense receiver's float32 stacks) ---
 // d += a * b on the FP64 tensor cores: mma.m8n8k4, A row-major and B
 // column-major. Lane l holds A[l / 4][l % 4], B[l % 4][l / 4] and
 // C[l / 4][2 (l % 4) + i].
@@ -319,11 +327,16 @@ __device__ __forceinline__ float bf16_round(float x) {
 
 constexpr int DI = WM / 8, DJ = WN / 8;  // a warp's 8 x 8 tiles
 
-// One slab, float64 sums: the activation rounded to bf16 as round_act does
-// (xr, xi and their bf16 sum plane), the bf16 operator exact in float64, so
-// every product is exact and only the float64 sums round: acc[q] += plane
-// q of the activation @ plane q of the operator.
-__device__ __forceinline__ void mma_slab_f64(const float* sa, const bf16* sb,
+__device__ __forceinline__ float op_value(bf16 w) { return __bfloat162float(w); }
+__device__ __forceinline__ float op_value(float w) { return w; }
+
+// One slab, float64 sums: the activation as the stack's type takes it (bf16:
+// rounded to bf16 as round_act does, xr, xi and their bf16 sum plane;
+// float32: as it is, the sum plane a float32 add), the operator exact in
+// float64, so every product is exact and only the float64 sums round:
+// acc[q] += plane q of the activation @ plane q of the operator.
+template <typename W>
+__device__ __forceinline__ void mma_slab_f64(const float* sa, const W* sb,
                                              double (&acc)[3][DI][DJ][2], int wm, int wn) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll 1  // the 96 accumulators leave no room for a second step's operands
@@ -332,18 +345,25 @@ __device__ __forceinline__ void mma_slab_f64(const float* sa, const bf16* sb,
 #pragma unroll
     for (int i = 0; i < DI; ++i) {
       const int r = wm * WM + i * 8 + g;
-      const float a = bf16_round(sa[r * LDA + kk + t]);
-      const float c = bf16_round(sa[(BM + r) * LDA + kk + t]);
-      xr[i] = a;
-      xi[i] = c;
-      xs[i] = bf16_round(a + c);
+      if constexpr (sizeof(W) == 2) {
+        const float a = bf16_round(sa[r * LDA + kk + t]);
+        const float c = bf16_round(sa[(BM + r) * LDA + kk + t]);
+        xr[i] = a;
+        xi[i] = c;
+        xs[i] = bf16_round(a + c);
+      } else {
+        const float a = sa[r * LDA + kk + t], c = sa[(BM + r) * LDA + kk + t];
+        xr[i] = a;
+        xi[i] = c;
+        xs[i] = __fadd_rn(a, c);
+      }
     }
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      const bf16* b = sb + (kk + t) * LDB + wn * WN + j * 8 + g;
-      const double w1 = __bfloat162float(b[0]);
-      const double w2 = __bfloat162float(b[BK * LDB]);
-      const double w3 = __bfloat162float(b[2 * BK * LDB]);
+      const W* b = sb + (kk + t) * LDB + wn * WN + j * 8 + g;
+      const double w1 = op_value(b[0]);
+      const double w2 = op_value(b[BK * LDB]);
+      const double w3 = op_value(b[2 * BK * LDB]);
 #pragma unroll
       for (int i = 0; i < DI; ++i) {
         dmma(acc[0][i][j], xr[i], w1);
@@ -391,15 +411,16 @@ __device__ __forceinline__ void for_slabs(unsigned char* smem, const Act& a,
 // dst: yr at dst[r * LDO + c], yi at dst[(BM + r) * LDO + c]. Uses the ring
 // at smem; dst may overlap it. The caller has finished with the ring and
 // with dst (a barrier) and may have cp.async groups of its own in flight:
-// they are complete on return, as is dst, for every thread. F64 (bf16
-// stacks only): float64 sums on the FP64 tensor cores, rounded once to
-// float32, for an output that the next stage rounds to bf16.
+// they are complete on return, as is dst, for every thread. F64: float64
+// sums on the FP64 tensor cores, rounded once to float32 (a bf16 stack's
+// output that the next stage rounds to bf16; the dense receiver's float32
+// stacks, whose IC decisions then match the plain version summed in
+// float64).
 template <typename W, bool F64 = false>
 __device__ void gauss_tile(unsigned char* smem, const Act& a, const W* __restrict__ g,
                            int n_out, int row0, int rows, int col0, float* dst) {
   const int warp = threadIdx.x / 32, wm = warp / WARPS_N, wn = warp % WARPS_N;
   if constexpr (F64) {
-    static_assert(sizeof(W) == 2, "float64 sums take bf16 stacks");
     double acc[3][DI][DJ][2] = {};
     for_slabs<W>(smem, a, g, n_out, row0, rows, col0, [&](const float* sa, const W* sb) {
       mma_slab_f64(sa, sb, acc, wm, wn);

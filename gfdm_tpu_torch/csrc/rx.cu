@@ -1,15 +1,9 @@
-// Fused GFDM receivers for Hopper (sm_90a).
-//
-// rx_kernel replaces the Pallas kernel gfdm_tpu/kernels/fused.py::
-// _rx_ic_circ_kernel (wrappers rx_receiver_fused, receive_bursts_fused) with
-// every option: equalizer zf / mmse / mmse_cnr, QPSK / qam16 / qam64 IC
-// decisions with the amplitude folded into the taps or the bf16 operator,
-// both IC modes and the one-shot phase correction: bursts (B, 2 frame_len)
-// -> channel estimate (B, 2N), symbols (B, 2N) and metrics (B, met_w) =
-// [snr_lin | cnrs | 0-pad].
+// The superseded GFDM receivers for Hopper (sm_90a). The production dense
+// receiver (_rx_ic_circ_kernel, rx_receiver_fused) runs as staged
+// tensor-core products in link.cu.
 //
 // rx_variant_kernel<TB, V> replaces the four superseded receiver variants as
-// compile-time configurations of the same stages (gfdm_common.cuh):
+// compile-time configurations of the stages of gfdm_common.cuh:
 //   kChanIn   frames, channel (B, 2N) given: DFT, ZF, Bfd demod, and the
 //             circulant QPSK IC at ic_iterations (0: _rx_core_kernel,
 //             rx_core_fused; > 0: _rx_ic_kernel, rx_ic_fused, whose
@@ -25,25 +19,24 @@
 // block-diagonal or realified operator (convert.py checks both against the
 // taps).
 //
-// Bound: 2.26 M fp32 MACs a burst without IC (estimate, 2K-DFT, N-DFT,
-// demodulator), plus 1.0 M per IC iteration in matmul mode (0.02 M in conv
-// mode), against 6 KB read and 9 KB written: FMA-bound, with about 10 MB of
-// operator stacks streamed from L2 once per tile. The hybrid drops the
-// 1.0 M-MAC Bfd product for N (L + M) complex MACs. Design: the tile's
-// preamble window, payload block and the four N-wide planar stages
-// (channel, DFT/ZF, demodulated, IC state) stay in shared memory (156 KB at
-// TB = 8), so nothing but the outputs returns to HBM; the Pallas kernels'
-// global rolls, mask blends and 0/1 selection matmuls become index
-// arithmetic. The tile shrinks to 4, 2 or 1 bursts where a larger N needs it
-// (rx_tile_bursts: K = 128, 256, 512). The options are runtime fields of
-// Dims, branching once a stage (see gfdm_common.cuh).
+// Bound: 2.21 M fp32 MACs a burst without IC (estimate, N-DFT,
+// demodulator; 1.99 M with the channel given), plus 0.02 M per IC iteration, against
+// 6 KB read and 9 KB written: FMA-bound, with about 10 MB of operator
+// stacks streamed from L2 once per tile. The hybrid drops the 1.0 M-MAC Bfd
+// product for N (L + M) complex MACs. Design: the tile's preamble window,
+// payload block and the four N-wide planar stages (channel, DFT/ZF,
+// demodulated, IC state) stay in shared memory (156 KB at TB = 8), so
+// nothing but the outputs returns to HBM; the Pallas kernels' global rolls,
+// mask blends and 0/1 selection matmuls become index arithmetic. The tile
+// shrinks to 4, 2 or 1 bursts where a larger N needs it (rx_tile_bursts:
+// K = 128, 256, 512).
 #include "gfdm_common.cuh"
 
 namespace gfdm {
 
 enum RxVariant { kChanIn = 0, kEstimate = 1, kHybrid = 2 };
 
-// The receiver's two windows of TB bursts into the tile: preamble
+// A variant's two windows of TB bursts into the tile: preamble
 // [cp, cp + 2K) into P and payload block [fs, fs + N) into F, per plane.
 template <int TB>
 __device__ inline void load_windows(const Dims& d, const float* src, int nb,
@@ -65,24 +58,6 @@ __device__ inline void load_windows(const Dims& d, const float* src, int nb,
 template <int TB>
 __device__ inline void store_rows(const float* s, float* out, int nb, int w) {
   for (int i = threadIdx.x; i < nb * w; i += blockDim.x) out[i] = s[i];
-}
-
-template <int TB>
-__global__ void __launch_bounds__(MAX_THREADS)
-rx_kernel(Dims d, Consts c, const float* __restrict__ bursts,
-          float* __restrict__ chan, float* __restrict__ sym,
-          float* __restrict__ met) {
-  extern __shared__ float smem[];
-  const int b0 = blockIdx.x * TB;
-  const int nb = min(TB, d.batch - b0);
-  const int w = 2 * d.n;
-  load_windows<TB>(d, bursts + static_cast<size_t>(b0) * 2 * d.frame_len, nb,
-                   RxTile<TB>(d, smem));
-  __syncthreads();
-  const float* s = rx_chain<TB, float>(d, c, smem, nb,
-                                       chan + static_cast<size_t>(b0) * w,
-                                       met + static_cast<size_t>(b0) * d.met_w);
-  store_rows<TB>(s, sym + static_cast<size_t>(b0) * w, nb, w);
 }
 
 // in: frames (B, 2N) for kChanIn, else bursts (B, 2 frame_len); chan_in
@@ -119,21 +94,6 @@ rx_variant_kernel(Dims d, Consts c, const float* __restrict__ in,
   store_rows<TB>(s, sym + static_cast<size_t>(b0) * w, nb, w);
 }
 
-template <int TB>
-int launch_rx(const Dims* d, const Consts* c, const float* bursts, float* chan,
-              float* sym, float* met, void* stream) {
-  const size_t smem = sizeof(float) * rx_smem_floats(*d, TB);
-  cudaError_t err = cudaFuncSetAttribute(
-      rx_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (d->batch + TB - 1) / TB;
-  rx_kernel<TB><<<blocks, block_threads(*d), smem,
-                  static_cast<cudaStream_t>(stream)>>>(*d, *c, bursts, chan,
-                                                       sym, met);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int TB, int V>
 int launch_variant(const Dims* d, const Consts* c, const float* in,
                    const float* chan_in, float* chan_out, float* sym, void* stream) {
@@ -162,20 +122,6 @@ int launch_variant_tile(const Dims* d, const Consts* c, const float* in,
 }
 
 }  // namespace gfdm
-
-// A config whose one-burst tile exceeds shared memory runs the TB = 1
-// launch, which the runtime refuses.
-extern "C" int gfdm_rx(const gfdm::Dims* d, const gfdm::Consts* c,
-                       const float* bursts, float* chan, float* sym,
-                       float* met, void* stream) {
-  if (d->batch <= 0) return 0;
-  switch (gfdm::rx_tile_bursts(*d)) {
-    case 8: return gfdm::launch_rx<8>(d, c, bursts, chan, sym, met, stream);
-    case 4: return gfdm::launch_rx<4>(d, c, bursts, chan, sym, met, stream);
-    case 2: return gfdm::launch_rx<2>(d, c, bursts, chan, sym, met, stream);
-    default: return gfdm::launch_rx<1>(d, c, bursts, chan, sym, met, stream);
-  }
-}
 
 // variant: 0 channel given, 1 channel estimated, 2 estimated + hybrid demod
 // (gfdm::RxVariant); -1 for an unknown variant.

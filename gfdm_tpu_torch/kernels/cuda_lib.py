@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Dims", "Consts", "LinkIO", "DetectDims", "FactoredDims", "FactoredConsts",
+__all__ = ["Dims", "Consts", "Act", "LinkIO", "DetectDims", "FactoredDims", "FactoredConsts",
            "FACTORED_KINDS", "library", "launch", "build_dir", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -41,7 +41,7 @@ class Dims(ctypes.Structure):
         "batch", "n", "n_data", "timeslots", "subcarriers", "half",
         "frame_len", "preamble_len", "cp_len", "cs_len",
         "n_ports", "n_cnr", "met_w", "ic_iterations", "ic_mode",
-        "dec_kind", "equalizer", "phase_comp", "n_act", "overlap", "bf16",
+        "dec_kind", "equalizer", "phase_comp", "n_act", "overlap", "bf16", "sum64",
     )]
 
 
@@ -54,12 +54,24 @@ class Consts(ctypes.Structure):
     )]
 
 
+class Act(ctypes.Structure):
+    """Mirror of ``gfdm::lg::Act`` in csrc/link_gemm.cuh: an activation whose
+    row r, plane q, column k sits at ``p[r * ld + q * im + k]``, ``n``
+    columns a plane."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("ld", ctypes.c_int), ("im", ctypes.c_int),
+                ("n", ctypes.c_int)]
+
+
 class LinkIO(ctypes.Structure):
-    """Mirror of ``gfdm::lg::LinkIO`` in csrc/link_gemm.cuh: the link's
-    payload, outputs, intermediates and inverse demap (device pointers)."""
+    """Mirror of ``gfdm::lg::LinkIO`` in csrc/link_gemm.cuh: the staged
+    stages' inputs, outputs, intermediates and inverse demap (device
+    pointers), and the windows P and F the stages read."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "data", "out", "met", "f", "y", "d0", "pw", "pre", "inv_demap",
+    )] + [("p_in", Act), ("f_in", Act)] + [(name, ctypes.c_void_p) for name in (
+        "chan", "sym", "q",
     )]
 
 
@@ -170,7 +182,6 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build()))
     dims_p, consts_p, vp = ctypes.POINTER(Dims), ctypes.POINTER(Consts), ctypes.c_void_p
     lib.gfdm_tx.argtypes = [dims_p, consts_p, vp, vp, vp]
-    lib.gfdm_rx.argtypes = [dims_p, consts_p, vp, vp, vp, vp, vp]
     ci, cf = ctypes.c_int, ctypes.c_float
     lib.gfdm_link_stage.argtypes = [dims_p, consts_p, ctypes.POINTER(LinkIO), ci, ci, vp]
     lib.gfdm_tf32_split.argtypes = [ci, vp, vp, vp, vp]
@@ -186,14 +197,13 @@ def library() -> ctypes.CDLL:
     for fn in (lib.gfdm_rx_factored, lib.gfdm_rx_factored_chan):
         fn.argtypes = [fdims_p, fconsts_p, vp, vp, vp, vp, vp]
     lib.gfdm_factored_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.gfdm_rx_tile_bursts.argtypes = [dims_p]
     lib.gfdm_chain.argtypes = [ci, ci, ci, vp, vp, vp, vp, cf, cf, cf, vp, vp, vp, vp]
-    for fn in (lib.gfdm_tx, lib.gfdm_rx, lib.gfdm_link_stage, lib.gfdm_tf32_split,
+    for fn in (lib.gfdm_tx, lib.gfdm_link_stage, lib.gfdm_tf32_split,
                lib.gfdm_link_io_size, lib.gfdm_rx_variant, lib.gfdm_struct_sizes,
                lib.gfdm_detect_front, lib.gfdm_detect_lean,
                lib.gfdm_detect_dims_size, lib.gfdm_tx_factored,
                lib.gfdm_rx_factored, lib.gfdm_rx_factored_chan,
-               lib.gfdm_factored_struct_sizes, lib.gfdm_rx_tile_bursts, lib.gfdm_chain):
+               lib.gfdm_factored_struct_sizes, lib.gfdm_chain):
         fn.restype = ctypes.c_int
     lib.gfdm_error_string.argtypes = [ctypes.c_int]
     lib.gfdm_error_string.restype = ctypes.c_char_p

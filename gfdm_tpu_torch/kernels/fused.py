@@ -6,14 +6,18 @@ plain torch version here that computes the same thing the same way:
 
 - ``_tx_kernel`` and ``_tx_cdd_kernel`` -> ``tx_kernel`` (csrc/tx.cu): one
   core product with T_G, cut into every requested cyclic-delay port;
-- ``_rx_ic_circ_kernel`` -> ``rx_kernel`` (csrc/rx.cu) with every option:
-  equalizer zf / mmse / mmse_cnr, QPSK / qam16 / qam64 IC decisions (the
-  amplitude folded into the conv taps or the bf16 IC operator), both IC
-  modes and the one-shot phase compensation;
-- ``_link_kernel`` -> the staged link (csrc/link.cu on the tensor-core
-  engine of csrc/link_gemm.cuh): one launch a stage, ``LINK_STAGES`` then
-  one an IC iteration; float32 stacks as 3xTF32 products, the IC operator
-  and bfloat16 stacks as bf16 products;
+- ``_rx_ic_circ_kernel`` -> the staged receiver (csrc/link.cu on the
+  tensor-core engine of csrc/link_gemm.cuh) with every option: equalizer
+  zf / mmse / mmse_cnr, QPSK / qam16 / qam64 IC decisions (the amplitude
+  folded into the conv taps or the bf16 IC operator), both IC modes and the
+  one-shot phase compensation: one launch a stage, ``RX_STAGES``, the phase
+  stage where it applies, then one an IC iteration (``rx_launches``); its
+  stages read the caller's bursts in place and sum the float32-stack
+  products in float64 (FP64 tensor cores), so it matches the plain version
+  summed in float64 (``gdot=_gdot64``) decision for decision;
+- ``_link_kernel`` -> the staged link on the same stages: one launch a
+  stage, ``LINK_STAGES`` then one an IC iteration; float32 stacks as 3xTF32
+  products, the IC operator and bfloat16 stacks as bf16 products;
 - the superseded receivers ``_rx_core_kernel``, ``_rx_ic_kernel``,
   ``_rx_full_kernel`` and ``_rx_hybrid_kernel`` -> compile-time variants of
   one receiver template (``rx_variant_kernel``, csrc/rx.cu).
@@ -65,6 +69,8 @@ __all__ = [
     "link_single_fused",
     "link_launches",
     "LINK_STAGES",
+    "rx_launches",
+    "RX_STAGES",
     "rx_core_fused",
     "rx_ic_fused",
     "rx_full_fused",
@@ -92,13 +98,18 @@ _EQUALIZERS = {"zf": 0, "mmse": 1, "mmse_cnr": 2}
 _DTYPES = ("float32", "bfloat16")
 # csrc/rx.cu::RxVariant of each superseded receiver
 _VARIANTS = {"rx_core": 0, "rx_ic": 0, "rx_full": 1, "rx_hybrid": 2}
-# the link's launches (csrc/link.cu gfdm::lg::Stage, in order): these five
-# once a call, then one an IC iteration in either IC mode
+# csrc/link.cu gfdm::lg::Stage: the number of each staged launch
+_STAGE = {"tx": 0, "est_zf": 1, "pre_dft": 2, "metrics": 3, "demod": 4, "ic": 5, "phase": 6}
+# the link's launches, in order: these five once a call, then one an IC
+# iteration in either IC mode
 LINK_STAGES = ("tx", "est_zf", "pre_dft", "metrics", "demod")
-_LINK_IC_STAGE = len(LINK_STAGES)
-# the link's dense operators: the largest float32 stack, F_G (3N, N), may
-# take 256 MiB (N = 4608, K = 512 at M = 9); beyond, link_step_factored
-_LINK_MAX_STACK_BYTES = 1 << 28
+# the dense receiver's: these four once a call (the metrics before the
+# estimate, whose mmse / mmse_cnr weight reads them), the phase stage with
+# phase compensation and IC, then one an IC iteration
+RX_STAGES = ("pre_dft", "metrics", "est_zf", "demod")
+# the dense operators: the largest float32 stack, F_G (3N, N), may take
+# 256 MiB (N = 4608, K = 512 at M = 9); beyond, the factored kernels
+_DENSE_MAX_STACK_BYTES = 1 << 28
 
 
 def link_launches(ic_mode: str, ic_iterations: int) -> int:
@@ -106,24 +117,41 @@ def link_launches(ic_mode: str, ic_iterations: int) -> int:
     stage, then one an IC iteration (the matmul IC's product and the conv
     IC's stencil alike)."""
     _choice("ic_mode", ic_mode, _IC_MODES)
-    return len(LINK_STAGES) + int(ic_iterations)
+    return len(_link_plan(ic_iterations))
 
 
 def _link_plan(ic_iterations: int):
     """(stage name, csrc/link.cu stage number, IC iteration) of each launch."""
-    plan = [(name, i, 0) for i, name in enumerate(LINK_STAGES)]
-    return plan + [("ic", _LINK_IC_STAGE, it) for it in range(int(ic_iterations))]
+    plan = [(name, _STAGE[name], 0) for name in LINK_STAGES]
+    return plan + [("ic", _STAGE["ic"], it) for it in range(int(ic_iterations))]
 
 
-def _check_link_size(cfg: GfdmConfig) -> None:
-    """Refuse a config whose dense link operators are too large to build."""
+def rx_launches(ic_iterations: int, phase_compensation: bool = False) -> int:
+    """Kernel launches of one rx_receiver_fused call on a CUDA tensor:
+    4 + (1 with phase compensation and IC) + ic_iterations."""
+    return len(_rx_plan(ic_iterations, phase_compensation))
+
+
+def _rx_plan(ic_iterations: int, phase_compensation: bool = False):
+    """(stage name, csrc/link.cu stage number, IC iteration) of each launch
+    of the dense receiver: the phase stage only where an IC iteration
+    follows (the correction uses the first decisions)."""
+    plan = [(name, _STAGE[name], 0) for name in RX_STAGES]
+    if phase_compensation and ic_iterations > 0:
+        plan.append(("phase", _STAGE["phase"], 0))
+    return plan + [("ic", _STAGE["ic"], it) for it in range(int(ic_iterations))]
+
+
+def _check_dense_size(cfg: GfdmConfig, fn: str, factored: str) -> None:
+    """Refuse a config whose dense operator stacks are too large to build,
+    naming ``factored``, the wrapper that takes it."""
     n = cfg.block_len
     nbytes = 3 * n * n * 4
-    if nbytes > _LINK_MAX_STACK_BYTES:
+    if nbytes > _DENSE_MAX_STACK_BYTES:
         raise ValueError(
-            f"link_single_fused: N = {n} needs dense (3N, N) float32 operator stacks of "
-            f"{nbytes / 2**20:.0f} MiB each (limit {_LINK_MAX_STACK_BYTES / 2**20:.0f} MiB); "
-            "the large-K link is link_step_factored")
+            f"{fn}: N = {n} needs dense (3N, N) float32 operator stacks of "
+            f"{nbytes / 2**20:.0f} MiB each (limit {_DENSE_MAX_STACK_BYTES / 2**20:.0f} MiB); "
+            f"at large K use {factored}")
 
 
 def _choice(name: str, value, options) -> None:
@@ -371,6 +399,18 @@ def _zf(xr, xi, chr_, chi):
     return (xr * chr_ + xi * chi) / den, (xi * chr_ - xr * chi) / den, den
 
 
+def _eq_weight(equalizer: str, den, snr, cnr, cnri_t):
+    """The equalizer's per-bin weight after ZF (den = |C|^2 clamped), None
+    for zf: mmse den / (den + 1 / max(snr, 1e-6)); mmse_cnr cb / (cb + 1),
+    cb = max(max(cnr, 0) @ cnri_t, 1e-6). snr (B, 1), cnr (B, n_cnr)."""
+    if equalizer == "mmse":
+        return den / (den + 1.0 / torch.clamp(snr, min=1e-6))
+    if equalizer == "mmse_cnr":
+        cb = torch.clamp(torch.clamp(cnr, min=0.0) @ cnri_t, min=1e-6)
+        return cb / (cb + 1.0)
+    return None
+
+
 def _rx_core_plain(cfg, k, stacks, pre_r, pre_i, fr_r, fr_i, opts: _RxOptions, ic_op,
                    gdot=None):
     gdot = gdot or _gdot
@@ -389,12 +429,8 @@ def _rx_core_plain(cfg, k, stacks, pre_r, pre_i, fr_r, fr_i, opts: _RxOptions, i
 
     xr, xi = gdot(fr_r, fr_i, stacks["F_G"], n)
     yr, yi, den = _zf(xr, xi, chr_, chi)
-    if opts.equalizer == "mmse":
-        w = den / (den + 1.0 / torch.clamp(snr, min=1e-6))
-        yr, yi = yr * w, yi * w
-    elif opts.equalizer == "mmse_cnr":
-        cb = torch.clamp(torch.clamp(cnr, min=0.0) @ k["CNRI_T"], min=1e-6)
-        w = cb / (cb + 1.0)
+    w = _eq_weight(opts.equalizer, den, snr, cnr, k["CNRI_T"])
+    if w is not None:
         yr, yi = yr * w, yi * w
     d0r, d0i = gdot(yr, yi, stacks["Bfd_G"], n)
     dr, di = _cancel_plain(cfg, k["act"], d0r, d0i, opts, ic_op, gdot)
@@ -495,7 +531,7 @@ def _rx_variant_plain(key: str, cfg: GfdmConfig, x: torch.Tensor, chan, ic_itera
 # CUDA launches
 # ---------------------------------------------------------------------------
 def _dims(cfg: GfdmConfig, batch: int, opts: _RxOptions | None = None, n_ports: int = 1,
-          bf16: bool = False):
+          bf16: bool = False, sum64: bool = False):
     from .cuda_lib import Dims
 
     opts = opts or _RxOptions(ic_iterations=0)
@@ -510,6 +546,7 @@ def _dims(cfg: GfdmConfig, batch: int, opts: _RxOptions | None = None, n_ports: 
         dec_kind=_DEC_KINDS[opts.constellation], equalizer=_EQUALIZERS[opts.equalizer],
         phase_comp=int(opts.phase_compensation),
         n_act=cfg.subcarrier_map.size * cfg.timeslots, overlap=cfg.overlap, bf16=int(bf16),
+        sum64=int(sum64),
     )
 
 
@@ -521,7 +558,7 @@ def _consts(**tensors):
 
 
 def _rx_consts(cfg: GfdmConfig, device, opts: _RxOptions, dtype_name: str = "float32"):
-    """The receiver's constants (rx_chain in csrc/gfdm_common.cuh)."""
+    """The receiver stages' constants (csrc/link.cu)."""
     k, s = _kernel_consts(cfg, device), _stacks(cfg, device, dtype_name)
     ic = "icop" if opts.ic_mode == "matmul" else "taps"
     return dict(e_g=s["E_G"], f_g=s["F_G"], bfd_g=s["Bfd_G"], f2_g=s["F2_G"],
@@ -531,8 +568,8 @@ def _rx_consts(cfg: GfdmConfig, device, opts: _RxOptions, dtype_name: str = "flo
 
 def _run(name: str, key: str, dims, consts, *args, device) -> None:
     """Launch ``gfdm_<name>`` on the current stream of ``device`` and count
-    it under ``key``; raise if the launch is refused (e.g. a config whose
-    tile exceeds shared memory)."""
+    it under ``key``; raise if the launch is refused (e.g. a superseded
+    receiver whose tile exceeds shared memory)."""
     from .cuda_lib import launch
 
     def rx_tile(lib):
@@ -561,14 +598,71 @@ def _tx_cuda(cfg, data, shift_index=None):
     return out
 
 
-def _rx_receiver_cuda(cfg, bursts, opts: _RxOptions):
-    B, w = bursts.shape[0], 2 * cfg.block_len
-    kw = dict(dtype=torch.float32, device=bursts.device)
-    chan, sym = torch.empty(B, w, **kw), torch.empty(B, w, **kw)
+def _run_stages(key: str, plan, dims, consts, io, device, events=None) -> None:
+    """Launch each (stage name, stage number, IC iteration) of ``plan`` in
+    order on the current stream (csrc/link.cu gfdm_link_stage), counting
+    each under ``key``; a refused launch raises, naming the stage and the
+    iteration. ``events``: a list that takes a recorded CUDA event before
+    each launch and after the last (chip_smoke.py's per-stage times)."""
+    from .cuda_lib import launch
+
+    def record():
+        if events is not None:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+    for name, stage, it in plan:
+        record()
+        launch("gfdm_link_stage",
+               (ctypes.byref(dims), ctypes.byref(consts), ctypes.byref(io), stage, it), device,
+               hint=lambda lib, name=name, it=it: f" ({key} stage {name}, iteration {it})")
+        LAUNCHES[key] += 1
+    record()
+
+
+def _burst_windows(cfg: GfdmConfig) -> dict:
+    """The two windows the receiver's stages read in each burst row
+    (B, 2 frame_len), as (offset, ld, im, width) in floats: row b, plane q,
+    column k at ``offset + b ld + q im + k``. "p": the preamble window
+    (columns cp .. cp + 2K of each plane), "f": the payload block (columns
+    preamble_len + cp .. + N)."""
+    L = cfg.frame_len
+    return {"p": (cfg.cp_len, 2 * L, L, 2 * cfg.subcarriers),
+            "f": (cfg.preamble_len + cfg.cp_len, 2 * L, L, cfg.block_len)}
+
+
+def _act(t: torch.Tensor, offset: int, ld: int, im: int, width: int):
+    """gfdm::lg::Act of a window of the float32 rows of ``t``."""
+    from .cuda_lib import Act
+
+    return Act(t.data_ptr() + 4 * offset, ld, im, width)
+
+
+def _rx_receiver_cuda(cfg, bursts, opts: _RxOptions, events=None, buffers=None):
+    """The dense receiver's stages (``_rx_plan``) on the current stream: the
+    bursts (B, 2 frame_len) are read in place and never written.
+    ``events``: as _run_stages; ``buffers``: a dict that takes the
+    intermediates Y, D0, Q and pw (after IC, Q and Y hold decisions)."""
+    from .cuda_lib import LinkIO
+
+    dev = bursts.device
+    B, n = bursts.shape[0], cfg.block_len
+    kw = dict(dtype=torch.float32, device=dev)
+    chan, sym = torch.empty(B, 2 * n, **kw), torch.empty(B, 2 * n, **kw)
     met = torch.empty(B, _met_layout(cfg)[1], **kw)
-    consts = _consts(**_rx_consts(cfg, bursts.device, opts))
-    _run("rx", "rx", _dims(cfg, B, opts), consts, bursts.data_ptr(),
-         chan.data_ptr(), sym.data_ptr(), met.data_ptr(), device=bursts.device)
+    if B == 0:
+        return chan, sym, met
+    y, d0, q = (torch.empty(B, 2 * n, **kw) for _ in range(3))
+    pw = torch.empty(B, 2 * cfg.subcarriers, **kw)
+    consts = _consts(**_rx_consts(cfg, dev, opts))
+    win = _burst_windows(cfg)
+    io = LinkIO(met=met.data_ptr(), y=y.data_ptr(), d0=d0.data_ptr(), pw=pw.data_ptr(),
+                p_in=_act(bursts, *win["p"]), f_in=_act(bursts, *win["f"]),
+                chan=chan.data_ptr(), sym=sym.data_ptr(), q=q.data_ptr())
+    _run_stages("rx", _rx_plan(opts.ic_iterations, opts.phase_compensation),
+                _dims(cfg, B, opts, sum64=True), consts, io, dev, events)
+    if buffers is not None:
+        buffers.update(y=y, d0=d0, q=q, pw=pw)
     return chan, sym, met
 
 
@@ -600,7 +694,7 @@ def _link_single_cuda(cfg, data, opts: _RxOptions, dtype_name: str, events=None,
     last (chip_smoke.py's per-stage times); ``buffers``: a dict that takes
     the intermediates F, Y, D0 and each burst's preamble window P (with IC,
     F and Y end holding decisions)."""
-    from .cuda_lib import LinkIO, launch
+    from .cuda_lib import Act, LinkIO
 
     dev = data.device
     B, n = data.shape[0], cfg.block_len
@@ -613,23 +707,14 @@ def _link_single_cuda(cfg, data, opts: _RxOptions, dtype_name: str, events=None,
     pw = torch.empty(B, 2 * cfg.subcarriers, **kw)
     pre = torch.empty(B, 4 * cfg.subcarriers, **kw)
     consts = _consts(**_link_operands(cfg, dev, opts, dtype_name))
+    half = 2 * cfg.subcarriers
     io = LinkIO(data=data.data_ptr(), out=out.data_ptr(), met=met.data_ptr(),
                 f=f.data_ptr(), y=y.data_ptr(), d0=d0.data_ptr(), pw=pw.data_ptr(),
-                pre=pre.data_ptr(), inv_demap=_inv_demap(cfg, dev).data_ptr())
-    dims = _dims(cfg, B, opts, bf16=dtype_name == "bfloat16")
-
-    def record():
-        if events is not None:
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-
-    for name, stage, it in _link_plan(opts.ic_iterations):
-        record()
-        launch("gfdm_link_stage",
-               (ctypes.byref(dims), ctypes.byref(consts), ctypes.byref(io), stage, it), dev,
-               hint=lambda lib, name=name, it=it: f" (link stage {name}, iteration {it})")
-        LAUNCHES["link"] += 1
-    record()
+                pre=pre.data_ptr(), inv_demap=_inv_demap(cfg, dev).data_ptr(),
+                p_in=Act(pre.data_ptr(), 2 * half, half, half),
+                f_in=Act(f.data_ptr(), 2 * n, n, n))
+    _run_stages("link", _link_plan(opts.ic_iterations),
+                _dims(cfg, B, opts, bf16=dtype_name == "bfloat16"), consts, io, dev, events)
     if buffers is not None:
         buffers.update(f=f, y=y, d0=d0, pre=pre)
     return out, met
@@ -659,14 +744,59 @@ def _link_stages(cfg: GfdmConfig, data: torch.Tensor, dtype_name: str = "float32
             "demod": (bufs["d0"], prod(y, st["Bfd_G"], n))}
 
 
+def _stage_errors(stages: dict) -> dict:
+    """{stage: (kernel output, reference)} -> each stage's error per burst,
+    relative to the reference's largest magnitude."""
+    return {name: (got - ref).abs().amax(dim=1) / ref.abs().max()
+            for name, (got, ref) in stages.items()}
+
+
 def _link_stage_errors(cfg: GfdmConfig, data: torch.Tensor, dtype_name: str = "float32"):
     """Each product stage of the link kernels against the plain stage on
     the kernel's own inputs, per burst, relative to the stage's largest
     magnitude: on identical inputs no activation can round to bf16 on
     another side, so this holds each stage's arithmetic apart from the
     rest of the chain, whatever the stacks' type."""
-    return {name: (got - ref).abs().amax(dim=1) / ref.abs().max()
-            for name, (got, ref) in _link_stages(cfg, data, dtype_name).items()}
+    return _stage_errors(_link_stages(cfg, data, dtype_name))
+
+
+def _rx_stages(cfg: GfdmConfig, bursts: torch.Tensor, equalizer: str = "zf") -> dict:
+    """The dense receiver's product stages on the card beside the plain
+    version's same stages (summed in float64, as the kernels sum them) on the
+    kernel's own inputs: {stage: (kernel output, reference)} for "pre_dft"
+    (the preamble power pw), "chan", "est_zf" (Y, the equalizer's weight from
+    the kernel's own metrics) and "demod" (D0, from the kernel's Y). bursts:
+    (B, 2 frame_len) rows on the card."""
+    bufs = {}
+    chan, _sym, met = _rx_receiver_cuda(cfg, bursts, _rx_options(0, equalizer=equalizer),
+                                        buffers=bufs)
+    k, st = _kernel_consts(cfg, bursts.device), _stacks(cfg, bursts.device)
+    n, half, n_cnr = cfg.block_len, 2 * cfg.subcarriers, _met_layout(cfg)[0]
+
+    def window(name):
+        off, _ld, im, width = _burst_windows(cfg)[name]
+        return bursts[:, off : off + width], bursts[:, im + off : im + off + width]
+
+    def prod(x, g, n_in):
+        return torch.cat(_gdot64(*x, g, n_in), 1)
+
+    pre, frame = window("p"), window("f")
+    p = prod(pre, st["F2_G"], half)
+    rchan = prod(pre, st["E_G"], half)
+    x = prod(frame, st["F_G"], n)
+    yr, yi, den = _zf(x[:, :n], x[:, n:], rchan[:, :n], rchan[:, n:])
+    w = _eq_weight(equalizer, den, met[:, :1], met[:, 1 : 1 + n_cnr], k["CNRI_T"])
+    y = torch.cat([yr, yi], 1) if w is None else torch.cat([yr * w, yi * w], 1)
+    return {"pre_dft": (bufs["pw"], p[:, :half] ** 2 + p[:, half:] ** 2),
+            "chan": (chan, rchan), "est_zf": (bufs["y"], y),
+            "demod": (bufs["d0"], prod((bufs["y"][:, :n], bufs["y"][:, n:]), st["Bfd_G"], n))}
+
+
+def _rx_stage_errors(cfg: GfdmConfig, bursts: torch.Tensor, equalizer: str = "zf") -> dict:
+    """Each product stage of the dense receiver against the plain stage on
+    the kernel's own inputs (_rx_stages), per burst, relative to the
+    stage's largest magnitude."""
+    return _stage_errors(_rx_stages(cfg, bursts, equalizer))
 
 
 def _tf32_split_cuda(x: torch.Tensor):
@@ -763,12 +893,19 @@ def rx_receiver_fused(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: int 
     ``constellation`` ("qpsk", "qam16", "qam64") at amplitude ``qpsk_amp``
     (default: the constellation's); ``phase_compensation`` corrects a common
     phase offset once, before the first cancellation (ic_iterations > 0).
+    On a CUDA tensor it runs the staged tensor-core stages of csrc/link.cu
+    (``rx_launches(ic_iterations, phase_compensation)`` launches, any batch
+    in 128-burst tiles; float32-stack products summed in float64), reading
+    the bursts in place; a config whose dense
+    operators exceed 256 MiB a stack (K = 1024 at M = 9) raises ValueError:
+    it takes rx_receiver_factored.
     """
     opts = _rx_options(ic_iterations, ic_mode, constellation, equalizer,
                        phase_compensation, qpsk_amp)
     cuda = _on_cuda(bursts, cfg.frame_len, "rx_receiver_fused")
     flat = bursts.reshape(bursts.shape[0], -1)
     if cuda:
+        _check_dense_size(cfg, "rx_receiver_fused", "rx_receiver_factored")
         chan, sym, met = _rx_receiver_cuda(cfg, flat, opts)
     else:
         chan, sym, met = _rx_receiver_plain(
@@ -830,7 +967,7 @@ def link_single_fused(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 
     """
     opts = _rx_options(ic_iterations, ic_mode, constellation, qpsk_amp=qpsk_amp)
     _choice("dtype_name", dtype_name, _DTYPES)
-    _check_link_size(cfg)
+    _check_dense_size(cfg, "link_single_fused", "link_step_factored")
     cuda = _on_cuda(data, cfg.n_data_symbols, "link_single_fused")
     flat = data.reshape(data.shape[0], -1)
     if cuda:

@@ -101,4 +101,4 @@ def test_cuda_tensor_with_unported_option_raises():
         fused.rx_receiver_fused(cfg, bursts, equalizer="lmmse")
     assert fused.LAUNCHES == before
     fused.rx_receiver_fused(cfg, bursts, equalizer="mmse")
-    assert fused.LAUNCHES["rx"] == before["rx"] + 1
+    assert fused.LAUNCHES["rx"] == before["rx"] + fused.rx_launches(2)

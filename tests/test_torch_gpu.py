@@ -17,7 +17,7 @@ from gfdm_tpu_torch.kernels import fused
 
 pytestmark = pytest.mark.gpu
 
-B = 1027  # not a multiple of the receiver's 8-burst tile nor the link's 128: masked
+B = 1027  # not a multiple of the stages' 128-burst tile: masked
 CONFIGS = {
     "canonical": GfdmConfig(),
     "k32m5": GfdmConfig(subcarriers=32, active_subcarriers=24, timeslots=5,
@@ -61,8 +61,10 @@ def test_rx_kernel_matches_plain(ic_mode, name):
     gen = torch.Generator(dev).manual_seed(0)
     bursts = bursts + 0.05 * torch.randn(bursts.shape, device=dev, generator=gen)
     before = fused.LAUNCHES["rx"]
+    sent = bursts.clone()
     chan, sym, met = fused.rx_receiver_fused(cfg, bursts, ic_mode=ic_mode)
-    assert fused.LAUNCHES["rx"] == before + 1
+    assert fused.LAUNCHES["rx"] == before + fused.rx_launches(2)
+    assert torch.equal(bursts, sent)  # read in place, never written
     rchan, rsym, rmet = fused._rx_receiver_plain(cfg, bursts.reshape(B, -1), 2, ic_mode)
     assert _max_err(chan, rchan) < 2e-4
     assert _max_err(sym, rsym) < 5e-4
@@ -84,59 +86,48 @@ def test_link_kernel_matches_plain(ic_mode, name):
     assert 0.0 < float(evm) < 0.025
 
 
-def _rx_tile_bursts(cfg, batch):
-    import ctypes
-
-    from gfdm_tpu_torch.kernels import cuda_lib
-
-    return cuda_lib.library().gfdm_rx_tile_bursts(ctypes.byref(fused._dims(cfg, batch)))
-
-
-@pytest.mark.parametrize("K,tile", [(128, 4), (256, 2)])
-def test_rx_and_link_kernels_at_large_n_match_plain(K, tile):
-    """N = 1152 and 2304: the receiver takes a 4- and a 2-burst tile, the
-    link its 128-burst tiles (the JAX package runs its dense kernels there
-    too); the ragged last tile is masked."""
+@pytest.mark.parametrize("batch", [80, 130, 4099])
+@pytest.mark.parametrize("K", [128, 256, 512])
+def test_rx_and_link_kernels_at_large_n_match_plain(K, batch):
+    """N = 1152, 2304 and 4608: the receiver and the link in their 128-burst
+    tiles (the JAX package runs its dense kernels there too) at batches that
+    are not a multiple of 128 (80: one partial tile); the ragged last tile
+    is masked."""
     from gfdm_tpu_torch.entry import large_k_config
 
     dev = _cuda()
     cfg = large_k_config(K)
-    assert _rx_tile_bursts(cfg, B) == tile
-    data = _payload(cfg, 90, dev)
+    data = torch.from_numpy(planar_payload(cfg, batch, 90)).to(dev)
     bursts = fused.tx_frame_fused(cfg, data)
     gen = torch.Generator(dev).manual_seed(1)
     bursts = bursts + 0.01 * torch.randn(bursts.shape, device=dev, generator=gen)
     before = dict(fused.LAUNCHES)
     chan, sym, _met = fused.rx_receiver_fused(cfg, bursts)
     d_hat, _snr, evm = fused.link_single_fused(cfg, data)
-    assert fused.LAUNCHES["rx"] == before["rx"] + 1
+    assert fused.LAUNCHES["rx"] == before["rx"] + fused.rx_launches(2)
     assert fused.LAUNCHES["link"] == before["link"] + fused.link_launches("conv", 2)
-    rchan, rsym, _rmet = fused._rx_receiver_plain(cfg, bursts.reshape(B, -1), 2, "conv")
+    rchan, rsym, _rmet = fused._rx_receiver_plain(cfg, bursts.reshape(batch, -1), 2, "conv")
     assert _max_err(chan, rchan) < 2e-4
     assert _max_err(sym, rsym) < 5e-4
-    ref, _met = fused._link_single_plain(cfg, data.reshape(B, -1), 2, "conv")
+    ref, _met = fused._link_single_plain(cfg, data.reshape(batch, -1), 2, "conv")
     assert _max_err(d_hat, ref) < 1e-4
     assert 0.0 < float(evm) < 0.025
 
 
 def test_rx_and_link_kernels_refuse_k1024():
-    """N = 9216: the receiver needs ~314 KB of shared memory even for a
-    one-burst tile, so its launch is refused and the wrapper raises, naming
-    the bytes and the factored receiver; the link's dense stacks would take
-    1 GB each, so its wrapper raises before building any, naming the
-    factored link."""
+    """N = 9216: the dense stacks would take 1 GB each, so both wrappers
+    raise before building any, naming the factored receiver and link."""
     from gfdm_tpu_torch.entry import large_k_config
 
     dev = _cuda()
     cfg = large_k_config(1024)
-    assert _rx_tile_bursts(cfg, 4) == 0
     before = dict(fused.LAUNCHES)
-    with pytest.raises(RuntimeError, match="gfdm_rx kernel failed to launch.*"
-                                           "314[0-9]{3} B.*rx_receiver_factored"):
+    with pytest.raises(ValueError, match="rx_receiver_fused: N = 9216.*rx_receiver_factored"):
         fused.rx_receiver_fused(cfg, torch.zeros(4, 2, cfg.frame_len, device=dev))
     with pytest.raises(ValueError, match="link_single_fused: N = 9216.*link_step_factored"):
         fused.link_single_fused(cfg, torch.zeros(4, 2, cfg.n_data_symbols, device=dev))
     assert fused.LAUNCHES == before
+    assert not any(key[0] == cfg for key in fused._KERNEL_CONSTS)
 
 
 # ---------------------------------------------------------------------------
@@ -348,9 +339,11 @@ def _qam_payload(cfg, name, seed, dev):
 @pytest.mark.parametrize("ic_mode", ["conv", "matmul"])
 @pytest.mark.parametrize("case", sorted(RX_OPTIONS))
 def test_rx_kernel_options_match_plain(case, ic_mode):
-    """Each receiver option on noisy bursts; bursts whose IC decisions differ
-    between kernel and plain version (a decision within float rounding of a
-    level boundary) are counted and left out, at most one here."""
+    """Each receiver option on noisy bursts, against the plain version summed
+    in float64 as the kernels sum their float32-stack products; bursts whose
+    IC decisions differ between kernel and plain version (a decision within
+    float rounding of a level boundary) are counted and left out, at most
+    one here."""
     dev = _cuda()
     cfg = CONFIGS["canonical"]
     kw = RX_OPTIONS[case]
@@ -361,8 +354,10 @@ def test_rx_kernel_options_match_plain(case, ic_mode):
     bursts = bursts + 0.01 * torch.randn(bursts.shape, device=dev, generator=gen)
     before = fused.LAUNCHES["rx"]
     chan, sym, met = fused.rx_receiver_fused(cfg, bursts, ic_mode=ic_mode, **kw)
-    assert fused.LAUNCHES["rx"] == before + 1
-    rchan, rsym, rmet = fused._rx_receiver_plain(cfg, bursts.reshape(B, -1), 2, ic_mode, **kw)
+    assert fused.LAUNCHES["rx"] == before + fused.rx_launches(2, kw.get("phase_compensation",
+                                                                       False))
+    rchan, rsym, rmet = fused._rx_receiver_plain(cfg, bursts.reshape(B, -1), 2, ic_mode,
+                                                 gdot=fused._gdot64, **kw)
     assert _max_err(chan, rchan) < 2e-4
     err = (sym.reshape(B, -1) - rsym).abs().amax(dim=1)
     assert int((err >= 5e-4).sum()) <= 1
@@ -398,6 +393,55 @@ def test_link_kernel_options_match_plain(name, dtype_name):
     assert float((d_hat.reshape(B, -1)[keep] - ref[keep]).abs().max()) < tol
     ref_evm = float(((ref - data.reshape(B, -1)) ** 2).sum() / (data**2).sum()) ** 0.5
     assert abs(float(evm) - ref_evm) < 1e-4
+
+
+@pytest.mark.parametrize("phase", [False, True])
+@pytest.mark.parametrize("ic_iterations", [0, 1, 3])
+@pytest.mark.parametrize("ic_mode", ["conv", "matmul"])
+def test_rx_kernel_ic_iterations_match_plain(ic_mode, ic_iterations, phase):
+    """The receiver's plan at 0, 1 and 3 IC iterations, with and without the
+    phase stage (which runs only before an IC iteration), on noisy bursts
+    whose data section is rotated by 0.1 rad, against the plain version
+    summed in float64; at most one burst whose decisions differ at a level
+    boundary is left out."""
+    dev = _cuda()
+    cfg = CONFIGS["canonical"]
+    bursts = fused.tx_frame_fused(cfg, _payload(cfg, 72, dev))
+    c, s, p = float(np.cos(0.1)), float(np.sin(0.1)), cfg.preamble_len
+    re, im = bursts[:, 0, p:].clone(), bursts[:, 1, p:].clone()
+    bursts[:, 0, p:], bursts[:, 1, p:] = c * re - s * im, s * re + c * im
+    gen = torch.Generator(dev).manual_seed(4)
+    bursts = bursts + 0.01 * torch.randn(bursts.shape, device=dev, generator=gen)
+    kw = dict(ic_mode=ic_mode, phase_compensation=phase)
+    before = fused.LAUNCHES["rx"]
+    chan, sym, met = fused.rx_receiver_fused(cfg, bursts, ic_iterations=ic_iterations, **kw)
+    assert fused.LAUNCHES["rx"] == before + fused.rx_launches(ic_iterations, phase)
+    assert fused.rx_launches(ic_iterations, phase) == 4 + ic_iterations + (
+        phase and ic_iterations > 0)
+    rchan, rsym, rmet = fused._rx_receiver_plain(cfg, bursts.reshape(B, -1), ic_iterations,
+                                                 gdot=fused._gdot64, **kw)
+    assert _max_err(chan, rchan) < 2e-4
+    assert float(((met - rmet).abs() / (rmet.abs() + 1e-12))[:, 0].max()) < 1e-3
+    err = (sym.reshape(B, -1) - rsym).abs().amax(dim=1)
+    assert int((err >= 5e-4).sum()) <= 1
+    assert float(err[err < 5e-4].max()) < 5e-4
+
+
+@pytest.mark.parametrize("equalizer", ["zf", "mmse", "mmse_cnr"])
+def test_rx_stages_match_plain_stages(equalizer):
+    """Each product stage of the receiver (preamble power, channel, Y with
+    the equalizer's weight, D0) against the plain stage summed in float64
+    on the kernel's own inputs: within 1e-5 of the stage's largest
+    magnitude."""
+    dev = _cuda()
+    cfg = CONFIGS["canonical"]
+    bursts = fused.tx_frame_fused(cfg, _payload(cfg, 73, dev))
+    gen = torch.Generator(dev).manual_seed(5)
+    bursts = (bursts + 0.05 * torch.randn(bursts.shape, device=dev, generator=gen))
+    errs = fused._rx_stage_errors(cfg, bursts.reshape(B, -1), equalizer)
+    assert sorted(errs) == ["chan", "demod", "est_zf", "pre_dft"]
+    for stage, e in errs.items():
+        assert float(e.max()) < 1e-5, (stage, float(e.max()))
 
 
 def _link_vs_plain(cfg, data, ic_mode, dtype_name="float32", name="qpsk", ic_iterations=2):
@@ -578,7 +622,7 @@ def test_service_option_matrix_on_card():
                            equalizer="mmse_cnr", constellation="qam16")
     assert rx.device.type == "cuda"
     out = rx.step(stream)
-    assert fused.LAUNCHES["rx"] == before + 1
+    assert fused.LAUNCHES["rx"] == before + fused.rx_launches(2)
     assert out["found"].sum() == counts.sum() == 64
 
 

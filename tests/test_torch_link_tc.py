@@ -206,7 +206,7 @@ def test_link_refuses_k1024_before_building_constants():
         fused.link_single_fused(cfg, torch.zeros(2, 2, cfg.n_data_symbols))
     assert not any(key[0] == cfg for key in fused._KERNEL_CONSTS)
     assert not any(key[0] == cfg for key in fused._EXTRA_CONSTS)
-    fused._check_link_size(large_k_config(512))
+    fused._check_dense_size(large_k_config(512), "link_single_fused", "link_step_factored")
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
