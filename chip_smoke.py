@@ -85,8 +85,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
              of f32, bf16 and int8; each against its plain version (f32
              max |d| / max |ref| <= 1e-5, bf16 <= 1e-2, int8 bit for bit)
              and against a float64 chain; then kernel, plain and library
-             times (torch.linalg.multi_dot; torch.mm with float32 output;
-             torch._int_mm with torch-op quantization between).
+             times (three torch.mm with TF32 off; three torch.mm with
+             float32 output; torch._int_mm with torch-op quantization
+             between), and torch.linalg.multi_dot's time as a note (it
+             reassociates: not the chain's function).
 
 Then a JSON line of per-kernel results (launches on the main paths, error
 against the plain version, kernel, plain and library ms, the bound: the
@@ -194,7 +196,7 @@ SOURCES = {
 }
 B_CHAIN = 65536  # phase 10: the link's batch
 CHAIN_TOL = {"f32": 1e-5, "bf16": 1e-2}  # int8: bit for bit
-CHAIN_LAUNCHES = {"f32": 1, "bf16": 1, "int8": 4}  # kernels of one chain call
+CHAIN_LAUNCHES = {"f32": 3, "bf16": 4, "int8": 4}  # kernels of one chain call
 B_OPTIONS = 16384  # phase 8's receiver checks
 N_RAGGED_CDD = 4099
 # phase 7: the crossover study's link points (K, B) and the full-width one;
@@ -1201,14 +1203,15 @@ def _cdd_variants_phase(torch, cfg, dev, data, noisy, card, check, failures):
 
 
 def _chain_library(torch, variant: str, x, cw):
-    """The chain as PyTorch's own calls, the yardstick: multi_dot (f32; it
-    multiplies W1 W2 W3 first, then one GEMM over the batch), three torch.mm
-    with float32 output (bf16), three torch._int_mm with torch-op int8
-    quantization between (int8)."""
+    """The chain as PyTorch's own calls, the yardstick, the same products in
+    the same order: three torch.mm with TF32 off (f32: cuBLAS's SGEMMs),
+    three torch.mm with float32 output (bf16), three torch._int_mm with
+    torch-op int8 quantization between (int8)."""
     from gfdm_tpu_torch.kernels import chain
 
     if variant == "f32":
-        return torch.linalg.multi_dot([x, *cw.w])
+        with chain._no_tf32(x.device):
+            return torch.mm(torch.mm(torch.mm(x, cw.w[0]), cw.w[1]), cw.w[2])
     a = x
     for i, w in enumerate(cw.w):
         if variant == "bf16":
@@ -1278,6 +1281,11 @@ def _chain_phase(torch, dev, card, check, failures):
         print(f"[10 time] chain_{v}: kernel {ks} ms = {ops / (k_ms * 1e-3) / 1e12:.1f} "
               f"TF(OP)/s, plain {ps} ms, library {lib_ms:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}) = {bound_ms / k_ms:.1%} of it (B={B_CHAIN}, {card})", flush=True)
+    cw = cws["f32"]
+    md_ms = _time_ms(torch, lambda: torch.linalg.multi_dot([xs, *cw.w]))
+    print(f"[10 note] chain_f32: torch.linalg.multi_dot {md_ms:.3f} ms, not a yardstick: it "
+          f"reassociates (W1 W2 W3 first, then one GEMM over the batch), 30% of the chain's "
+          f"operations (B={B_CHAIN}, {card})", flush=True)
     return launches, err, times
 
 

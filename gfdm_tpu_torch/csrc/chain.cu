@@ -20,17 +20,41 @@
 // TFLOP/s of dense bf16, 0.25 ms at the 1,979 TOP/s of dense int8. The bytes
 // (x and out once, the weights once: 0.17 ms) never bind.
 //
-// Design: simple and right first.
-// f32: one kernel. A CTA of 512 threads owns 32 rows through all three
-//   stages: their (32, 1152) activation stays in shared memory (147 KB),
-//   and the weights (L2-resident) stream through it in 8-row k-tiles
-//   (cp.async, double-buffered, 74 KB). Each thread keeps an 8 x 9 block of
-//   the stage's output in registers; FMA on CUDA cores, no TF32. The chain
-//   never leaves the chip, as in the TPU kernel.
-// bf16: the same one-kernel structure; the activation is held as bf16 (it
-//   is rounded to bf16 before each product anyway: 74 KB at 32 rows) and
-//   the products run on tensor cores (wmma 16x16x16, bf16 -> float32),
-//   each of the 16 warps owning nine 16x16 output tiles of a stage.
+// Design.
+// f32: one launch a stage (three), each a GEMM over the batch with its
+//   activation in device memory (x -> scratch[0] -> scratch[1] -> out,
+//   302 MB a float32 intermediate at B = 65,536: 0.5 ms of bytes against a
+//   7.3 ms bound). A CTA of 128 threads computes a 64 x 128 output tile,
+//   each thread an 8 x 8 block (rows ty + 8 i, columns 4 tx + 64 h + e).
+//   k runs in 16-deep tiles through a four-slot cp.async ring (48 KB); a
+//   k-tile past kd is zero-filled by the copy (src-size 0). The A tile is
+//   [m][k] and the W tile [k][n], so four k of a row and a k-row of eight
+//   columns are 16-byte loads (LDS.128): 16 shared loads per 256 FMA, the
+//   FMAs in a zigzag over the columns. Three CTAs an SM at up to 170
+//   registers, so no spill (256 threads capped at 128 registers for two
+//   CTAs spill; 128 x 128 tiles, 8 x 16 and 16 x 8 blocks, 8- or 32-deep
+//   k-tiles and other rings ran slower). Every output
+//   element is one FMA chain over k in order, from zero, with no split-k:
+//   bit-equal to cuBLAS's SGEMM at these shapes. FMA on CUDA cores, no TF32.
+// bf16: a rounding pass writes bf16(x) (nearest even) into the scratch,
+//   then one launch a stage (four launches): stage 1 writes its bf16 output
+//   into the bytes of out, stage 2 into the scratch, stage 3 float32 into
+//   out. Each stage is a persistent TMA + wgmma GEMM (hopper_gemm.cuh):
+//   256 x 192 output tiles (L2 traffic 110 FLOP a byte, against 32 for
+//   the one-CTA kernel this replaces); warpgroup 0 (one thread) starts TMA
+//   loads of 64-deep k-slabs of the activation (256 x 64) and of the
+//   transposed weight (192 x 64, K-major, transposed once on the host) into
+//   a four-slot ring on mbarriers and gives its registers away
+//   (setmaxnreg); two consumer warpgroups each run wgmma m64n192k16 (bf16
+//   into float32, both operands in shared memory) for 128 rows, 192
+//   accumulator registers a thread, keeping one slab's products in flight
+//   while the next is started. The sum of a tile stays in the wgmma
+//   accumulator over all of k. Rows of bf16(x) and of W1^T are padded to a
+//   multiple of 64 (a 1,872-byte row would split each 128-byte TMA row
+//   over two lines; TMA still zero-fills k >= 936). The epilogue is not
+//   overlapped with the next tile's products: the tensor cores wait while
+//   the fragment goes to device memory, 16 bytes a lane for bf16 (after a
+//   4 x 4 exchange in each quad), 8 for float32.
 // int8: a group's (128, 1152) stage output (590 KB as float32) does not fit
 //   a CTA, and the next stage's scale needs the whole group's max, so one
 //   launch a stage plus one absmax pass over x: four launches. A CTA
@@ -47,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "hopper_gemm.cuh"
+
 namespace gfdm {
 namespace chain {
 
@@ -55,7 +81,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int HID = 1152;   // width of every stage's output
 constexpr int GROUP = 128;  // rows sharing one int8 activation scale
-constexpr int KPAD = 64;    // the int8 weights' k padding (kernels/chain.py _KPAD)
+constexpr int KPAD = 64;    // the bf16 and int8 weights' k padding (kernels/chain.py _KPAD)
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -86,180 +112,271 @@ __device__ float block_max256(float m) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: one kernel, the activation in shared memory through three stages
+// f32: one launch a stage, a register-blocked FMA GEMM on CUDA cores
 // ---------------------------------------------------------------------------
-constexpr int F_BM = 32, F_BK = 8, F_THREADS = 512;
-constexpr int F_RPT = 8, F_CPT = 9;  // a thread's output block: 8 rows x 9 columns
-static_assert(F_BM == (F_THREADS / 128) * F_RPT && HID == 128 * F_CPT, "f32 tiling");
-constexpr size_t F_SMEM = sizeof(float) * (F_BM * HID + 2 * F_BK * HID);
+constexpr int F_BM = 64, F_BN = 128, F_BK = 16, F_STAGES = 4, F_THREADS = 128;
+constexpr int F_TM = 8, F_TN = 8;  // a thread's block: rows ty + 8 i, columns 4 tx + 64 h + e
+constexpr int F_TY = F_THREADS / 16;
+static_assert(F_BM == F_TY * F_TM && F_BN == 16 * F_TN && HID % F_BN == 0, "f32 tiling");
+constexpr int F_SLOT = F_BM * F_BK + F_BK * F_BN;  // floats a ring slot: A [m][k], W [k][n]
+constexpr size_t F_SMEM = sizeof(float) * F_STAGES * F_SLOT;
 
-// Rows k0 .. k0 + F_BK of w (full 1152-wide rows: one contiguous run).
-__device__ __forceinline__ void f32_load_tile(float* dst, const float* w, int k0, int tid) {
-  const float* src = w + static_cast<size_t>(k0) * HID;
-  for (int i = tid; i < F_BK * HID / 4; i += F_THREADS) cp_async16(dst + 4 * i, src + 4 * i);
-  cp_async_commit();
+// 16 bytes, or zeros where !valid (src-size 0 reads nothing)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(F_THREADS, 1)
-chain_f32_kernel(int d_in, const float* __restrict__ x, const float* __restrict__ w1,
-                 const float* __restrict__ w2, const float* __restrict__ w3,
-                 float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* act = reinterpret_cast<float*>(smem);  // [F_BM][HID]
-  float* wt = act + F_BM * HID;                 // [2][F_BK][HID]
-  const int tid = threadIdx.x;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * F_BM;
-  for (int i = tid; i < F_BM * d_in / 4; i += F_THREADS) {
-    const int r = 4 * i / d_in, k = 4 * i - r * d_in;
-    *reinterpret_cast<float4*>(act + r * HID + k) =
-        *reinterpret_cast<const float4*>(x + (row0 + r) * d_in + k);
+// k-tile k0 into a ring slot: A rows m0 .. m0 + 64 (pitch kd) and W rows
+// k0 .. k0 + 16, columns n0 .. n0 + 128 (pitch HID); k >= kd zero
+__device__ __forceinline__ void f32_load_tile(float* slot, const float* a, const float* w, int kd,
+                                              size_t m0, int n0, int k0, int tid) {
+  float* as = slot;
+  float* ws = slot + F_BM * F_BK;
+#pragma unroll
+  for (int i = 0; i < F_BM * F_BK / 4 / F_THREADS; ++i) {
+    const int c = tid + i * F_THREADS, r = c >> 2, k = k0 + 4 * (c & 3);
+    cp_async16_zfill(as + r * F_BK + 4 * (c & 3), k < kd ? a + (m0 + r) * kd + k : a, k < kd);
   }
-  // a warp shares its rows (broadcast reads of act) and reads 32 adjacent
-  // columns of the tile (no bank conflict)
-  const int r0 = (tid >> 7) * F_RPT, c0 = tid & 127;
-  for (int s = 0; s < 3; ++s) {
-    const float* w = s == 0 ? w1 : (s == 1 ? w2 : w3);
-    const int nt = (s == 0 ? d_in : HID) / F_BK;
-    float acc[F_RPT][F_CPT];
 #pragma unroll
-    for (int i = 0; i < F_RPT; ++i)
+  for (int i = 0; i < F_BK * F_BN / 4 / F_THREADS; ++i) {
+    const int c = tid + i * F_THREADS, r = c >> 5, col = 4 * (c & 31);
+    const bool ok = k0 + r < kd;
+    cp_async16_zfill(ws + r * F_BN + col, ok ? w + static_cast<size_t>(k0 + r) * HID + n0 + col : w,
+                     ok);
+  }
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+// c[m0 .., n0 ..] = a (rows, kd) @ w (kd, HID), a 64 x 128 tile a CTA
+__global__ void __launch_bounds__(F_THREADS, 3)
+chain_f32_stage_kernel(int kd, const float* __restrict__ a, const float* __restrict__ w,
+                       float* __restrict__ c) {
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const size_t m0 = static_cast<size_t>(blockIdx.y) * F_BM;
+  const int n0 = blockIdx.x * F_BN;
+  const int nt = (kd + F_BK - 1) / F_BK;
+  float acc[F_TM][F_TN];
 #pragma unroll
-      for (int j = 0; j < F_CPT; ++j) acc[i][j] = 0.f;
-    f32_load_tile(wt, w, 0, tid);
-    for (int t = 0; t < nt; ++t) {
-      if (t + 1 < nt) {
-        f32_load_tile(wt + ((t + 1) & 1) * F_BK * HID, w, (t + 1) * F_BK, tid);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const float* wb = wt + (t & 1) * F_BK * HID;
+  for (int i = 0; i < F_TM; ++i)
 #pragma unroll
-      for (int kk = 0; kk < F_BK; ++kk) {
-        const int k = t * F_BK + kk;
-        float a[F_RPT], b[F_CPT];
+    for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
 #pragma unroll
-        for (int i = 0; i < F_RPT; ++i) a[i] = act[(r0 + i) * HID + k];
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < nt) f32_load_tile(fsm + s * F_SLOT, a, w, kd, m0, n0, s * F_BK, tid);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<F_STAGES - 2>();  // tile t has landed
+    __syncthreads();                // ... for every thread, and tile t - 1's slot is free
+    const int tn = t + F_STAGES - 1;
+    if (tn < nt) f32_load_tile(fsm + (tn % F_STAGES) * F_SLOT, a, w, kd, m0, n0, tn * F_BK, tid);
+    cp_async_commit();
+    const float* as = fsm + (t % F_STAGES) * F_SLOT;
+    const float* ws = as + F_BM * F_BK;
 #pragma unroll
-        for (int j = 0; j < F_CPT; ++j) b[j] = wb[kk * HID + c0 + 128 * j];
+    for (int k4 = 0; k4 < F_BK; k4 += 4) {
+      // a warp reads two rows (16 words apart: other banks), broadcast
+      float4 av[F_TM];
 #pragma unroll
-        for (int i = 0; i < F_RPT; ++i)
+      for (int i = 0; i < F_TM; ++i)
+        av[i] = *reinterpret_cast<const float4*>(as + (ty + F_TY * i) * F_BK + k4);
 #pragma unroll
-          for (int j = 0; j < F_CPT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    // every read of act is done (the barrier above); the next stage's first
-    // barrier orders these writes before its reads
+      for (int e = 0; e < 4; ++e) {
+        const float* wr = ws + (k4 + e) * F_BN + 4 * tx;
+        const float4 b0 = *reinterpret_cast<const float4*>(wr);
+        const float4 b1 = *reinterpret_cast<const float4*>(wr + 64);
+        const float bv[F_TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int i = 0; i < F_RPT; ++i)
+        for (int i = 0; i < F_TM; ++i) {
+          const float ai = lane4(av[i], e);
+          // odd rows walk the columns backwards, so the FMA after a row
+          // change reuses the W operand of the one before (operand reuse)
 #pragma unroll
-      for (int j = 0; j < F_CPT; ++j) {
-        if (s < 2) {
-          act[(r0 + i) * HID + c0 + 128 * j] = acc[i][j];
-        } else {
-          out[(row0 + r0 + i) * HID + c0 + 128 * j] = acc[i][j];
+          for (int jj = 0; jj < F_TN; ++jj) {
+            const int j = (i & 1) ? F_TN - 1 - jj : jj;
+            acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+          }
         }
       }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16: one kernel, bf16 activation in shared memory, wmma products
-// ---------------------------------------------------------------------------
-constexpr int H_BM = 32, H_BK = 32, H_THREADS = 512;
-constexpr int H_LD = HID + 8;  // bf16 pitch: a multiple of 8 (wmma), rows 16 B apart mod 128
-constexpr int H_TILES = HID / 16 / ((H_THREADS / 32) / (H_BM / 16));  // 9 a warp
-static_assert(H_TILES == 9, "bf16 tiling");
-constexpr size_t H_SMEM = sizeof(bf16) * (H_BM * H_LD + 2 * H_BK * H_LD);
-
-// Rows k0 .. k0 + H_BK of w (kd x HID) into dst [H_BK][H_LD]; rows >= kd zero.
-__device__ __forceinline__ void bf16_load_tile(bf16* dst, const bf16* w, int k0, int kd,
-                                               int tid) {
-  constexpr int CH = HID / 8;  // 16-byte chunks a row
-  for (int i = tid; i < H_BK * CH; i += H_THREADS) {
-    const int r = i / CH, c = i - r * CH;
-    bf16* d = dst + r * H_LD + 8 * c;
-    if (k0 + r < kd) {
-      cp_async16(d, w + static_cast<size_t>(k0 + r) * HID + 8 * c);
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < F_TM; ++i) {
+    float* row = c + (m0 + ty + F_TY * i) * HID + n0 + 4 * tx;
+    *reinterpret_cast<float4*>(row) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + 64) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: x rounded to bf16 in one pass, then one launch a stage on TMA and
+// wgmma (hopper_gemm.cuh)
+// ---------------------------------------------------------------------------
+constexpr int H_BM = 256, H_BN = 192, H_STAGES = 4;
+constexpr int H_NT = HID / H_BN;  // column tiles of a row tile
+constexpr int H_CONSUMERS = 2;    // warpgroups, 128 rows of the tile each
+constexpr int H_THREADS = 128 * (1 + H_CONSUMERS);  // warpgroup 0 loads
+constexpr uint32_t H_A_BYTES = H_BM * hg::SLAB * sizeof(bf16);
+constexpr uint32_t H_B_BYTES = H_BN * hg::SLAB * sizeof(bf16);
+static_assert(HID % H_BN == 0 && H_A_BYTES % 1024 == 0 && H_B_BYTES % 1024 == 0, "bf16 tiling");
+constexpr size_t H_SMEM =
+    1024 + H_STAGES * (H_A_BYTES + H_B_BYTES) + 2 * H_STAGES * sizeof(uint64_t);
+
+// y[r, k] = bf16(x[r, k]) (nearest even) for k < d_in, rows of y ldy apart;
+// n4 = rows * d_in / 4
+__global__ void __launch_bounds__(256)
+chain_round_bf16_kernel(size_t n4, int d_in, int ldy, const float4* __restrict__ x,
+                        bf16* __restrict__ y) {
+  const int q4 = d_in / 4;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n4;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = i / q4;
+    const float4 v = x[i];
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    *reinterpret_cast<uint2*>(y + r * ldy + 4 * (i - r * q4)) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                   *reinterpret_cast<const unsigned*>(&hi));
+  }
+}
+
+__device__ __forceinline__ unsigned pick4(const unsigned (&v)[4], int i) {
+  return i == 0 ? v[0] : (i == 1 ? v[1] : (i == 2 ? v[2] : v[3]));
+}
+
+// c (rows, HID) = a (rows, kd) @ w, with map_a over a (bf16, boxes 256 x 64;
+// rows past `rows` arrive as zeros and are not stored) and map_b over w^T
+// (HID, kd) bf16 (boxes 192 x 64); c bf16 (rounded, nearest even) or
+// float32. Persistent: a CTA walks the 256 x 192 tiles blockIdx.x, +
+// gridDim.x, ..., column tile fastest, so the CTAs in flight share their
+// rows of a in L2. Warpgroup 0 gives its registers to the two consumer
+// warpgroups (setmaxnreg), each holding a 128 x 192 float32 sum: 192
+// registers a thread.
+template <bool F32_OUT>
 __global__ void __launch_bounds__(H_THREADS, 1)
-chain_bf16_kernel(int d_in, const float* __restrict__ x, const bf16* __restrict__ w1,
-                  const bf16* __restrict__ w2, const bf16* __restrict__ w3,
-                  float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);  // [H_BM][H_LD]
-  bf16* wt = act + H_BM * H_LD;               // [2][H_BK][H_LD]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * H_BM;
-  // stage 0's activation rounded to bf16; columns [d_in, kp0) zero
-  const int q0 = (d_in + H_BK - 1) / H_BK * H_BK / 4;
-  for (int i = tid; i < H_BM * q0; i += H_THREADS) {
-    const int r = i / q0, k = 4 * (i - r * q0);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k < d_in) v = *reinterpret_cast<const float4*>(x + (row0 + r) * d_in + k);
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(act + r * H_LD + k);
-    d[0] = __floats2bfloat162_rn(v.x, v.y);
-    d[1] = __floats2bfloat162_rn(v.z, v.w);
-  }
-  const int rt = warp & 1, ct0 = (warp >> 1) * H_TILES;  // row tile, first column tile
-  for (int s = 0; s < 3; ++s) {
-    const bf16* w = s == 0 ? w1 : (s == 1 ? w2 : w3);
-    const int kd = s == 0 ? d_in : HID;
-    const int nt = (kd + H_BK - 1) / H_BK;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[H_TILES];
-#pragma unroll
-    for (int j = 0; j < H_TILES; ++j) wmma::fill_fragment(acc[j], 0.f);
-    bf16_load_tile(wt, w, 0, kd, tid);
-    for (int t = 0; t < nt; ++t) {
-      if (t + 1 < nt) {
-        bf16_load_tile(wt + ((t + 1) & 1) * H_BK * H_LD, w, (t + 1) * H_BK, kd, tid);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* wb = wt + (t & 1) * H_BK * H_LD;
-#pragma unroll
-      for (int kk = 0; kk < H_BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, act + rt * 16 * H_LD + t * H_BK + kk, H_LD);
-#pragma unroll
-        for (int j = 0; j < H_TILES; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, wb + kk * H_LD + (ct0 + j) * 16, H_LD);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-      __syncthreads();
+chain_bf16_stage_kernel(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_b, int rows, int kd,
+                        void* __restrict__ c) {
+  extern __shared__ unsigned char hsm[];
+  unsigned char* base = hsm + ((1024u - (hg::smem_addr(hsm) & 1023u)) & 1023u);
+  bf16* sa = reinterpret_cast<bf16*>(base);                         // [H_STAGES][H_BM][SLAB]
+  bf16* sb = reinterpret_cast<bf16*>(base + H_STAGES * H_A_BYTES);  // [H_STAGES][H_BN][SLAB]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + H_STAGES * (H_A_BYTES + H_B_BYTES));
+  uint64_t* empty = full + H_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int s = 0; s < H_STAGES; ++s) {
+      hg::mbar_init(full + s, 1);                 // the producer's expect_tx
+      hg::mbar_init(empty + s, 4 * H_CONSUMERS);  // one arrival a consumer warp
     }
-    if (s < 2) {
-      // the fragments' layout is opaque: stage each through the (now free)
-      // tile buffer as float32, then round it to bf16 into act
-      float* stage = reinterpret_cast<float*>(wt) + warp * 256;
-#pragma unroll
-      for (int j = 0; j < H_TILES; ++j) {
-        wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          act[(rt * 16 + (e >> 4)) * H_LD + (ct0 + j) * 16 + (e & 15)] =
-              __float2bfloat16_rn(stage[e]);
+    hg::mbar_init_fence();
+  }
+  __syncthreads();
+  const int tiles = (rows + H_BM - 1) / H_BM * H_NT;
+  const int nk = (kd + hg::SLAB - 1) / hg::SLAB;  // the last slab's k >= kd arrive as zeros
+  if (wg == 0) {  // producer: one thread starts every load
+    hg::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      hg::tma_prefetch_map(&map_a);
+      hg::tma_prefetch_map(&map_b);
+      hg::Ring r;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / H_NT * H_BM, n0 = t % H_NT * H_BN;
+        for (int kt = 0; kt < nk; ++kt) {
+          hg::mbar_wait(empty + r.slot, r.phase ^ 1u);
+          hg::mbar_expect_tx(full + r.slot, H_A_BYTES + H_B_BYTES);
+          hg::tma_load_2d(sa + r.slot * H_BM * hg::SLAB, &map_a, full + r.slot, kt * hg::SLAB, m0);
+          hg::tma_load_2d(sb + r.slot * H_BN * hg::SLAB, &map_b, full + r.slot, kt * hg::SLAB, n0);
+          r.advance<H_STAGES>();
         }
-        __syncwarp();
       }
-      __syncthreads();  // before the next stage's loads overwrite the staging
-    } else {
+    }
+    return;
+  }
+  hg::setmaxnreg_inc<232>();
+  const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+  float acc[2][96];  // rows 128 cw + 64 q + ..., q = 0, 1
 #pragma unroll
-      for (int j = 0; j < H_TILES; ++j) {
-        wmma::store_matrix_sync(out + (row0 + rt * 16) * HID + (ct0 + j) * 16, acc[j], HID,
-                                wmma::mem_row_major);
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int i = 0; i < 96; ++i) acc[q][i] = 0.f;
+  hg::Ring r;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t / H_NT * H_BM, n0 = t % H_NT * H_BN;
+    int prev = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      hg::mbar_wait(full + r.slot, r.phase);
+      const uint64_t da = hg::smem_desc_sw128(sa + (r.slot * H_BM + 128 * cw) * hg::SLAB);
+      const uint64_t db = hg::smem_desc_sw128(sb + r.slot * H_BN * hg::SLAB);
+      hg::wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < hg::SLAB / 16; ++s) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {  // 64 rows = 8 KB of the swizzled A tile
+          hg::wgmma_m64n192k16(acc[q], hg::desc_k16(da + q * (8192 >> 4), s),
+                               hg::desc_k16(db, s), (kt | s) != 0);
+        }
+      }
+      hg::wgmma_commit();
+      if (kt > 0) {  // the previous slab's products are done: free its slot
+        hg::wgmma_wait<1>();
+        if (lane == 0) hg::mbar_arrive(empty + prev);
+      }
+      prev = r.slot;
+      r.advance<H_STAGES>();
+    }
+    hg::wgmma_wait<0>();
+    hg::fence_regs(acc[0]);
+    hg::fence_regs(acc[1]);
+    if (lane == 0) hg::mbar_arrive(empty + prev);
+    // the fragment: acc[q][4 j + 2 h + e] is row 64 q + 16 warp + lane / 4 +
+    // 8 h, column 8 j + 2 (lane % 4) + e of the warpgroup's 128 x 192
+    const int qi = lane & 3;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + 128 * cw + 64 * q + 16 * warp + (lane >> 2) + 8 * h;
+        if (row >= rows) continue;
+        if (F32_OUT) {  // 8 bytes a lane, a full 32-byte sector a row
+          float* dst = static_cast<float*>(c) + static_cast<size_t>(row) * HID + n0 + 2 * qi;
+#pragma unroll
+          for (int j = 0; j < H_BN / 8; ++j) {
+            *reinterpret_cast<float2*>(dst + 8 * j) =
+                make_float2(acc[q][4 * j + 2 * h], acc[q][4 * j + 2 * h + 1]);
+          }
+          continue;
+        }
+        // bf16: a 4 x 4 exchange within the quad gives lane qi the four
+        // pairs of column chunk 4 g + qi, 8 columns: one 16-byte store
+        bf16* dst = static_cast<bf16*>(c) + static_cast<size_t>(row) * HID + n0 + 8 * qi;
+#pragma unroll
+        for (int g = 0; g < H_BN / 32; ++g) {
+          unsigned v[4], o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = 4 * g + e;
+            const __nv_bfloat162 p =
+                __floats2bfloat162_rn(acc[q][4 * j + 2 * h], acc[q][4 * j + 2 * h + 1]);
+            v[e] = *reinterpret_cast<const unsigned*>(&p);
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {  // from lane qi + r: its pair of chunk 4 g + qi
+            const int src = (qi + r) & 3;
+            const unsigned got =
+                __shfl_sync(0xffffffffu, pick4(v, (qi - r) & 3), (lane & ~3) | src);
+#pragma unroll
+            for (int p = 0; p < 4; ++p) o[p] = p == src ? got : o[p];
+          }
+          *reinterpret_cast<uint4*>(dst + 32 * g) = make_uint4(o[0], o[1], o[2], o[3]);
+        }
       }
     }
   }
@@ -375,28 +492,73 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 1;
+  }
+  return n;
+}
+
+cudaError_t f32_stage(int batch, int kd, const float* a, const void* w, float* c,
+                      cudaStream_t st) {
+  chain_f32_stage_kernel<<<dim3(HID / F_BN, batch / F_BM), F_THREADS, F_SMEM, st>>>(
+      kd, a, static_cast<const float*>(w), c);
+  return cudaGetLastError();
+}
+
+// c = a (batch, kd; pitch lda) @ w, w given as w^T (HID, kd; pitch ldw)
+template <bool F32_OUT>
+cudaError_t bf16_stage(int batch, int kd, const bf16* a, int lda, const void* w_t, int ldw,
+                       void* c, cudaStream_t st) {
+  CUtensorMap map_a, map_b;
+  cudaError_t err = hg::tma_map_bf16(&map_a, a, batch, kd, lda, H_BM);
+  if (err == cudaSuccess) err = hg::tma_map_bf16(&map_b, w_t, HID, kd, ldw, H_BN);
+  if (err == cudaSuccess) err = allow_smem(chain_bf16_stage_kernel<F32_OUT>, H_SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = (batch + H_BM - 1) / H_BM * H_NT, sms = sm_count();
+  const int grid = tiles < sms ? tiles : sms;
+  chain_bf16_stage_kernel<F32_OUT><<<grid, H_THREADS, H_SMEM, st>>>(map_a, map_b, batch, kd, c);
+  return cudaGetLastError();
+}
+
 int launch_chain(int variant, int batch, int d_in, const void* x, const void* w1,
                  const void* w2, const void* w3, float c1, float c2, float c3,
-                 float* out, float* scratch, int* gmax, cudaStream_t st) {
+                 float* out, void* scratch, int* gmax, cudaStream_t st) {
   if (batch <= 0) return 0;
   if (batch % GROUP != 0 || d_in <= 0 || d_in > HID || d_in % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* xf = static_cast<const float*>(x);
+  const size_t plane = static_cast<size_t>(batch) * HID;
   cudaError_t err = cudaSuccess;
-  if (variant == 0) {
-    if ((err = allow_smem(chain_f32_kernel, F_SMEM)) != cudaSuccess) return static_cast<int>(err);
-    chain_f32_kernel<<<batch / F_BM, F_THREADS, F_SMEM, st>>>(
-        d_in, xf, static_cast<const float*>(w1), static_cast<const float*>(w2),
-        static_cast<const float*>(w3), out);
-    return static_cast<int>(cudaGetLastError());
+  if (variant == 0) {  // x -> scratch[0] -> scratch[1] -> out
+    float* s0 = static_cast<float*>(scratch);
+    float* s1 = s0 + plane;
+    if ((err = allow_smem(chain_f32_stage_kernel, F_SMEM)) != cudaSuccess ||
+        (err = f32_stage(batch, d_in, xf, w1, s0, st)) != cudaSuccess ||
+        (err = f32_stage(batch, HID, s0, w2, s1, st)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    return static_cast<int>(f32_stage(batch, HID, s1, w3, out, st));
   }
   if (variant == 1) {
-    if ((err = allow_smem(chain_bf16_kernel, H_SMEM)) != cudaSuccess) return static_cast<int>(err);
-    chain_bf16_kernel<<<batch / H_BM, H_THREADS, H_SMEM, st>>>(
-        d_in, xf, static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
-        static_cast<const bf16*>(w3), out);
-    return static_cast<int>(cudaGetLastError());
+    // x -> bf16(x) in scratch -> stage 1 into out's first half (bf16) ->
+    // stage 2 into scratch -> stage 3 into out (float32): no stage reads
+    // the buffer it writes. bf16(x) and w1^T have rows kp apart: every TMA
+    // row starts on a 128-byte line
+    const int kp = (d_in + KPAD - 1) / KPAD * KPAD;
+    bf16* sc = static_cast<bf16*>(scratch);
+    bf16* ob = reinterpret_cast<bf16*>(out);
+    chain_round_bf16_kernel<<<8 * sm_count(), 256, 0, st>>>(
+        static_cast<size_t>(batch) * d_in / 4, d_in, kp, reinterpret_cast<const float4*>(xf), sc);
+    if ((err = cudaGetLastError()) != cudaSuccess ||
+        (err = bf16_stage<false>(batch, d_in, sc, kp, w1, kp, ob, st)) != cudaSuccess ||
+        (err = bf16_stage<false>(batch, HID, ob, HID, w2, HID, sc, st)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    return static_cast<int>(bf16_stage<true>(batch, HID, sc, HID, w3, HID, out, st));
   }
   if (variant != 2) return static_cast<int>(cudaErrorInvalidValue);
   const int groups = batch / GROUP;
@@ -411,8 +573,8 @@ int launch_chain(int variant, int batch, int d_in, const void* x, const void* w1
   chain_absmax_kernel<<<groups, 256, 0, st>>>(d_in, xf, gmax);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(HID / Q_BN, groups);
-  float* a = scratch;
-  float* b = scratch + static_cast<size_t>(batch) * HID;
+  float* a = static_cast<float*>(scratch);
+  float* b = a + plane;
   const signed char* ws[3] = {static_cast<const signed char*>(w1),
                               static_cast<const signed char*>(w2),
                               static_cast<const signed char*>(w3)};
@@ -431,14 +593,15 @@ int launch_chain(int variant, int batch, int d_in, const void* x, const void* w1
 }  // namespace gfdm
 
 // variant 0 f32, 1 bf16, 2 int8. x (batch, d_in) float32; w1 (d_in, 1152),
-// w2, w3 (1152, 1152) float32 or bf16, or for int8 their transposes (1152,
-// k) int8 with k zero-padded to a multiple of 64 and c1-3 each stage's
-// inv / 127 in float32; out (batch, 1152) float32. int8 also takes scratch
-// (2, batch, 1152) float32 and gmax (3, batch / 128) int32. batch must be a
-// multiple of 128, d_in a multiple of 8 and at most 1152.
+// w2, w3 (1152, 1152) float32; for bf16 and int8 their transposes (1152,
+// k) with k zero-padded to a multiple of 64, bf16 or int8 (for int8 c1-3
+// are each stage's inv / 127 in float32); out (batch, 1152) float32. scratch: f32 and int8 (2, batch,
+// 1152) float32, bf16 (batch, 1152) bf16; int8 also gmax (3, batch / 128)
+// int32. batch must be a multiple of 128, d_in a multiple of 8 and at most
+// 1152. Launches: f32 3, bf16 4, int8 4.
 extern "C" int gfdm_chain(int variant, int batch, int d_in, const void* x, const void* w1,
                           const void* w2, const void* w3, float c1, float c2, float c3,
-                          float* out, float* scratch, int* gmax, void* stream) {
+                          float* out, void* scratch, int* gmax, void* stream) {
   return gfdm::chain::launch_chain(variant, batch, d_in, x, w1, w2, w3, c1, c2, c3, out,
                                    scratch, gmax, static_cast<cudaStream_t>(stream));
 }

@@ -22,7 +22,8 @@ that asks what tensor cores give on this card, in time and in accuracy.
   128-row group is part of the function.
 
 :func:`gemm_chain` runs ``csrc/chain.cu`` for a tensor on the card (one
-launch for f32 and bf16, four for int8: an absmax pass and one a stage) and
+launch a stage for f32; for bf16 a pass rounding x to bf16, then one a
+stage on TMA and ``wgmma``; for int8 an absmax pass, then one a stage) and
 the plain torch version (:func:`_chain_plain`) for a tensor on the CPU. The
 JAX kernel's grid leaves a remainder of rows unwritten; here a batch that is
 not a multiple of 128 raises. ``LAUNCHES`` counts the kernel launches.
@@ -47,9 +48,9 @@ GROUP = 128  # rows sharing one int8 activation scale (the Pallas block)
 VARIANTS = ("f32", "bf16", "int8")
 # kernel launches per wrapper since the last reset (plain runs do not count)
 LAUNCHES = {"chain_f32": 0, "chain_bf16": 0, "chain_int8": 0}
-_KERNELS = {"f32": 1, "bf16": 1, "int8": 4}  # launches of one call
+_KERNELS = {"f32": 3, "bf16": 4, "int8": 4}  # launches of one call
 _VARIANT_IDS = {"f32": 0, "bf16": 1, "int8": 2}  # csrc/chain.cu's variant
-_KPAD = 64  # the CUDA int8 operand's k padding (csrc/chain.cu KPAD)
+_KPAD = 64  # the CUDA bf16 and int8 operands' k padding (csrc/chain.cu KPAD)
 _HID = 1152  # the CUDA kernels' stage width (csrc/chain.cu HID)
 
 
@@ -69,8 +70,8 @@ class ChainWeights:
     """The chain's weights in one mode.
 
     ``w``: three (d_in, d_out) tensors, float32, bf16 or int8. ``inv``
-    (int8): the float32 inverse weight scales. ``w_t`` (int8): the CUDA
-    kernel's operands, each weight transposed to (d_out, k) with k
+    (int8): the float32 inverse weight scales. ``w_t`` (bf16, int8): the
+    CUDA kernels' operands, each weight transposed to (d_out, k) with k
     zero-padded to a multiple of 64.
     """
 
@@ -88,12 +89,13 @@ class ChainWeights:
         return ChainWeights(self.variant, move(self.w), self.inv, move(self.w_t))
 
 
-def _int8_operand(wq: np.ndarray) -> torch.Tensor:
-    d_in, d_out = wq.shape
-    k = -(-d_in // _KPAD) * _KPAD
-    wt = np.zeros((d_out, k), dtype=np.int8)
-    wt[:, :d_in] = wq.T
-    return torch.from_numpy(wt)
+def _transposed_operand(w: torch.Tensor) -> torch.Tensor:
+    """(d_in, d_out) -> the CUDA kernels' K-major operand: (d_out, k), k =
+    d_in rounded up to a multiple of 64, zero-padded (128-byte bf16 rows)."""
+    d_in, d_out = w.shape
+    wt = w.new_zeros(d_out, -(-d_in // _KPAD) * _KPAD)
+    wt[:, :d_in] = w.T
+    return wt
 
 
 def chain_weights_from_numpy(weights, variant: str) -> ChainWeights:
@@ -112,11 +114,12 @@ def chain_weights_from_numpy(weights, variant: str) -> ChainWeights:
     if variant == "f32":
         return ChainWeights(variant, tuple(torch.from_numpy(w.astype(np.float32)) for w in weights))
     if variant == "bf16":
-        return ChainWeights(variant, tuple(bf16_operator(w) for w in weights))
+        ws = tuple(bf16_operator(w) for w in weights)
+        return ChainWeights(variant, ws, w_t=tuple(_transposed_operand(w) for w in ws))
     wqs, invs = quantize_weights(weights)
     return ChainWeights(variant, tuple(torch.from_numpy(w) for w in wqs),
                         tuple(float(v) for v in invs),
-                        tuple(_int8_operand(w) for w in wqs))
+                        tuple(_transposed_operand(torch.from_numpy(w)) for w in wqs))
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +182,19 @@ def _chain_plain(x: torch.Tensor, cw: ChainWeights) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # CUDA launch
 # ---------------------------------------------------------------------------
+def _chain_scratch(batch: int, variant: str, device):
+    """The kernels' scratch for one call: (intermediates, int8 group maxima
+    or None). f32 and int8: two float32 (B, 1152) planes, one a stage's
+    output; bf16: one (B, 1152) bf16 plane (bf16(x), then stage 2's
+    output; stage 1 writes into the bytes of ``out``)."""
+    if variant == "bf16":
+        return torch.empty(batch, _HID, dtype=torch.bfloat16, device=device), None
+    scratch = torch.empty(2, batch, _HID, dtype=torch.float32, device=device)
+    if variant != "int8":
+        return scratch, None
+    return scratch, torch.empty(3, batch // GROUP, dtype=torch.int32, device=device)
+
+
 def _chain_cuda(x: torch.Tensor, cw: ChainWeights) -> torch.Tensor:
     from .cuda_lib import launch
 
@@ -186,18 +202,13 @@ def _chain_cuda(x: torch.Tensor, cw: ChainWeights) -> torch.Tensor:
     if d_in % 8 or d_in > _HID or any(w.shape[1] != _HID for w in cw.w):
         raise ValueError(f"the chain kernels take d_in <= {_HID} (a multiple of 8) and "
                          f"{_HID}-wide stages, got {[tuple(w.shape) for w in cw.w]}")
-    opts = dict(dtype=torch.float32, device=x.device)
-    out = torch.empty(B, _HID, **opts)
-    scratch = gmax = None
-    ws, consts = cw.w, (0.0, 0.0, 0.0)
-    if cw.variant == "int8":
-        ws, consts = cw.w_t, tuple(_dequant_const(v) for v in cw.inv)
-        scratch = torch.empty(2, B, _HID, **opts)
-        gmax = torch.empty(3, B // GROUP, dtype=torch.int32, device=x.device)
+    out = torch.empty(B, _HID, dtype=torch.float32, device=x.device)
+    scratch, gmax = _chain_scratch(B, cw.variant, x.device)
+    ws = cw.w_t if cw.w_t else cw.w
+    consts = tuple(_dequant_const(v) for v in cw.inv) if cw.inv else (0.0, 0.0, 0.0)
     launch("gfdm_chain", (
         _VARIANT_IDS[cw.variant], B, d_in, x.data_ptr(), *(w.data_ptr() for w in ws),
-        *(ctypes.c_float(v) for v in consts), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
+        *(ctypes.c_float(v) for v in consts), out.data_ptr(), scratch.data_ptr(),
         None if gmax is None else gmax.data_ptr()), x.device)
     LAUNCHES[f"chain_{cw.variant}"] += _KERNELS[cw.variant]
     return out

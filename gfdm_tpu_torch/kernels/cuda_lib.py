@@ -25,7 +25,7 @@ __all__ = ["Dims", "Consts", "Act", "LinkIO", "DetectDims", "FactoredDims", "Fac
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("tx.cu", "rx.cu", "link.cu", "detect.cu", "factored.cu", "chain.cu")
-HEADERS = ("gfdm_common.cuh", "link_gemm.cuh")
+HEADERS = ("gfdm_common.cuh", "link_gemm.cuh", "hopper_gemm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -101,7 +101,7 @@ def test_plain_chain_matches_the_script(monkeypatch, variant, shapes):
 def test_weights_are_the_scripts(monkeypatch, variant):
     """bf16: each weight rounded once from the script's numpy values (its
     ml_dtypes cast), bit for bit; int8: build's quantized weights and the
-    inverse scales its kernel closes over; the CUDA operand is their
+    inverse scales its kernel closes over; in both the CUDA operand is their
     zero-padded transpose."""
     weights, _x = _inputs(chain.CHAIN_SHAPES)
     fn, seen = _interpret_build(monkeypatch, variant, B, chain.CHAIN_SHAPES, weights)
@@ -117,10 +117,10 @@ def test_weights_are_the_scripts(monkeypatch, variant):
     if variant == "int8":
         invs = seen["kernel"].args[0]  # functools.partial(_chain_int8, invs)
         assert [np.float32(v) for v in cw.inv] == list(invs)
-        for wq, wt in zip(cw.w, cw.w_t):
-            d_in = wq.shape[0]
-            assert wt.shape == (wq.shape[1], -(-d_in // 64) * 64)
-            assert torch.equal(wt[:, :d_in], wq.T) and not wt[:, d_in:].any()
+    for wq, wt in zip(cw.w, cw.w_t):
+        d_in = wq.shape[0]
+        assert wt.dtype == wq.dtype and wt.shape == (wq.shape[1], -(-d_in // 64) * 64)
+        assert torch.equal(wt[:, :d_in], wq.T) and not wt[:, d_in:].any()
 
 
 def test_int8_scales_are_per_group():
@@ -171,3 +171,30 @@ def test_benchmark_inputs_are_the_scripts_draws():
     assert scales == [np.float32(1.0 + 1e-6 * i) for i in range(3)]
     if not torch.cuda.is_available():
         assert port_bench.main(["256", "1"]) == 1
+
+
+def test_chip_smoke_counts_the_wrappers_launches():
+    """chip_smoke.py's phase 10 expects the launches the wrapper counts for
+    one call (f32 3, bf16 4, int8 4); importing it needs no card."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.CHAIN_LAUNCHES == chain._KERNELS
+    assert chain._KERNELS == {"f32": 3, "bf16": 4, "int8": 4}
+
+
+@pytest.mark.parametrize("variant", chain.VARIANTS)
+def test_cuda_scratch_plan(variant):
+    """What _chain_cuda allocates besides out: f32 and int8 two float32
+    (B, 1152) planes (int8 also the (3, B / 128) int32 group maxima), bf16
+    one bf16 (B, 1152) plane (stage 1 writes into out's bytes)."""
+    batch = 384
+    scratch, gmax = chain._chain_scratch(batch, variant, "cpu")
+    if variant == "bf16":
+        assert scratch.dtype == torch.bfloat16 and scratch.shape == (batch, 1152)
+    else:
+        assert scratch.dtype == torch.float32 and scratch.shape == (2, batch, 1152)
+    if variant == "int8":
+        assert gmax.dtype == torch.int32 and gmax.shape == (3, batch // 128)
+    else:
+        assert gmax is None

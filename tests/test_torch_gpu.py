@@ -660,12 +660,35 @@ def test_planar_link_bf16_on_card(method):
 CHAIN_LIMITS = {"f32": 1e-5, "bf16": 1e-2}
 
 
-@pytest.mark.parametrize("batch", [1024, 8192])
+def _chain_check(chain, variant, x, cw):
+    """One chain call on the card against the plain version: launches as
+    ``chain._KERNELS`` says, int8 bit for bit, f32 and bf16 within
+    max |d| / max |ref| CHAIN_LIMITS. f32 sums each element in order, as
+    cuBLAS's SGEMM does at the main path's batch (bit-equal there, phase 10
+    of chip_smoke.py), but cuBLAS picks its kernel by shape and may split k
+    at other batches: float32 sums in another order, hence 1e-5. bf16: a
+    sum on the other side of a bf16 rounding boundary moves one activation
+    by a bf16 ulp."""
+    before = chain.LAUNCHES[f"chain_{variant}"]
+    got = chain.gemm_chain(x, cw)
+    torch.cuda.synchronize()
+    assert chain.LAUNCHES[f"chain_{variant}"] == before + chain._KERNELS[variant]
+    ref = chain._chain_plain(x, cw)
+    assert got.shape == ref.shape == (x.shape[0], 1152) and bool(torch.isfinite(got).all())
+    if variant == "int8":
+        assert torch.equal(got, ref)
+    else:
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        assert rel <= CHAIN_LIMITS[variant], rel
+
+
+# 128: one row tile, fewer CTAs than SMs; 8,320 = 65 x 128: an odd count of
+# 128-row tiles (ragged against any 256-row tile)
+@pytest.mark.parametrize("batch", [128, 1024, 8192, 8320])
 @pytest.mark.parametrize("variant", ["f32", "bf16", "int8"])
 def test_chain_kernel_matches_plain(variant, batch):
     """csrc/chain.cu against its plain version at the link's chain shapes,
-    each 128-row group at its own scale (1, 10, 0.01, ...): f32 and bf16
-    within max |d| / max |ref| 1e-5 and 1e-2, int8 bit for bit."""
+    each 128-row group at its own scale (1, 10, 0.01, ...)."""
     from gfdm_tpu_torch.benchmarks.int8_gauss import make_inputs
     from gfdm_tpu_torch.kernels import chain
 
@@ -673,19 +696,24 @@ def test_chain_kernel_matches_plain(variant, batch):
     weights, x, _s = make_inputs(batch, 1)
     gains = np.array([1.0, 10.0, 0.01, 3.0], dtype=np.float32)
     x = x * np.repeat(np.resize(gains, batch // 128), 128)[:, None]
-    xd = torch.from_numpy(x).to(dev)
     cw = chain.chain_weights_from_numpy(weights, variant).to(dev)
-    before = chain.LAUNCHES[f"chain_{variant}"]
-    got = chain.gemm_chain(xd, cw)
-    torch.cuda.synchronize()
-    assert chain.LAUNCHES[f"chain_{variant}"] == before + (4 if variant == "int8" else 1)
-    ref = chain._chain_plain(xd, cw)
-    assert got.shape == ref.shape == (batch, 1152) and bool(torch.isfinite(got).all())
-    if variant == "int8":
-        assert torch.equal(got, ref)
-    else:
-        rel = float((got - ref).abs().max() / ref.abs().max())
-        assert rel <= CHAIN_LIMITS[variant], rel
+    _chain_check(chain, variant, torch.from_numpy(x).to(dev), cw)
+
+
+@pytest.mark.parametrize("d_in", [8, 1152])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "int8"])
+def test_chain_kernel_input_widths(variant, d_in):
+    """The first stage at d_in = 8 (one k-slab, mostly zero-filled) and
+    1152 (whole slabs), with 1152-wide stages after it."""
+    from gfdm_tpu_torch.kernels import chain
+
+    dev = _cuda()
+    rng = np.random.default_rng(d_in)
+    shapes = [(d_in, 1152), (1152, 1152), (1152, 1152)]
+    weights = [rng.standard_normal(s).astype(np.float32) / np.sqrt(s[0]) for s in shapes]
+    x = rng.standard_normal((384, d_in)).astype(np.float32)
+    cw = chain.chain_weights_from_numpy(weights, variant).to(dev)
+    _chain_check(chain, variant, torch.from_numpy(x).to(dev), cw)
 
 
 def test_chain_kernel_refuses_other_shapes():
