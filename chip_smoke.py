@@ -9,7 +9,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
 1. device  - requires CUDA; prints the card's name and power limit.
 2. build   - compiles the CUDA kernels of gfdm_tpu_torch/csrc with nvcc.
 3. check   - each kernel against its plain torch version on the same CUDA
-             inputs: the Tx at a ragged batch and shifts (0, 4), the staged
+             inputs: the Tx at a ragged batch (4,099) and shifts (0, 4), at
+             the canonical config and at n_data = 130 (K = 32, 26 active,
+             M = 5: an xi plane 520 bytes into a row), with its bit-equality
+             printed, then at the full batch; the staged
              receiver on noisy bursts (AWGN 20 dB) and the staged link,
              both IC modes, at the full batch and a ragged one (4,099); both
              detection kernels on the service's 4,096 friendly chunks and on
@@ -19,7 +22,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
              batch, with the launch counters reset just before; EVM against
              the plain versions and the planar torch-op link.
 5. time    - each link kernel and its plain version, CUDA events after
-             warm-up; the link's and the receiver's time a stage.
+             warm-up; beside the Tx, a note with the time of its core's three
+             products as torch.mm (TF32 off), the plain version's SGEMMs
+             without the framing; the link's and the receiver's time a
+             stage.
 6. service - StreamingReceiver(engine="fused") on the synthetic service
              streams (entry.service_stream, seed 0): friendly (20 dB AWGN,
              one burst a chunk, k = 1) under DETECT_IMPL "pallas2" (lean
@@ -71,7 +77,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
              (fused engine vs the torch-op xla engine) on 4,096-chunk qam16
              (mmse_cnr, 30 dB) and qam64 (mmse, 36 dB) streams.
 9. cdd, variants - tx_cdd_fused against its plain version at B = 65,536
-             with shifts (0, 2) and at a ragged B with (0, 3, 7); with the
+             with shifts (0, 2) and at a ragged B with (0, 3, 7), with its
+             bit-equality printed; with the
              counters reset, the two-antenna CDD link (entry.cdd_link: the
              example's taps) at 34 dB, no symbol error allowed, and at 28 dB
              beside its plain version; each superseded receiver (rx_core,
@@ -641,6 +648,23 @@ def _stage_ms(run, plan, reps: int = 3) -> tuple[list, list]:
     return [name if name != "ic" else f"ic{it}" for name, _s, it in plan], ms
 
 
+def _tx_yardstick(torch, cfg, flat, tx_ms: float, card) -> None:
+    """[5 note]: the Tx core's three products alone, as the plain version
+    runs them (three torch.mm, TF32 off: cuBLAS's SGEMM), without the
+    framing; not the Tx's whole function, so not its library_ms."""
+    from gfdm_tpu_torch.kernels import fused
+
+    nd = cfg.n_data_symbols
+    tg = fused._kernel_consts(cfg, flat.device)["T_G"]
+    xr, xi = flat[:, :nd].contiguous(), flat[:, nd:].contiguous()
+    s = xr + xi
+    w1, w2, w3 = tg[:nd], tg[nd : 2 * nd], tg[2 * nd :]
+    mm_ms = _time_ms(torch, lambda: (torch.mm(xr, w1), torch.mm(xi, w2), torch.mm(s, w3)))
+    print(f"[5 note] tx core as three torch.mm ({flat.shape[0]}, {nd}) @ ({nd}, "
+          f"{cfg.block_len}), TF32 off: {mm_ms:.3f} ms; the tx kernel {tx_ms:.3f} ms = "
+          f"{mm_ms / tx_ms:.1%} of their rate with the framing ({card})", flush=True)
+
+
 def _link_stage_times(torch, cfg, flat, card) -> None:
     """Phase 5: the link's device time a stage (CUDA events around each
     launch) at the main path's batch, both IC modes and both stack dtypes,
@@ -1110,7 +1134,8 @@ def _cdd_variants_phase(torch, cfg, dev, data, noisy, card, check, failures):
     err["tx_cdd"] = max(e1, e2)
     print(f"[9 check] " + " ".join([check(f"tx_cdd[B={Bc},shifts=(0,2)]", e1, TOL["tx"]),
                                     check(f"tx_cdd[B={N_RAGGED_CDD},shifts=(0,3,7)]", e2,
-                                          TOL["tx"])]), flush=True)
+                                          TOL["tx"])])
+          + f" bit_equal={e1 == e2 == 0.0}", flush=True)
     del got, got_r
 
     # the two-antenna link through the user's entry point, launches counted
@@ -1333,19 +1358,26 @@ def main() -> int:
     flat = data.reshape(B, -1)
     err = {"tx": 0.0, "rx": 0.0, "link": 0.0}
     parts = []
-    small = data[: min(B, 4099)]
-    for si in range(len(cfg_s.cyclic_shifts)):
-        got = fused.tx_frame_fused(cfg_s, small, shift_index=si)
-        ref = fused._tx_frame_plain(cfg_s, small.reshape(small.shape[0], -1), si)
+    small = data[: min(B, N_RAGGED_LINK)]
+    # n_data = 130: an xi plane 520 bytes into a row, a ragged k-tile
+    cfg_u = GfdmConfig(subcarriers=32, active_subcarriers=26, timeslots=5, cp_len=8,
+                       cs_len=8, cyclic_shifts=(0, 4))
+    data_u = torch.from_numpy(planar_payload(cfg_u, N_RAGGED_LINK, seed=2)).to(dev)
+    tx_cases = [(cfg_s, small, si, "") for si in range(len(cfg_s.cyclic_shifts))]
+    tx_cases += [(cfg_u, data_u, si, "n_data=130,") for si in range(len(cfg_u.cyclic_shifts))]
+    for c_tx, d_tx, si, tag in tx_cases:
+        got = fused.tx_frame_fused(c_tx, d_tx, shift_index=si)
+        ref = fused._tx_frame_plain(c_tx, d_tx.reshape(d_tx.shape[0], -1), si)
         e = _max_abs(got.reshape(ref.shape), ref)
         err["tx"] = max(err["tx"], e)
-        parts.append(check(f"tx[B={small.shape[0]},shift={cfg_s.cyclic_shifts[si]}]",
+        parts.append(check(f"tx[{tag}B={d_tx.shape[0]},shift={c_tx.cyclic_shifts[si]}]",
                            e, TOL["tx"]))
     bursts = fused.tx_frame_fused(cfg, data)
     e = _max_abs(bursts.reshape(B, -1), fused._tx_frame_plain(cfg, flat, 0))
     err["tx"] = max(err["tx"], e)
     parts.append(check(f"tx[B={B},shift=0]", e, TOL["tx"]))
-    print("[3 check] " + " ".join(parts), flush=True)
+    print("[3 check] " + " ".join(parts) + f" bit_equal={err['tx'] == 0.0}", flush=True)
+    del data_u
 
     noisy = _noisy(torch, bursts, 1)
     noisy_flat = noisy.reshape(B, -1)
@@ -1477,6 +1509,8 @@ def main() -> int:
         rate = B * cfg.frame_len / (k_ms / 1e3)
         print(f"[5 time] {name}: kernel {ks} ms, plain {ps} ms, kernel {rate:.4e} "
               f"samples/s (B={B}, {card})", flush=True)
+        if name == "tx":
+            _tx_yardstick(torch, cfg, flat, k_ms, card)
     _link_stage_times(torch, cfg, flat, card)
     _rx_stage_times(cfg, noisy_flat, card, "5")
 

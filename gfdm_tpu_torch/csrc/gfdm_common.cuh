@@ -1,4 +1,5 @@
-// Shared device code of the GFDM kernels (tx.cu, rx.cu, link.cu, factored.cu).
+// Shared device code of the GFDM kernels (rx.cu, link.cu, factored.cu; tx.cu
+// takes Dims and Consts only).
 //
 // Layouts follow the planar convention of the Python package: a complex
 // row of length n is the real row [re | im] of length 2n; a complex operator
@@ -211,14 +212,6 @@ inline int block_threads(const Dims& d) {
   int t = ((d.n + 1) / 2 + 31) / 32 * 32;
   if (t < 64) t = 64;
   return t > MAX_THREADS ? MAX_THREADS : t;
-}
-
-// Payload tile (TB x 2 n_data in shared memory) -> core frame; epi(b, col,
-// core_re, core_im) places each core sample.
-template <int TB, typename W, typename Epi>
-__device__ __forceinline__ void tx_core(const Dims& d, const Consts& c,
-                                        const float* data, Epi epi) {
-  stack_gemm<TB, W>(data, data + d.n_data, 2 * d.n_data, c.t_g, d.n_data, d.n, epi);
 }
 
 // Copies rows [b0, b0 + nb) of a (B, 2 * len) global array into a TB-row

@@ -182,6 +182,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build()))
     dims_p, consts_p, vp = ctypes.POINTER(Dims), ctypes.POINTER(Consts), ctypes.c_void_p
     lib.gfdm_tx.argtypes = [dims_p, consts_p, vp, vp, vp]
+    lib.gfdm_tx_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
     ci, cf = ctypes.c_int, ctypes.c_float
     lib.gfdm_link_stage.argtypes = [dims_p, consts_p, ctypes.POINTER(LinkIO), ci, ci, vp]
     lib.gfdm_tf32_split.argtypes = [ci, vp, vp, vp, vp]
@@ -198,7 +199,7 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [fdims_p, fconsts_p, vp, vp, vp, vp, vp]
     lib.gfdm_factored_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.gfdm_chain.argtypes = [ci, ci, ci, vp, vp, vp, vp, cf, cf, cf, vp, vp, vp, vp]
-    for fn in (lib.gfdm_tx, lib.gfdm_link_stage, lib.gfdm_tf32_split,
+    for fn in (lib.gfdm_tx, lib.gfdm_tx_tile, lib.gfdm_link_stage, lib.gfdm_tf32_split,
                lib.gfdm_link_io_size, lib.gfdm_rx_variant, lib.gfdm_struct_sizes,
                lib.gfdm_detect_front, lib.gfdm_detect_lean,
                lib.gfdm_detect_dims_size, lib.gfdm_tx_factored,

@@ -5,7 +5,9 @@ Hopper in ``gfdm_tpu_torch/csrc`` (built by :mod:`.cuda_lib`) and has a
 plain torch version here that computes the same thing the same way:
 
 - ``_tx_kernel`` and ``_tx_cdd_kernel`` -> ``tx_kernel`` (csrc/tx.cu): one
-  core product with T_G, cut into every requested cyclic-delay port;
+  core product with T_G over (bursts x core columns) tiles (``TX_TILE``),
+  each tile's core samples written to their framed positions in every
+  requested cyclic-delay port;
 - ``_rx_ic_circ_kernel`` -> the staged receiver (csrc/link.cu on the
   tensor-core engine of csrc/link_gemm.cuh) with every option: equalizer
   zf / mmse / mmse_cnr, QPSK / qam16 / qam64 IC decisions (the amplitude
@@ -61,6 +63,7 @@ from ..ops.planar_pipeline import (
 
 __all__ = [
     "LAUNCHES",
+    "TX_TILE",
     "tx_frame_fused",
     "tx_cdd_fused",
     "rx_receiver_fused",
@@ -84,6 +87,10 @@ __all__ = [
 LAUNCHES = {"tx": 0, "tx_cdd": 0, "rx": 0, "link": 0,
             "rx_core": 0, "rx_ic": 0, "rx_full": 0, "rx_hybrid": 0,
             "tx_factored": 0, "rx_factored": 0, "rx_factored_chan": 0}
+
+# csrc/tx.cu's tile: bursts, core columns and k-depth of a CTA (the library's
+# gfdm_tx_tile reports the same on first launch)
+TX_TILE = (64, 64, 16)
 
 # IC symbol amplitude of each constellation; the IC decisions are integer
 # levels and the amplitude is folded into the interference taps / operator
@@ -577,13 +584,35 @@ def _run(name: str, key: str, dims, consts, *args, device) -> None:
                 " B in shared memory a CTA even at one burst, so a larger "
                 "N = M*K takes rx_receiver_factored")
 
+    def tx_tile(lib):
+        return (f"; the Tx tile {TX_TILE} keeps {_tx_tile(lib)[3]} B in shared memory a "
+                "CTA")
+
     launch(f"gfdm_{name}", (ctypes.byref(dims), ctypes.byref(consts), *args),
-           device, hint=None if name == "tx" else rx_tile)
+           device, hint=tx_tile if name == "tx" else rx_tile)
     LAUNCHES[key] += 1
+
+
+def _tx_tile(lib) -> tuple:
+    """(bursts, core columns, k-depth, shared bytes) of the library's Tx tile."""
+    out = (ctypes.c_int * 4)()
+    lib.gfdm_tx_tile(out)
+    return tuple(out)
+
+
+@lru_cache(maxsize=None)
+def _check_tx_tile() -> None:
+    """Raise unless the built library's Tx tile is ``TX_TILE``."""
+    from .cuda_lib import library
+
+    built = _tx_tile(library())[:3]
+    if built != TX_TILE:
+        raise RuntimeError(f"csrc/tx.cu's tile {built} is not fused.TX_TILE {TX_TILE}")
 
 
 def _tx_cuda(cfg, data, shift_index=None):
     """One port (``shift_index``) or every port (None) from one Tx launch."""
+    _check_tx_tile()
     k = _kernel_consts(cfg, data.device)
     shifts, pre = _shifts(cfg, data.device), k["preambles"]
     if shift_index is not None:

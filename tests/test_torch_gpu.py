@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from gfdm_tpu_torch import GfdmConfig
-from gfdm_tpu_torch.entry import planar_payload
+from gfdm_tpu_torch.entry import large_k_config, planar_payload
 from gfdm_tpu_torch.kernels import fused
 
 pytestmark = pytest.mark.gpu
@@ -40,16 +40,55 @@ def _max_err(a, b):
     return float((a.reshape(b.shape) - b).abs().max())
 
 
-@pytest.mark.parametrize("shift_index", [0, 1])
-def test_tx_kernel_matches_plain(shift_index):
+# the Tx kernel's cases: batches at its 64-burst tile's edges; configs with
+# a ragged column tile (k32m5: N = 160), an xi plane 520 bytes into a row
+# and a ragged k-tile (n130: n_data = 130), and N = 1,152 / 4,608 at large K
+TX_BATCHES = (1, 63, 64, 65, 1027, 8320)
+TX_CONFIGS = {
+    "canonical": GfdmConfig(),
+    "k32m5": CONFIGS["k32m5"],
+    "n130": GfdmConfig(subcarriers=32, active_subcarriers=26, timeslots=5, cp_len=8,
+                       cs_len=8),
+    "K128": large_k_config(128),
+    "K512": large_k_config(512),
+}
+TX_SHIFTS = ((0, 4), (0, 3, 7))
+
+
+def _tx_cases(shift_sets, ports=None):
+    """(config, shifts, batch[, shift index]) cases whose shifts fit the CS;
+    ``ports(shifts)`` gives the shift indices of a one-port case."""
+    cases = []
+    for name, cfg in TX_CONFIGS.items():
+        for shifts in (s for s in shift_sets if max(s) <= cfg.cs_len):
+            for batch in TX_BATCHES:
+                tag = f"{name}-{'_'.join(map(str, shifts))}-B{batch}"
+                if ports is None:
+                    cases.append(pytest.param(name, shifts, batch, id=tag))
+                else:
+                    cases += [pytest.param(name, shifts, batch, si, id=f"{tag}-port{si}")
+                              for si in ports(shifts)]
+    return cases
+
+
+def _tx_payload(cfg, batch, seed, dev):
+    return torch.from_numpy(planar_payload(cfg, batch, seed)).to(dev)
+
+
+@pytest.mark.parametrize("name,shifts,batch,shift_index",
+                         _tx_cases(TX_SHIFTS, lambda s: (0, len(s) - 1)))
+def test_tx_kernel_matches_plain(name, shifts, batch, shift_index):
     dev = _cuda()
-    cfg = GfdmConfig(cyclic_shifts=(0, 4))
-    data = _payload(cfg, 60, dev)
+    cfg = TX_CONFIGS[name].replace(cyclic_shifts=shifts)
+    data = _tx_payload(cfg, batch, 60, dev)
     before = fused.LAUNCHES["tx"]
     got = fused.tx_frame_fused(cfg, data, shift_index=shift_index)
     assert fused.LAUNCHES["tx"] == before + 1
-    ref = fused._tx_frame_plain(cfg, data.reshape(B, -1), shift_index)
-    assert _max_err(got, ref) < 2e-5
+    ref = fused._tx_frame_plain(cfg, data.reshape(batch, -1), shift_index)
+    err = _max_err(got, ref)
+    print(f"tx[{name},B={batch},shift={shifts[shift_index]}] max_abs={err:.3e} "
+          f"bit_equal={err == 0.0}")
+    assert err < 2e-5
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -564,18 +603,21 @@ def test_tf32_split_kernel_matches_emulation():
     assert float(rel) <= 2.0**-22
 
 
-@pytest.mark.parametrize("shifts", [(0, 2), (0, 3, 7)])
-def test_tx_cdd_kernel_matches_plain(shifts):
+@pytest.mark.parametrize("name,shifts,batch", _tx_cases(((0, 2),) + TX_SHIFTS))
+def test_tx_cdd_kernel_matches_plain(name, shifts, batch):
     dev = _cuda()
-    cfg = GfdmConfig(cyclic_shifts=shifts)
-    data = _payload(cfg, 61, dev)
+    cfg = TX_CONFIGS[name].replace(cyclic_shifts=shifts)
+    data = _tx_payload(cfg, batch, 61, dev)
     before = dict(fused.LAUNCHES)
     got = fused.tx_cdd_fused(cfg, data)
     assert fused.LAUNCHES["tx_cdd"] == before["tx_cdd"] + 1
     assert fused.LAUNCHES["tx"] == before["tx"]
-    ref = fused._tx_cdd_plain(cfg, data.reshape(B, -1))
-    assert got.shape == (B, len(shifts), 2, cfg.frame_len)
-    assert _max_err(got, ref) < 2e-5
+    ref = fused._tx_cdd_plain(cfg, data.reshape(batch, -1))
+    assert got.shape == (batch, len(shifts), 2, cfg.frame_len)
+    err = _max_err(got, ref)
+    print(f"tx_cdd[{name},B={batch},shifts={shifts}] max_abs={err:.3e} "
+          f"bit_equal={err == 0.0}")
+    assert err < 2e-5
 
 
 @pytest.mark.parametrize("key", ["rx_core", "rx_ic", "rx_full", "rx_hybrid"])
