@@ -43,20 +43,25 @@ Phases, one line each (any failure exits non-zero and prints no result):
              time a stage at the service's 4,096 slots, and one serve()
              loop (batch 256, super-batch 1,024, pipeline depth 2).
 7. large K - the factored kernels (entry.large_k_config, the crossover
-             study's M = 9 configs): at K = 512, B = 4,096 the Tx kernel and
-             the receiver kernel with the channel read (estimator="fast"), at
-             K = 128, B = 4,096 the receiver kernel with its own dense
-             estimator, each against its plain version on noisy bursts
-             (AWGN 20 dB); the staged dense receiver and link at K = 128,
-             256 and 512 (128-burst tiles). Then, with the launch counters reset just
-             before, the large-K link link_step_factored (Tx kernel ->
-             torch-op estimate -> receiver kernel -> demap) at K = 512,
-             B = 4,096 and the estimator="fused" link at K = 128: hard
-             decisions against the payload, EVM against the plain versions'
-             and the torch-op method="fast" chain's. Last, kernel vs plain
-             and the link (kernels, plain versions, torch-op chain) timed at
-             K = 256, 512 (B = 4,096) and 1,024 (B = 2,048), and the
-             estimator="fused" receiver kernel at K = 128.
+             study's M = 9 configs): at K = 256, 512 (B = 4,096) and 1,024
+             (B = 2,048) the Tx kernel and the receiver kernel with the
+             channel read (estimator="fast"), at K = 128, B = 4,096 the
+             receiver kernel with its own dense estimator, each against its
+             plain version on noisy bursts (AWGN 20 dB); the staged dense
+             receiver and link at K = 128, 256 and 512 (128-burst tiles).
+             Then, with the launch counters reset just before, the large-K
+             link link_step_factored (Tx kernel -> torch-op estimate ->
+             receiver kernel -> demap) at K = 512, B = 4,096 and the
+             estimator="fused" link at K = 128: hard decisions against the
+             payload, EVM against the plain versions' and the torch-op
+             method="fast" chain's. Last, kernel vs plain (with the bound
+             counting the K-point stage as an FFT, the direct DFT's beside
+             it) and the link (kernels, plain versions, torch-op chain)
+             timed at those K, and the estimator="fused" receiver kernel at
+             K = 128; a note with torch.fft.fft's (cuFFT)
+             time for the K-point stage alone; the link's device time a
+             stage (Tx, torch-op estimate, receiver, demap and EVM) at K =
+             512 and 1,024.
 
 8. options - the receiver's stages against their plain version (summed in
              float64, as the stages sum) at B = 16,384
@@ -112,6 +117,7 @@ the last line
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -511,8 +517,9 @@ def _large_k_phase(torch, dev, card, check, failures):
     err = {"tx_factored": 0.0, "rx_factored": 0.0, "rx_factored_chan": 0.0,
            "rx": 0.0, "link": 0.0}
 
-    # 7a. each factored kernel against its plain version on the same inputs
-    for K, estimator in ((K_FULL, "fast"), (K_ESTIMATOR, "fused")):
+    # 7a. each factored kernel against its plain version on the same inputs,
+    # at every K that 7c times
+    for K, estimator in tuple((K, "fast") for K, _b in LARGE_K) + ((K_ESTIMATOR, "fused"),):
         cfg, data = cfgs[K], payload[K]
         key = "rx_factored_chan" if estimator == "fast" else "rx_factored"
         bursts = fused.tx_frame_factored(cfg, data)
@@ -523,7 +530,7 @@ def _large_k_phase(torch, dev, card, check, failures):
         ref_chan = fused._fast_channel(cfg, noisy) if estimator == "fast" else None
         rchan, rsym = fused._rx_factored_plain(cfg, noisy, ref_chan, 2)
         ec, es = _max_abs(chan, rchan), _max_abs(sym, rsym)
-        err[key] = max(ec, es)
+        err[key] = max(err[key], ec, es)
         print(f"[7 check] K={K} B={batch[K]} " + " ".join([
             check("tx_factored", e_tx, TOL["tx"]),
             check(f"{key}:chan", ec, TOL["chan"]),
@@ -619,7 +626,13 @@ def _large_k_phase(torch, dev, card, check, failures):
             k_ms, p_ms, ks, ps = _timed(torch, fn_k, fn_p)
             if K in (K_FULL, K_ESTIMATOR) and name != "link":
                 times[name] = (k_ms, p_ms)
-            print(f"[7 time] K={K} B={Bk} {name}: kernel {ks} ms, plain {ps} ms "
+            bounds = ""
+            if name != "link":  # the restated bound, the direct DFT's beside it
+                b_ms, b_by = _bound(name, cfg, Bk)
+                d_ms = _bound(name, cfg, Bk, direct_dft=True)[0]
+                bounds = (f"; bound {b_ms:.3f} ms ({b_by}) = {b_ms / k_ms:.1%}, direct-DFT "
+                          f"bound {d_ms:.3f} ms = {d_ms / k_ms:.1%}")
+            print(f"[7 time] K={K} B={Bk} {name}: kernel {ks} ms, plain {ps} ms{bounds} "
                   f"({card})", flush=True)
             if name == "link":
                 chain = _time_ms(torch, lambda: link_step_planar(cfg, data, method="fast"))
@@ -629,8 +642,59 @@ def _large_k_phase(torch, dev, card, check, failures):
                       f"{sps / (k_ms / 1e3):.4e}, plain {sps / (p_ms / 1e3):.4e}, "
                       f"torch-op fast chain {sps / (chain / 1e3):.4e} ({chain:.3f} ms); "
                       f"torch-op estimate {est:.3f} ms ({card})", flush=True)
+        if K != K_ESTIMATOR:
+            _kstage_yardstick(torch, cfg, bursts, card)
+        if K in (K_FULL, 1024):
+            _factored_link_stages(torch, cfg, data, card)
         del bursts
     return launches, err, times
+
+
+def _kstage_yardstick(torch, cfg, bursts, card) -> None:
+    """[7 note]: torch.fft.fft (cuFFT) of the factored kernels' K-point stage
+    alone, on the bursts' payload rows as (B, M, K) complex64 (row n1 holds
+    samples M n2 + n1); not the kernels' whole function, so not their
+    library_ms, and the port never calls it."""
+    B, K, M, n = bursts.shape[0], cfg.subcarriers, cfg.timeslots, cfg.block_len
+    fs = cfg.preamble_len + cfg.cp_len
+    x = bursts[..., fs : fs + n]
+    rows = torch.complex(x[:, 0], x[:, 1]).reshape(B, K, M).transpose(1, 2).contiguous()
+    ms = _time_ms(torch, lambda: torch.fft.fft(rows, dim=-1))
+    print(f"[7 note] K={K} B={B}: torch.fft.fft (cuFFT) of the K-point stage alone, "
+          f"({B}, {M}, {K}) complex64 rows: {ms:.3f} ms ({card})", flush=True)
+
+
+def _factored_link_stages(torch, cfg, data, card, reps: int = 3) -> None:
+    """[7 stages]: link_step_factored's device time a stage (CUDA events
+    around each, as the link runs them): the Tx kernel, the torch-op
+    channel estimate, the receiver kernel, demap and EVM; the mean of
+    ``reps`` calls after a warm-up."""
+    from gfdm_tpu_torch.kernels import fused
+    from gfdm_tpu_torch.ops.planar_pipeline import evm
+
+    demap = fused._factored_consts(cfg, data.device)["demap_idx"]
+    stages = (
+        ("tx", lambda s: fused.tx_frame_factored(cfg, data)),
+        ("estimate", lambda s: (s, fused._fast_channel(cfg, s))),
+        ("rx", lambda s: fused._rx_factored_cuda(cfg, s[0], s[1], 2)[1]),
+        ("demap+evm", lambda s: evm(s[..., demap], data)),
+    )
+
+    def run(events):
+        state = None
+        for _name, fn in stages:
+            if events is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            state = fn(state)
+        if events is not None:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+    names, ms = _stage_ms(run, [(name, None, 0) for name, _fn in stages], reps)
+    print(f"[7 stages] link_step_factored K={cfg.subcarriers} B={data.shape[0]}: "
+          + " ".join(f"{n} {t:.3f}" for n, t in zip(names, ms))
+          + f" = {sum(ms):.3f} ms ({card})", flush=True)
 
 
 def _stage_ms(run, plan, reps: int = 3) -> tuple[list, list]:
@@ -772,11 +836,15 @@ def _link_bound(cfg, batch: int, ic_mode: str = "matmul",
 
 
 def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
-          T: int = 0, n_valid: int = 0) -> tuple[float, float]:
+          T: int = 0, n_valid: int = 0, direct_dft: bool = False) -> tuple[float, float]:
     """(fp32 operations, bytes) of one call of kernel ``key`` at these
     shapes: the kernel's sums as written (a real MAC is 2 operations, a
     complex MAC 8; a Gauss product of an (a, b) operator 3 a b real MACs),
-    each input read once (constants included) and each output written once."""
+    each input read once (constants included) and each output written once.
+    The factored kernels' K-point stage counts as an FFT's 5 M K log2 K for K
+    a power of two (what the kernels run), else, or with ``direct_dft``, as
+    the direct DFT's 8 M K^2 (the count the kernels' bound used before they
+    ran the FFT)."""
     from gfdm_tpu_torch.kernels import chain, fused
 
     if key.startswith("chain_"):  # x in, out, the weights once (4, 2 or 1 B)
@@ -814,14 +882,16 @@ def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
     if key == "rx_hybrid":
         ops = est[0] + dft[0] + 8.0 * n * (L + M) + conv_ic
         return batch * ops, f4 * batch * (2 * fl + 4 * n) + est[1] + dft[1]
+    fft = (K & (K - 1)) == 0 and not direct_dft
+    kstage = 5.0 * M * K * math.log2(K) if fft else 8.0 * M * K * K
     if key in ("rx_factored", "rx_factored_chan"):
-        ops = 8.0 * M * K * K + 8.0 * n * (2 * M + L) + conv_ic
+        ops = kstage + 8.0 * n * (2 * M + L) + conv_ic
         io = 2 * fl + 4 * n  # bursts in; chan in or out; symbols out
         if key == "rx_factored":
             return batch * (ops + 16.0 * K * n), f4 * batch * io + 32.0 * K * n
         return batch * ops, f4 * batch * io
     if key == "tx_factored":
-        return batch * (8.0 * M * K * K + 8.0 * n * (2 * M + L)), f4 * batch * (2 * nd + 2 * fl)
+        return batch * (kstage + 8.0 * n * (2 * M + L)), f4 * batch * (2 * nd + 2 * fl)
     if key in ("detect_front", "detect_lean"):
         # per position: K-lag autocorrelation (K complex MACs), 2K energy
         # (2K real |.|^2), 2K-tap cross-correlation (2K complex MACs)
@@ -1580,6 +1650,11 @@ def main() -> int:
                     f"cores {f64_ms:.3f} ms; the design's intermediates {inter_ms:.3f} ms; "
                     f"matmul IC {mm_ms:.3f} ms ({mm_by}) against rx_matmul "
                     f"{times['rx_matmul'][0]:.3f} ms = {mm_ms / times['rx_matmul'][0]:.1%}")
+        if key in ("tx_factored", "rx_factored", "rx_factored_chan"):  # and the direct DFT's
+            extra["dft_bound_ms"], dft_by = _bound(key, kcfg, kb, direct_dft=True)
+            note = (f"; with the K-point stage as the direct DFT "
+                    f"{extra['dft_bound_ms']:.3f} ms ({dft_by}) = "
+                    f"{extra['dft_bound_ms'] / times[key][0]:.1%}")
         if key == "link":  # tensor-core bound; the fp32 FMA one as PRs 1-6 gave it
             extra["fma_bound_ms"] = bound_ms
             bound_ms, bound_by, inter_ms = _link_bound(kcfg, kb, **kw)

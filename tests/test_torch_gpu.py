@@ -14,6 +14,7 @@ import torch
 from gfdm_tpu_torch import GfdmConfig
 from gfdm_tpu_torch.entry import large_k_config, planar_payload
 from gfdm_tpu_torch.kernels import fused
+import factored_fft_emulation as emu
 
 pytestmark = pytest.mark.gpu
 
@@ -183,37 +184,59 @@ def _factored_bursts(cfg, dev, seed):
     return data, bursts + 0.01 * torch.from_numpy(noise).to(dev)
 
 
-@pytest.mark.parametrize("K", [64, 128])
-def test_rx_factored_kernel_with_estimator_matches_plain(K):
-    from gfdm_tpu_torch.entry import large_k_config
+# IC iterations: none, one (a single iteration decides on d0 and writes the
+# symbols over it), the default two, and three
+FACTORED_IC = [0, 1, 2, 3]
 
+
+@pytest.mark.parametrize("ic_iterations", FACTORED_IC)
+@pytest.mark.parametrize("K", [64, 128])
+def test_rx_factored_kernel_with_estimator_matches_plain(K, ic_iterations):
     dev = _cuda()
     cfg = CONFIGS["canonical"] if K == 64 else large_k_config(K)
     _data, bursts = _factored_bursts(cfg, dev, 100 + K)
     before = dict(fused.LAUNCHES)
-    chan, sym = fused.rx_receiver_factored(cfg, bursts, estimator="fused")
+    chan, sym = fused.rx_receiver_factored(cfg, bursts, ic_iterations, estimator="fused")
     assert fused.LAUNCHES["rx_factored"] == before["rx_factored"] + 1
     assert fused.LAUNCHES["rx_factored_chan"] == before["rx_factored_chan"]
-    rchan, rsym = fused._rx_factored_plain(cfg, bursts, None, 2)
+    rchan, rsym = fused._rx_factored_plain(cfg, bursts, None, ic_iterations)
     assert _max_err(chan, rchan) < 2e-4
     assert _max_err(sym, rsym) < 5e-4
 
 
-@pytest.mark.parametrize("K", [256, 1024])
-def test_factored_tx_and_fast_receiver_kernels_match_plain(K):
-    from gfdm_tpu_torch.entry import large_k_config
+# the K-point stage's paths: an FFT for K a power of two, the direct DFT for
+# K = 96 (whose plain link on the CPU gives every decision back, EVM 0.018);
+# the kernels' M = 9 instantiation, and at M = 5 the one for any M (plain
+# link on the CPU: every decision back, EVM 0.021), with 16-byte planes and,
+# at n_data = 250, frame_len = 466 and a data section 143 samples in, 4-byte
+# ones (EVM 0.021)
+FACTORED_CONFIGS = {
+    "K256": large_k_config(256),
+    "K512": large_k_config(512),
+    "K1024": large_k_config(1024),
+    "K96_direct": GfdmConfig(subcarriers=96, active_subcarriers=72, timeslots=9),
+    "K128_M5": GfdmConfig(subcarriers=128, active_subcarriers=100, timeslots=5, cp_len=32,
+                          cs_len=16),
+    "K64_M5_unaligned": GfdmConfig(subcarriers=64, active_subcarriers=50, timeslots=5,
+                                   cp_len=6, cs_len=3),
+}
 
+
+@pytest.mark.parametrize("ic_iterations", FACTORED_IC)
+@pytest.mark.parametrize("name", list(FACTORED_CONFIGS))
+def test_factored_tx_and_fast_receiver_kernels_match_plain(name, ic_iterations):
     dev = _cuda()
-    cfg = large_k_config(K)
-    data, bursts = _factored_bursts(cfg, dev, 200 + K)
+    cfg = FACTORED_CONFIGS[name]
+    assert bool(emu.fft_plan(cfg.subcarriers)) == (name != "K96_direct")
+    data, bursts = _factored_bursts(cfg, dev, 200 + cfg.subcarriers)
     before = dict(fused.LAUNCHES)
     tx = fused.tx_frame_factored(cfg, data)
     assert fused.LAUNCHES["tx_factored"] == before["tx_factored"] + 1
     assert _max_err(tx, fused._tx_factored_plain(cfg, data, 0)) < 2e-5
-    chan, sym = fused.rx_receiver_factored(cfg, bursts, estimator="fast")
+    chan, sym = fused.rx_receiver_factored(cfg, bursts, ic_iterations, estimator="fast")
     assert fused.LAUNCHES["rx_factored_chan"] == before["rx_factored_chan"] + 1
     assert fused.LAUNCHES["rx_factored"] == before["rx_factored"]
-    rchan, rsym = fused._rx_factored_plain(cfg, bursts, chan, 2)
+    rchan, rsym = fused._rx_factored_plain(cfg, bursts, chan, ic_iterations)
     assert torch.equal(chan, rchan)
     assert _max_err(sym, rsym) < 5e-4
     # the clean link through both kernels gives every hard decision back
@@ -222,21 +245,35 @@ def test_factored_tx_and_fast_receiver_kernels_match_plain(K):
     assert 0.0 < float(evm) < 0.025
 
 
-def test_factored_kernels_refuse_k2048():
-    """K = 2048 needs 311 KB (Tx) and 459 KB (receiver) of shared memory for
-    one burst: each launch is refused and its wrapper raises, naming the
-    kernel and the bytes."""
-    from gfdm_tpu_torch.entry import large_k_config
+@pytest.mark.parametrize("K", [32, 64, 96, 128, 256, 512, 1024, 2048])
+def test_factored_plan_is_the_librarys(K):
+    """The built library's K-point plan (row stride, FFT radices; none for
+    the direct DFT) is the one tests/factored_fft_emulation.py replays."""
+    import ctypes
 
+    from gfdm_tpu_torch.kernels.cuda_lib import library
+
+    _cuda()
+    out = (ctypes.c_int * 8)()
+    passes = library().gfdm_factored_plan(K, out)
+    assert (out[0], tuple(out[1 : 1 + passes])) == (emu.row_stride(K), emu.fft_plan(K))
+
+
+def test_factored_kernels_refuse_k2048():
+    """K = 2048 needs 331,400 B (Tx, and the receiver with the channel read:
+    twiddles, two stages of nine padded rows and the M-point constants) of
+    shared memory for one burst, beyond the 232,448 a CTA may have: each
+    launch is refused and its wrapper raises, naming the kernel and the
+    bytes."""
     dev = _cuda()
     cfg = large_k_config(2048)
     before = dict(fused.LAUNCHES)
     with pytest.raises(RuntimeError, match="gfdm_tx_factored kernel failed to launch"
-                                           ".*the tx_factored kernel keeps 311296 B"):
+                                           ".*the tx_factored kernel keeps 331400 B"):
         fused.tx_frame_factored(cfg, torch.zeros(2, 2, cfg.n_data_symbols, device=dev))
     bursts = torch.zeros(2, 2, cfg.frame_len, device=dev)
     with pytest.raises(RuntimeError, match="gfdm_rx_factored_chan kernel failed to launch"
-                                           ".*the rx_factored_chan kernel keeps 458752 B"):
+                                           ".*the rx_factored_chan kernel keeps 331400 B"):
         fused.rx_receiver_factored(cfg, bursts, estimator="fast")
     assert fused.LAUNCHES == before
 
