@@ -46,19 +46,23 @@ Phases, one line each (any failure exits non-zero and prints no result):
              study's M = 9 configs): at K = 256, 512 (B = 4,096) and 1,024
              (B = 2,048) the Tx kernel and the receiver kernel with the
              channel read (estimator="fast"), at K = 128, B = 4,096 the
-             receiver kernel with its own dense estimator, each against its
-             plain version on noisy bursts (AWGN 20 dB); the staged dense
-             receiver and link at K = 128, 256 and 512 (128-burst tiles).
-             Then, with the launch counters reset just before, the large-K
-             link link_step_factored (Tx kernel -> torch-op estimate ->
-             receiver kernel -> demap) at K = 512, B = 4,096 and the
-             estimator="fused" link at K = 128: hard decisions against the
-             payload, EVM against the plain versions' and the torch-op
-             method="fast" chain's. Last, kernel vs plain (with the bound
-             counting the K-point stage as an FFT, the direct DFT's beside
-             it) and the link (kernels, plain versions, torch-op chain)
-             timed at those K, and the estimator="fused" receiver kernel at
-             K = 128; a note with torch.fft.fft's (cuFFT)
+             receiver with its own dense estimator (two launches: the
+             estimator GEMM, then the receiver kernel on its channel), each
+             against its plain version on noisy bursts (AWGN 20 dB); the
+             staged dense receiver and link at K = 128, 256 and 512
+             (128-burst tiles). Then the large-K link link_step_factored
+             (Tx kernel -> torch-op estimate -> receiver kernel -> demap) at
+             K = 512, B = 4,096 and the estimator="fused" link at K = 128,
+             each with the launch counters reset just before and read just
+             after: hard decisions against the payload, EVM against the
+             plain versions' and the torch-op method="fast" chain's. Last,
+             kernel vs plain (with the bound counting the K-point stage as
+             an FFT, the direct DFT's beside it) and the link (kernels,
+             plain versions, torch-op chain) timed at those K, the
+             estimator="fused" receiver (both launches) at K = 128 and its
+             estimator GEMM alone (beside torch.mm of the same product, TF32
+             off, and its error against a float64 product); a note with
+             torch.fft.fft's (cuFFT)
              time for the K-point stage alone; the link's device time a
              stage (Tx, torch-op estimate, receiver, demap and EVM) at K =
              512 and 1,024.
@@ -165,6 +169,9 @@ TOL = {
     # the plain stage on the kernel's own inputs, relative to the stage's
     # largest magnitude
     "stages": 1e-5,
+    # row 6's estimator GEMM against a float64 product, relative to its
+    # largest output: float32 sums over 4K = 512 terms in order (~1e-6)
+    "estimate64": 1e-5,
 }
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 FMA (no TF32), HBM3
 # H100 SXM dense tensor cores (NVIDIA's data sheet; FP64 tensor cores 67 TFLOP/s)
@@ -191,8 +198,12 @@ SOURCES = {
                     "gfdm_tpu/kernels/detect.py:164"),
     "tx_factored": ("tx_frame_factored", "gfdm_tpu_torch/csrc/factored.cu",
                     "gfdm_tpu/kernels/fused.py:1847"),
-    "rx_factored": ("rx_receiver_factored(estimator=fused)",
-                    "gfdm_tpu_torch/csrc/factored.cu", "gfdm_tpu/kernels/fused.py:849"),
+    "rx_factored": ("rx_receiver_factored(estimator=fused): rx_estimate_kernel + "
+                    "rx_factored_kernel", "gfdm_tpu_torch/csrc/factored.cu",
+                    "gfdm_tpu/kernels/fused.py:849"),
+    "rx_estimate": ("rx_receiver_factored(estimator=fused)'s estimator GEMM "
+                    "(rx_estimate_kernel)", "gfdm_tpu_torch/csrc/factored.cu",
+                    "gfdm_tpu/kernels/fused.py:854"),
     "rx_factored_chan": ("rx_receiver_factored(estimator=fast)",
                          "gfdm_tpu_torch/csrc/factored.cu",
                          "gfdm_tpu/kernels/fused.py:862"),
@@ -567,19 +578,33 @@ def _large_k_phase(torch, dev, card, check, failures):
         print(f"[7 check] dense receiver and link at K={K} B={Bk} (128-burst tiles) "
               + " ".join(parts), flush=True)
 
-    # 7b. the large-K link through the user's entry points, launches counted
-    _reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    links = {(K, est): fused.link_step_factored(cfgs[K], payload[K], estimator=est)
-             for K, est in ((K_FULL, "fast"), (K_ESTIMATOR, "fused"))}
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    run = _launches()
-    launches = {key: run[key] for key in ("tx_factored", "rx_factored", "rx_factored_chan")}
+    # 7b. the large-K link through the user's entry points, each path's
+    # launches counted from zero (row 6, estimator="fused": the estimator
+    # GEMM under "rx_factored", then the receiver under "rx_factored_chan")
+    links, runs = {}, {}
+    host_s = 0.0
+    for K, est in ((K_FULL, "fast"), (K_ESTIMATOR, "fused")):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        links[(K, est)] = fused.link_step_factored(cfgs[K], payload[K], estimator=est)
+        torch.cuda.synchronize()
+        host_s += time.perf_counter() - t0
+        run = _launches()
+        runs[est] = {key: run[key] for key in ("tx_factored", "rx_factored", "rx_factored_chan")}
+    fast, fusd = runs["fast"], runs["fused"]
+    row6 = {"rx_estimate_kernel": fusd["rx_factored"], "rx_factored_kernel": fusd["rx_factored_chan"]}
+    # row 7 (rx_factored_chan) is the fast link's receiver; row 6's receiver
+    # launch stands in the rx_factored entry's launches_by_kernel
+    launches = {"tx_factored": fast["tx_factored"] + fusd["tx_factored"],
+                "rx_factored": sum(row6.values()), "rx_estimate": fusd["rx_factored"],
+                "rx_factored_chan": fast["rx_factored_chan"]}
     for key, v in launches.items():
         if v < 1:
             failures.append(f"kernel {key} was not launched on the large-K path")
+    if tuple(row6.values()) != (1, 1) or fast["rx_factored"] != 0:
+        failures.append(f"row 6: launches {row6} on the estimator=fused link (expected one "
+                        f"each), rx_factored {fast['rx_factored']} on the fast one")
     for (K, est), (d_hat, evm_k) in links.items():
         data = payload[K]
         evm_k = float(evm_k)
@@ -598,7 +623,9 @@ def _large_k_phase(torch, dev, card, check, failures):
               + " ".join(parts + [check("evm", evm_k, TOL["evm_max"]),
                                   check("wrong_decisions", float(wrong), 0.0)]),
               flush=True)
-    print(f"[7 main] launches={launches} host {host_s * 1e3:.1f} ms", flush=True)
+    print(f"[7 main] launches: estimator=fast link {fast}, estimator=fused link {fusd} "
+          f"(row 6: rx_estimate_kernel {row6['rx_estimate_kernel']} + rx_factored_kernel "
+          f"{row6['rx_factored_kernel']}) host {host_s * 1e3:.1f} ms", flush=True)
     del links
 
     # 7c. times: kernel vs plain (plain, kernel, kernel, plain) and the link
@@ -642,12 +669,41 @@ def _large_k_phase(torch, dev, card, check, failures):
                       f"{sps / (k_ms / 1e3):.4e}, plain {sps / (p_ms / 1e3):.4e}, "
                       f"torch-op fast chain {sps / (chain / 1e3):.4e} ({chain:.3f} ms); "
                       f"torch-op estimate {est:.3f} ms ({card})", flush=True)
+        if K == K_ESTIMATOR:
+            times["rx_estimate"] = _estimate_gemm_line(torch, cfg, bursts, err, check, card)
         if K != K_ESTIMATOR:
             _kstage_yardstick(torch, cfg, bursts, card)
         if K in (K_FULL, 1024):
             _factored_link_stages(torch, cfg, data, card)
         del bursts
-    return launches, err, times
+    return launches, err, times, row6
+
+
+def _estimate_gemm_line(torch, cfg, bursts, err, check, card) -> tuple:
+    """[7 time] row 6's estimator GEMM alone: kernel and plain ms, torch.mm
+    of the same product (TF32 off; the yardstick, which the port never
+    calls), the bound and the largest error against a float64 product.
+    Returns (kernel, plain, torch.mm) ms; sets err["rx_estimate"] (vs plain)."""
+    from gfdm_tpu_torch.kernels import fused
+
+    B, K = bursts.shape[0], cfg.subcarriers
+    got = fused._rx_estimate_cuda(cfg, bursts)
+    err["rx_estimate"] = _max_abs(got, fused._rx_estimate_plain(cfg, bursts))
+    e_w = fused._estimator_op(cfg, bursts.device)
+    pre2 = bursts[..., cfg.cp_len : cfg.cp_len + 2 * K].reshape(B, 4 * K).contiguous()
+    ref = (pre2.double() @ e_w.double()).reshape(got.shape)
+    rel64 = _max_abs(got.double(), ref) / float(ref.abs().max())
+    del got, ref
+    k_ms, p_ms, ks, ps = _timed(torch, lambda: fused._rx_estimate_cuda(cfg, bursts),
+                                lambda: fused._rx_estimate_plain(cfg, bursts))
+    lib_ms = _time_ms(torch, lambda: torch.mm(pre2, e_w))
+    b_ms, b_by = _bound("rx_estimate", cfg, B)
+    print(f"[7 time] K={K} B={B} rx_estimate (row 6's estimator GEMM alone): kernel {ks} ms, "
+          f"plain {ps} ms, torch.mm(pre2, E_W) TF32 off {lib_ms:.3f} ms; bound {b_ms:.3f} ms "
+          f"({b_by}) = {b_ms / k_ms:.1%}; vs plain max |d| {err['rx_estimate']:.3e}, "
+          + check("vs float64 max |d| / max |H|", rel64, TOL["estimate64"]) + f" ({card})",
+          flush=True)
+    return k_ms, p_ms, lib_ms
 
 
 def _kstage_yardstick(torch, cfg, bursts, card) -> None:
@@ -882,6 +938,8 @@ def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
     if key == "rx_hybrid":
         ops = est[0] + dft[0] + 8.0 * n * (L + M) + conv_ic
         return batch * ops, f4 * batch * (2 * fl + 4 * n) + est[1] + dft[1]
+    if key == "rx_estimate":  # (B, 4K) @ (4K, 2N): bursts' windows, E_W, chan
+        return 2.0 * batch * 4 * K * 2 * n, f4 * (batch * (4 * K + 2 * n) + 4 * K * 2 * n)
     fft = (K & (K - 1)) == 0 and not direct_dft
     kstage = 5.0 * M * K * math.log2(K) if fft else 8.0 * M * K * K
     if key in ("rx_factored", "rx_factored_chan"):
@@ -1593,7 +1651,7 @@ def main() -> int:
     times.update(det_times)
 
     # 7. the large-K factored path
-    lk_launches, lk_err, lk_times = _large_k_phase(torch, dev, card, check, failures)
+    lk_launches, lk_err, lk_times, row6 = _large_k_phase(torch, dev, card, check, failures)
     launches.update(lk_launches)
     times.update(lk_times)
     for key, e in lk_err.items():
@@ -1631,6 +1689,7 @@ def main() -> int:
                                         "n_valid": CHUNK_LEN}),
         "tx_factored": (lk[K_FULL], B_LARGE_K, {}),
         "rx_factored": (lk[K_ESTIMATOR], B_LARGE_K, {}),
+        "rx_estimate": (lk[K_ESTIMATOR], B_LARGE_K, {}),
         "rx_factored_chan": (lk[K_FULL], B_LARGE_K, {}),
         "rx_core": (cfg, B, {}), "rx_ic": (cfg, B, {}), "rx_full": (cfg, B, {}),
         "rx_hybrid": (cfg, B, {}),
@@ -1655,6 +1714,8 @@ def main() -> int:
             note = (f"; with the K-point stage as the direct DFT "
                     f"{extra['dft_bound_ms']:.3f} ms ({dft_by}) = "
                     f"{extra['dft_bound_ms'] / times[key][0]:.1%}")
+        if key == "rx_factored":  # two launches: the estimator GEMM, the receiver
+            extra["launches_by_kernel"] = row6
         if key == "link":  # tensor-core bound; the fp32 FMA one as PRs 1-6 gave it
             extra["fma_bound_ms"] = bound_ms
             bound_ms, bound_by, inter_ms = _link_bound(kcfg, kb, **kw)

@@ -24,18 +24,16 @@
 // f32: one launch a stage (three), each a GEMM over the batch with its
 //   activation in device memory (x -> scratch[0] -> scratch[1] -> out,
 //   302 MB a float32 intermediate at B = 65,536: 0.5 ms of bytes against a
-//   7.3 ms bound). A CTA of 128 threads computes a 64 x 128 output tile,
-//   each thread an 8 x 8 block (rows ty + 8 i, columns 4 tx + 64 h + e).
-//   k runs in 16-deep tiles through a four-slot cp.async ring (48 KB); a
-//   k-tile past kd is zero-filled by the copy (src-size 0). The A tile is
-//   [m][k] and the W tile [k][n], so four k of a row and a k-row of eight
-//   columns are 16-byte loads (LDS.128): 16 shared loads per 256 FMA, the
-//   FMAs in a zigzag over the columns. Three CTAs an SM at up to 170
-//   registers, so no spill (256 threads capped at 128 registers for two
-//   CTAs spill; 128 x 128 tiles, 8 x 16 and 16 x 8 blocks, 8- or 32-deep
-//   k-tiles and other rings ran slower). Every output
-//   element is one FMA chain over k in order, from zero, with no split-k:
-//   bit-equal to cuBLAS's SGEMM at these shapes. FMA on CUDA cores, no TF32.
+//   7.3 ms bound). The GEMM body is fma_gemm.cuh's (shared with the factored
+//   receiver's estimator): a CTA of 128 threads computes a 64 x 128 output
+//   tile, each thread an 8 x 8 block; k runs in 16-deep tiles through a
+//   four-slot cp.async ring (48 KB); a k-tile past kd is zero-filled by the
+//   copy (src-size 0). Three CTAs an SM at up to 170 registers, so no spill
+//   (256 threads capped at 128 registers for two CTAs spill; 128 x 128
+//   tiles, 8 x 16 and 16 x 8 blocks, 8- or 32-deep k-tiles and other rings
+//   ran slower). Every output element is one FMA chain over k in order,
+//   from zero, with no split-k: bit-equal to cuBLAS's SGEMM at these
+//   shapes. FMA on CUDA cores, no TF32.
 // bf16: a rounding pass writes bf16(x) (nearest even) into the scratch,
 //   then one launch a stage (four launches): stage 1 writes its bf16 output
 //   into the bytes of out, stage 2 into the scratch, stage 3 float32 into
@@ -71,6 +69,7 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "fma_gemm.cuh"
 #include "hopper_gemm.cuh"
 
 namespace gfdm {
@@ -89,14 +88,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using fg::cp_async_commit;
+using fg::cp_async_wait;
 
 // Max over a CTA of 256 threads; the result is valid in thread 0.
 __device__ float block_max256(float m) {
@@ -114,102 +107,44 @@ __device__ float block_max256(float m) {
 // ---------------------------------------------------------------------------
 // f32: one launch a stage, a register-blocked FMA GEMM on CUDA cores
 // ---------------------------------------------------------------------------
-constexpr int F_BM = 64, F_BN = 128, F_BK = 16, F_STAGES = 4, F_THREADS = 128;
-constexpr int F_TM = 8, F_TN = 8;  // a thread's block: rows ty + 8 i, columns 4 tx + 64 h + e
-constexpr int F_TY = F_THREADS / 16;
-static_assert(F_BM == F_TY * F_TM && F_BN == 16 * F_TN && HID % F_BN == 0, "f32 tiling");
-constexpr int F_SLOT = F_BM * F_BK + F_BK * F_BN;  // floats a ring slot: A [m][k], W [k][n]
-constexpr size_t F_SMEM = sizeof(float) * F_STAGES * F_SLOT;
-
-// 16 bytes, or zeros where !valid (src-size 0 reads nothing)
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
+static_assert(HID % fg::BN == 0, "f32 tiling");
 
 // k-tile k0 into a ring slot: A rows m0 .. m0 + 64 (pitch kd) and W rows
 // k0 .. k0 + 16, columns n0 .. n0 + 128 (pitch HID); k >= kd zero
 __device__ __forceinline__ void f32_load_tile(float* slot, const float* a, const float* w, int kd,
                                               size_t m0, int n0, int k0, int tid) {
   float* as = slot;
-  float* ws = slot + F_BM * F_BK;
+  float* ws = slot + fg::BM * fg::BK;
 #pragma unroll
-  for (int i = 0; i < F_BM * F_BK / 4 / F_THREADS; ++i) {
-    const int c = tid + i * F_THREADS, r = c >> 2, k = k0 + 4 * (c & 3);
-    cp_async16_zfill(as + r * F_BK + 4 * (c & 3), k < kd ? a + (m0 + r) * kd + k : a, k < kd);
+  for (int i = 0; i < fg::BM * fg::BK / 4 / fg::THREADS; ++i) {
+    const int c = tid + i * fg::THREADS, r = c >> 2, k = k0 + 4 * (c & 3);
+    fg::cp_async16_zfill(as + r * fg::BK + 4 * (c & 3), k < kd ? a + (m0 + r) * kd + k : a,
+                         k < kd);
   }
 #pragma unroll
-  for (int i = 0; i < F_BK * F_BN / 4 / F_THREADS; ++i) {
-    const int c = tid + i * F_THREADS, r = c >> 5, col = 4 * (c & 31);
+  for (int i = 0; i < fg::BK * fg::BN / 4 / fg::THREADS; ++i) {
+    const int c = tid + i * fg::THREADS, r = c >> 5, col = 4 * (c & 31);
     const bool ok = k0 + r < kd;
-    cp_async16_zfill(ws + r * F_BN + col, ok ? w + static_cast<size_t>(k0 + r) * HID + n0 + col : w,
-                     ok);
+    fg::cp_async16_zfill(ws + r * fg::BN + col,
+                         ok ? w + static_cast<size_t>(k0 + r) * HID + n0 + col : w, ok);
   }
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int e) {
-  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
 }
 
 // c[m0 .., n0 ..] = a (rows, kd) @ w (kd, HID), a 64 x 128 tile a CTA
-__global__ void __launch_bounds__(F_THREADS, 3)
+__global__ void __launch_bounds__(fg::THREADS, 3)
 chain_f32_stage_kernel(int kd, const float* __restrict__ a, const float* __restrict__ w,
                        float* __restrict__ c) {
   extern __shared__ __align__(16) float fsm[];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const size_t m0 = static_cast<size_t>(blockIdx.y) * F_BM;
-  const int n0 = blockIdx.x * F_BN;
-  const int nt = (kd + F_BK - 1) / F_BK;
-  float acc[F_TM][F_TN];
+  const size_t m0 = static_cast<size_t>(blockIdx.y) * fg::BM;
+  const int n0 = blockIdx.x * fg::BN;
+  float acc[fg::TM][fg::TN];
+  fg::mainloop(acc, fsm, (kd + fg::BK - 1) / fg::BK, [&](float* slot, int k0) {
+    f32_load_tile(slot, a, w, kd, m0, n0, k0, tid);
+  });
 #pragma unroll
-  for (int i = 0; i < F_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
-#pragma unroll
-  for (int s = 0; s < F_STAGES - 1; ++s) {
-    if (s < nt) f32_load_tile(fsm + s * F_SLOT, a, w, kd, m0, n0, s * F_BK, tid);
-    cp_async_commit();
-  }
-  for (int t = 0; t < nt; ++t) {
-    cp_async_wait<F_STAGES - 2>();  // tile t has landed
-    __syncthreads();                // ... for every thread, and tile t - 1's slot is free
-    const int tn = t + F_STAGES - 1;
-    if (tn < nt) f32_load_tile(fsm + (tn % F_STAGES) * F_SLOT, a, w, kd, m0, n0, tn * F_BK, tid);
-    cp_async_commit();
-    const float* as = fsm + (t % F_STAGES) * F_SLOT;
-    const float* ws = as + F_BM * F_BK;
-#pragma unroll
-    for (int k4 = 0; k4 < F_BK; k4 += 4) {
-      // a warp reads two rows (16 words apart: other banks), broadcast
-      float4 av[F_TM];
-#pragma unroll
-      for (int i = 0; i < F_TM; ++i)
-        av[i] = *reinterpret_cast<const float4*>(as + (ty + F_TY * i) * F_BK + k4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* wr = ws + (k4 + e) * F_BN + 4 * tx;
-        const float4 b0 = *reinterpret_cast<const float4*>(wr);
-        const float4 b1 = *reinterpret_cast<const float4*>(wr + 64);
-        const float bv[F_TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < F_TM; ++i) {
-          const float ai = lane4(av[i], e);
-          // odd rows walk the columns backwards, so the FMA after a row
-          // change reuses the W operand of the one before (operand reuse)
-#pragma unroll
-          for (int jj = 0; jj < F_TN; ++jj) {
-            const int j = (i & 1) ? F_TN - 1 - jj : jj;
-            acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < F_TM; ++i) {
-    float* row = c + (m0 + ty + F_TY * i) * HID + n0 + 4 * tx;
+  for (int i = 0; i < fg::TM; ++i) {
+    float* row = c + (m0 + ty + fg::TY * i) * HID + n0 + 4 * tx;
     *reinterpret_cast<float4*>(row) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     *reinterpret_cast<float4*>(row + 64) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
@@ -503,7 +438,7 @@ int sm_count() {
 
 cudaError_t f32_stage(int batch, int kd, const float* a, const void* w, float* c,
                       cudaStream_t st) {
-  chain_f32_stage_kernel<<<dim3(HID / F_BN, batch / F_BM), F_THREADS, F_SMEM, st>>>(
+  chain_f32_stage_kernel<<<dim3(HID / fg::BN, batch / fg::BM), fg::THREADS, fg::SMEM, st>>>(
       kd, a, static_cast<const float*>(w), c);
   return cudaGetLastError();
 }
@@ -536,7 +471,7 @@ int launch_chain(int variant, int batch, int d_in, const void* x, const void* w1
   if (variant == 0) {  // x -> scratch[0] -> scratch[1] -> out
     float* s0 = static_cast<float*>(scratch);
     float* s1 = s0 + plane;
-    if ((err = allow_smem(chain_f32_stage_kernel, F_SMEM)) != cudaSuccess ||
+    if ((err = allow_smem(chain_f32_stage_kernel, fg::SMEM)) != cudaSuccess ||
         (err = f32_stage(batch, d_in, xf, w1, s0, st)) != cudaSuccess ||
         (err = f32_stage(batch, HID, s0, w2, s1, st)) != cudaSuccess) {
       return static_cast<int>(err);

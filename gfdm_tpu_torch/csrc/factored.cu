@@ -3,9 +3,10 @@
 //
 // Replaces the Pallas kernels gfdm_tpu/kernels/fused.py::_tx_factored_kernel
 // (wrapper tx_frame_factored), ::_rx_factored_kernel (rx_receiver_factored,
-// estimator="fused") and ::_rx_factored_chan_kernel (estimator="fast"); the
-// two receivers are the two instantiations of one template, so they cannot
-// drift apart.
+// estimator="fused") and ::_rx_factored_chan_kernel (estimator="fast"). The
+// receiver is one kernel that reads its channel; with estimator="fused" the
+// channel comes from rx_estimate_kernel just before it, so the two
+// receivers cannot drift apart.
 //
 // Receiver, per burst (N = K M; payload sample t = M n2 + n1):
 //   Z[n1, k2]    = sum_n2 x[M n2 + n1] W_K^(n2 k2)                K-point DFTs
@@ -14,12 +15,27 @@
 //   S[k M + m]   = sum_i parts[(i + L/2) % L][m] Y[((k + i - L/2) mod K) M + m]
 //   d0[k M + m]  = sum_n iFM[n, m] S[k M + n]                     M-point IFFTs
 //   d            = d0 - sum_j taps[j] (q[k-1, m-j] + q[k+1, m-j])   (ic_iterations)
-// with q = +-1 (>= 0 -> +1) on active symbols and 0 elsewhere; H comes from
-// the dense (4K, 2N) estimator (CHAN_IN false) or is read (CHAN_IN true).
+// with q = +-1 (>= 0 -> +1) on active symbols and 0 elsewhere; H is read.
 // The transmitter runs the same stages reversed: resource map, per-subcarrier
 // M-point DFTs, L-tap overlap-add, the M-point stage of the N-point IDFT with
 // the conjugate twiddles, K-point IDFTs; then CP/CS at the cyclic shift,
 // window and preamble.
+//
+// The channel estimate of estimator="fused" (the Pallas kernel's
+// chan = pre @ E over its block of bursts): H (B, 2N) = A (B, 4K) @ E_W
+// (4K, 2N), row b of A the preamble window [bursts[b, 0, cp : cp + 2K] |
+// bursts[b, 1, cp : cp + 2K]], read in place (two segments a row, no gather
+// copy); H's rows are chan's (B, 2, N) rows [H_re | H_im]. Bound: its 2 B 4K
+// 2N operations, 9.66 GFLOP at K = 128, B = 4,096: 0.144 ms at the 67
+// TFLOP/s of fp32 FMA (the bytes, 47 MB, 0.014 ms). Design: fma_gemm.cuh's
+// register-blocked GEMM over 64-burst x 128-column tiles, so each E_W tile
+// that a CTA stages in shared memory serves 64 bursts (a CTA a burst would
+// stream all of E_W from L2 for each burst: 19.3 GB at B = 4,096); 16-byte
+// copies of A where cp_len, frame_len
+// and 2K are multiples of 4 and of E_W and H where 2N is, 4-byte ones
+// otherwise (chosen at launch); rows past B, columns past 2N and k past 4K
+// zero-filled by the copies and not stored. Each output is one FMA chain
+// over k in order (the re rows, then the im rows), from zero.
 //
 // The K-point stage. The Pallas kernel multiplies by a dense (2K, 2K) matrix
 // (cheap on the MXU); on CUDA cores that is 8 M K^2 flops a burst (18.9 M at
@@ -47,9 +63,11 @@
 // Bound: with the FFT, the bursts' bytes (read once, written once; the Tx
 // 315 MB and the receiver with its channel read 499 MB at K = 512, B = 4,096);
 // in practice the latency of each CTA's short stages between barriers. Design:
-// one CTA a burst, 512 threads at most 64 registers; two stages of M padded
-// rows, the twiddle table and the M-point operators, filter parts and IC taps
-// in shared memory (84 KB at K = 512), so two CTAs share an SM at K <= 512.
+// one CTA a burst, 512 threads at most 64 registers (at K <= FAC_SMALL_K the
+// receiver 128 threads, eight CTAs an SM: most of its stages run one thread a
+// subcarrier); two stages of M padded rows, the twiddle table and the M-point
+// operators, filter parts and IC taps in shared memory (84 KB at K = 512), so
+// two CTAs share an SM at K <= 512.
 // The burst's payload (scattered to its rows) and, with the FFT, the channel
 // (planar, into the other stage) arrive by cp.async while the tables are
 // built; the FFT runs in place; ZF writes Y over H; the M-point stages
@@ -60,11 +78,16 @@
 // through the M-point stages, the fold and the IC. Bursts and channels are
 // read, and symbols and bursts written, 16 bytes a copy where the planes'
 // offsets allow (VEC = 4, chosen at launch).
+#include "fma_gemm.cuh"      // fg:: the estimator GEMM's body
 #include "gfdm_common.cuh"  // cmla, op_entry, planar_at
 
 namespace gfdm {
 
 constexpr int FAC_MAX_THREADS = 512;  // two CTAs an SM: at most 64 registers
+// The receiver at K <= FAC_SMALL_K: 128 threads a CTA, eight CTAs an SM, at
+// most 64 registers.
+constexpr int FAC_SMALL_K = 128;
+constexpr int FAC_SMALL_THREADS = 128;
 constexpr int FAC_ROWS = 3;  // DFT rows a thread accumulates (M = 9: 3 x 3)
 
 // Sizes of one call. Field order mirrors kernels/cuda_lib.py::FactoredDims.
@@ -94,10 +117,7 @@ struct FactoredConsts {
   const int* map_idx;   // (N) payload index of each grid position, n_data: 0
   const float* win;     // (N + cp + cs) CP/CS window
   const float* pre;     // (2, preamble_len) preamble of this shift
-  const float* e_w;     // (4K, 2N) realified channel estimator (CHAN_IN false)
 };
-
-enum FactoredKind { kTx = 0, kRxEstimate = 1, kRxChanIn = 2 };
 
 // The K-point stage's plan: an FFT for K a power of two, else the direct DFT.
 __host__ __device__ inline bool fac_fft(int K) { return K >= 2 && (K & (K - 1)) == 0; }
@@ -133,16 +153,16 @@ __host__ __device__ inline int fac_stage(int K, int M) { return fac_even(M * fac
 // (complex): FM (M x M), iFM (M x M), parts (L x M), taps (M).
 __host__ __device__ inline int fac_consts_len(int M, int L) { return 2 * M * M + L * M + M; }
 
-// Shared memory of one CTA: the twiddle table (K), two stages of M padded
-// rows, the small constants and, for the in-kernel estimator, the 2K-sample
-// preamble window.
-__host__ __device__ inline size_t factored_smem_bytes(const FactoredDims& d,
-                                                      int kind) {
+// Shared memory of one CTA (the Tx's and the receiver's): the twiddle table
+// (K), two stages of M padded rows and the small constants.
+__host__ __device__ inline size_t factored_smem_bytes(const FactoredDims& d) {
   const size_t K = d.subcarriers;
   const size_t c = fac_even(K) + 2 * static_cast<size_t>(fac_stage(K, d.timeslots)) +
-                   fac_consts_len(d.timeslots, d.overlap) + (kind == kRxEstimate ? 2 * K : 0);
+                   fac_consts_len(d.timeslots, d.overlap);
   return c * sizeof(float2);
 }
+
+inline bool fac_small(const FactoredDims& d) { return d.subcarriers <= FAC_SMALL_K; }
 
 // Threads of a CTA: one per (row group, DFT bin) of the direct K-point stage.
 inline int factored_threads(const FactoredDims& d) {
@@ -364,13 +384,13 @@ __device__ __forceinline__ void dft_rows(const float2* in, const float2* wk,
 // the same order. At M = 9 the MT = 0 body takes ~1.4x (Tx) and ~2x
 // (receiver, two IC iterations) the time on an H100
 // (gfdm_tpu_torch/benchmarks/factored_kernels.py): its IC reads each
-// neighbour decision M times from shared memory.
-template <bool CHAN_IN, int VEC, int MT>
-__global__ void __launch_bounds__(FAC_MAX_THREADS, 2)
+// neighbour decision M times from shared memory. SMALL: the K <= FAC_SMALL_K
+// bound (FAC_SMALL_THREADS threads, eight CTAs an SM).
+template <int VEC, int MT, bool SMALL>
+__global__ void __launch_bounds__(SMALL ? FAC_SMALL_THREADS : FAC_MAX_THREADS, SMALL ? 8 : 2)
 rx_factored_kernel(FactoredDims d, FactoredConsts c,
                    const float* __restrict__ bursts,
-                   const float* __restrict__ chan_in,
-                   float* __restrict__ chan_out, float* __restrict__ sym) {
+                   const float* __restrict__ chan, float* __restrict__ sym) {
   extern __shared__ float2 fsm[];
   const int K = d.subcarriers, M = MT > 0 ? MT : d.timeslots, n = d.n, L = d.frame_len;
   const int stride = fac_stride(K), lgK = fac_log2(K), Lo = d.overlap;
@@ -381,14 +401,12 @@ rx_factored_kernel(FactoredDims d, FactoredConsts c,
   float2* Bs = A + fac_stage(K, M);
   float2* fmS = Bs + fac_stage(K, M);        // small constants (fac_consts)
   const float2 *ifmS = fmS + M * M, *partS = ifmS + M * M, *tapS = partS + Lo * M;
-  float2* P = fmS + fac_consts_len(M, Lo);   // preamble window (CHAN_IN false)
   const float* src = bursts + static_cast<size_t>(b) * 2 * L;
-  const float* hin = CHAN_IN ? chan_in + static_cast<size_t>(b) * 2 * n : nullptr;
+  const float* hin = chan + static_cast<size_t>(b) * 2 * n;
   const int fs = d.preamble_len + d.cp_len;
   // copies in flight together, while the tables are built: the payload
-  // block, sample t = M n2 + n1 -> row n1, element n2 of A; with the FFT and
-  // the channel read, the channel (planar) into Bs; the preamble window
-  const bool chan_early = CHAN_IN && fft;
+  // block, sample t = M n2 + n1 -> row n1, element n2 of A; with the FFT,
+  // the channel (planar) into Bs
   float* Bf = reinterpret_cast<float*>(Bs);
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
     const int n2 = t / M, n1 = t - n2 * M;
@@ -396,19 +414,13 @@ rx_factored_kernel(FactoredDims d, FactoredConsts c,
     fac_cp4(&a->x, src + fs + t);
     fac_cp4(&a->y, src + L + fs + t);
   }
-  if (chan_early) {
+  if (fft) {
     for (int t = threadIdx.x; t < 2 * n / VEC; t += blockDim.x) {
       if (VEC == 4) {
         fac_cp16(Bf + 4 * t, hin + 4 * t);
       } else {
         fac_cp4(Bf + t, hin + t);
       }
-    }
-  }
-  if (!CHAN_IN) {
-    for (int t = threadIdx.x; t < 2 * K; t += blockDim.x) {
-      fac_cp4(&P[t].x, src + d.cp_len + t);
-      fac_cp4(&P[t].y, src + L + d.cp_len + t);
     }
   }
   fac_twiddles(wk, c.fk, K, 1.f);
@@ -428,33 +440,16 @@ rx_factored_kernel(FactoredDims d, FactoredConsts c,
     O = A;
   }
 
-  // 2. the channel H, planar in O: [pre_re | pre_im] @ E_W (4K, 2N), also
-  //    written out (CHAN_IN false), or read (unless it came with the payload)
+  // 2. the channel H, planar in O: read now for the direct DFT (with the FFT
+  //    it came with the payload)
   float* Of = reinterpret_cast<float*>(O);
-  if (!CHAN_IN) {
-    float* hrow = chan_out + static_cast<size_t>(b) * 2 * n;
-    for (int col = threadIdx.x; col < n; col += blockDim.x) {
-      const int K2 = 2 * K;
-      float hr = 0.f, hi = 0.f;
-      for (int r = 0; r < K2; ++r) {
-        const float* er = c.e_w + static_cast<size_t>(r) * 2 * n;
-        const float* ei = c.e_w + static_cast<size_t>(K2 + r) * 2 * n;
-        const float2 p = P[r];
-        hr = fmaf(p.y, __ldg(ei + col), fmaf(p.x, __ldg(er + col), hr));
-        hi = fmaf(p.y, __ldg(ei + n + col), fmaf(p.x, __ldg(er + n + col), hi));
-      }
-      hrow[col] = hr;
-      hrow[n + col] = hi;
-      Of[col] = hr;
-      Of[n + col] = hi;
-    }
-  } else if (!chan_early) {
+  if (!fft) {
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
       Of[t] = __ldcs(hin + t);
       Of[n + t] = __ldcs(hin + n + t);
     }
+    __syncthreads();
   }
-  if (!chan_early) __syncthreads();
 
   // 3. twiddle, M-point stage (natural-order spectrum X) and ZF: Y over H in O
   for (int k2 = threadIdx.x; k2 < K; k2 += blockDim.x) {
@@ -786,58 +781,175 @@ tx_factored_kernel(FactoredDims d, FactoredConsts c,
   }
 }
 
+// The channel estimate of estimator="fused": chan (B, 2, N) = A @ E_W, A's
+// row b the preamble window of burst b read in place (see the head of this
+// file); a 64-burst x 128-column tile a CTA on fma_gemm.cuh's body. A16:
+// 16-byte copies of A (cp_len, frame_len and 2K multiples of 4), else 4-byte
+// ones; W16: 16-byte copies of E_W and stores of chan (2N a multiple of 4),
+// else 4-byte ones. Rows past B, columns past 2N and k past 4K arrive as
+// zeros and are not stored.
+template <bool A16, bool W16>
+__global__ void __launch_bounds__(fg::THREADS, 3)
+rx_estimate_kernel(FactoredDims d, const float* __restrict__ bursts,
+                   const float* __restrict__ e_w, float* __restrict__ chan) {
+  extern __shared__ __align__(16) float esm[];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int rows = d.batch, K2 = 2 * d.subcarriers, kd = 2 * K2, cols = 2 * d.n;
+  const int L = d.frame_len, cp = d.cp_len;
+  const int m0 = blockIdx.y * fg::BM, n0 = blockIdx.x * fg::BN;
+  // A's element (r, k): plane k / 2K of burst r, sample cp + k % 2K
+  auto a_at = [&](int r, int k) {
+    return bursts + static_cast<size_t>(r) * 2 * L + (k < K2 ? cp + k : L + cp + (k - K2));
+  };
+  float acc[fg::TM][fg::TN];
+  fg::mainloop(acc, esm, (kd + fg::BK - 1) / fg::BK, [&](float* slot, int k0) {
+    float* as = slot;
+    float* ws = slot + fg::BM * fg::BK;
+    if constexpr (A16) {
+#pragma unroll
+      for (int i = 0; i < fg::BM * fg::BK / 4 / fg::THREADS; ++i) {
+        const int c = tid + i * fg::THREADS, r = c >> 2, kq = 4 * (c & 3), k = k0 + kq;
+        const bool ok = m0 + r < rows && k < kd;
+        fg::cp_async16_zfill(as + r * fg::BK + kq, ok ? a_at(m0 + r, k) : bursts, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < fg::BM * fg::BK / fg::THREADS; ++i) {
+        const int c = tid + i * fg::THREADS, r = c >> 4, kk = c & 15, k = k0 + kk;
+        const bool ok = m0 + r < rows && k < kd;
+        fg::cp_async4_zfill(as + r * fg::BK + kk, ok ? a_at(m0 + r, k) : bursts, ok);
+      }
+    }
+    if constexpr (W16) {
+#pragma unroll
+      for (int i = 0; i < fg::BK * fg::BN / 4 / fg::THREADS; ++i) {
+        const int c = tid + i * fg::THREADS, r = c >> 5, col = 4 * (c & 31);
+        const bool ok = k0 + r < kd && n0 + col < cols;
+        fg::cp_async16_zfill(ws + r * fg::BN + col,
+                             ok ? e_w + static_cast<size_t>(k0 + r) * cols + n0 + col : e_w, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < fg::BK * fg::BN / fg::THREADS; ++i) {
+        const int c = tid + i * fg::THREADS, r = c >> 7, col = c & 127;
+        const bool ok = k0 + r < kd && n0 + col < cols;
+        fg::cp_async4_zfill(ws + r * fg::BN + col,
+                            ok ? e_w + static_cast<size_t>(k0 + r) * cols + n0 + col : e_w, ok);
+      }
+    }
+  });
+  // thread block: rows ty + 8 i, columns 4 tx + 64 h + e (acc[i][4 h + e])
+#pragma unroll
+  for (int i = 0; i < fg::TM; ++i) {
+    const int row = m0 + ty + fg::TY * i;
+    if (row >= rows) continue;
+    float* dst = chan + static_cast<size_t>(row) * cols;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = n0 + 4 * tx + 64 * h;
+      if constexpr (W16) {
+        if (c0 < cols) {
+          *reinterpret_cast<float4*>(dst + c0) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c0 + e < cols) dst[c0 + e] = acc[i][4 * h + e];
+        }
+      }
+    }
+  }
+}
+
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// Launch `kernel` one CTA a burst.
-template <typename Kernel, typename... Args>
-int launch_factored(Kernel kernel, const FactoredDims* d, size_t smem, void* stream,
-                    Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<d->batch, factored_threads(*d), smem, static_cast<cudaStream_t>(stream)>>>(
-      *d, args...);
+int launch_rx_estimate(const FactoredDims* d, const float* bursts, const float* e_w,
+                       float* chan, void* stream) {
+  if (d->batch <= 0) return 0;
+  const int cols = 2 * d->n;
+  const bool a16 = d->cp_len % 4 == 0 && d->frame_len % 4 == 0 && d->subcarriers % 2 == 0 &&
+                   aligned16(bursts);
+  const bool w16 = cols % 4 == 0 && aligned16(e_w) && aligned16(chan);
+  const dim3 grid((cols + fg::BN - 1) / fg::BN, (d->batch + fg::BM - 1) / fg::BM);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  (void)cudaGetLastError();  // report this launch's error only (earlier calls reported theirs)
+  if (a16 && w16) {
+    rx_estimate_kernel<true, true><<<grid, fg::THREADS, fg::SMEM, st>>>(*d, bursts, e_w, chan);
+  } else if (w16) {
+    rx_estimate_kernel<false, true><<<grid, fg::THREADS, fg::SMEM, st>>>(*d, bursts, e_w, chan);
+  } else {  // 2N not a multiple of 4: K odd, so 2K is not either
+    rx_estimate_kernel<false, false><<<grid, fg::THREADS, fg::SMEM, st>>>(*d, bursts, e_w, chan);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch `kernel` one CTA a burst, `threads` a CTA.
+template <typename Kernel, typename... Args>
+int launch_factored(Kernel kernel, const FactoredDims* d, size_t smem, int threads,
+                    void* stream, Args... args) {
+  (void)cudaGetLastError();  // report this launch's error only (earlier calls reported theirs)
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    (void)cudaGetLastError();  // a refused launch leaves no error behind
+    return static_cast<int>(err);
+  }
+  kernel<<<d->batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(*d, args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The receiver's threads a CTA: at K <= FAC_SMALL_K the small CTA's.
+inline int rx_threads(const FactoredDims& d) {
+  return fac_small(d) ? FAC_SMALL_THREADS : factored_threads(d);
+}
+
+// The receiver's bound: K <= FAC_SMALL_K the small CTA, else the wide one.
+template <int VEC, int MT>
+int launch_rx_mt(const FactoredDims* d, size_t smem, void* stream, const FactoredConsts& c,
+                 const float* bursts, const float* chan, float* sym) {
+  if (fac_small(*d)) {
+    return launch_factored(rx_factored_kernel<VEC, MT, true>, d, smem, rx_threads(*d), stream,
+                           c, bursts, chan, sym);
+  }
+  return launch_factored(rx_factored_kernel<VEC, MT, false>, d, smem, rx_threads(*d), stream,
+                         c, bursts, chan, sym);
 }
 
 // M = 9 (the large-K configs) takes the kernels' MT = 9 instantiations, any
 // other M the MT = 0 ones.
-template <bool CHAN_IN>
-int launch_rx_factored(const FactoredDims* d, const FactoredConsts* c,
-                       const float* bursts, const float* chan_in,
-                       float* chan_out, float* sym, void* stream) {
+int launch_rx_factored(const FactoredDims* d, const FactoredConsts* c, const float* bursts,
+                       const float* chan, float* sym, void* stream) {
   if (d->batch <= 0) return 0;
-  const size_t smem = factored_smem_bytes(*d, CHAN_IN ? kRxChanIn : kRxEstimate);
+  const size_t smem = factored_smem_bytes(*d);
   // 16-byte burst and channel reads and symbol writes where every plane
   // offset allows
   const bool vec = (d->preamble_len + d->cp_len) % 4 == 0 && d->frame_len % 4 == 0 &&
-                   d->n % 4 == 0 && aligned16(bursts) && aligned16(chan_in) &&
-                   aligned16(sym);
+                   d->n % 4 == 0 && aligned16(bursts) && aligned16(chan) && aligned16(sym);
   if (d->timeslots == 9) {
-    return vec ? launch_factored(rx_factored_kernel<CHAN_IN, 4, 9>, d, smem, stream, *c,
-                                 bursts, chan_in, chan_out, sym)
-               : launch_factored(rx_factored_kernel<CHAN_IN, 1, 9>, d, smem, stream, *c,
-                                 bursts, chan_in, chan_out, sym);
+    return vec ? launch_rx_mt<4, 9>(d, smem, stream, *c, bursts, chan, sym)
+               : launch_rx_mt<1, 9>(d, smem, stream, *c, bursts, chan, sym);
   }
-  return vec ? launch_factored(rx_factored_kernel<CHAN_IN, 4, 0>, d, smem, stream, *c, bursts,
-                               chan_in, chan_out, sym)
-             : launch_factored(rx_factored_kernel<CHAN_IN, 1, 0>, d, smem, stream, *c, bursts,
-                               chan_in, chan_out, sym);
+  return vec ? launch_rx_mt<4, 0>(d, smem, stream, *c, bursts, chan, sym)
+             : launch_rx_mt<1, 0>(d, smem, stream, *c, bursts, chan, sym);
 }
 
 int launch_tx_factored(const FactoredDims* d, const FactoredConsts* c, const float* data,
                        float* out, void* stream) {
   if (d->batch <= 0) return 0;
-  const size_t smem = factored_smem_bytes(*d, kTx);
+  const size_t smem = factored_smem_bytes(*d);
+  const int threads = factored_threads(*d);
   // 16-byte payload reads and burst writes where the planes allow
   const bool vec = d->frame_len % 4 == 0 && d->n_data % 4 == 0 && aligned16(data) &&
                    aligned16(out);
   if (d->timeslots == 9) {
-    return vec ? launch_factored(tx_factored_kernel<4, 9>, d, smem, stream, *c, data, out)
-               : launch_factored(tx_factored_kernel<1, 9>, d, smem, stream, *c, data, out);
+    return vec ? launch_factored(tx_factored_kernel<4, 9>, d, smem, threads, stream, *c, data,
+                                 out)
+               : launch_factored(tx_factored_kernel<1, 9>, d, smem, threads, stream, *c, data,
+                                 out);
   }
-  return vec ? launch_factored(tx_factored_kernel<4, 0>, d, smem, stream, *c, data, out)
-             : launch_factored(tx_factored_kernel<1, 0>, d, smem, stream, *c, data, out);
+  return vec ? launch_factored(tx_factored_kernel<4, 0>, d, smem, threads, stream, *c, data, out)
+             : launch_factored(tx_factored_kernel<1, 0>, d, smem, threads, stream, *c, data, out);
 }
 
 }  // namespace gfdm
@@ -848,23 +960,39 @@ extern "C" int gfdm_tx_factored(const gfdm::FactoredDims* d,
   return gfdm::launch_tx_factored(d, c, data, out, stream);
 }
 
+// The receiver with its own estimator: two launches, the estimator GEMM
+// (bursts, e_w (4K, 2N) -> chan) and the receiver on that channel.
 extern "C" int gfdm_rx_factored(const gfdm::FactoredDims* d,
                                 const gfdm::FactoredConsts* c, const float* bursts,
-                                const float* chan_in, float* chan_out, float* sym,
-                                void* stream) {
-  return gfdm::launch_rx_factored<false>(d, c, bursts, chan_in, chan_out, sym, stream);
+                                const float* e_w, float* chan, float* sym, void* stream) {
+  const int rc = gfdm::launch_rx_estimate(d, bursts, e_w, chan, stream);
+  return rc != 0 ? rc : gfdm::launch_rx_factored(d, c, bursts, chan, sym, stream);
 }
 
+// The estimator GEMM alone.
+extern "C" int gfdm_rx_estimate(const gfdm::FactoredDims* d, const float* bursts,
+                                const float* e_w, float* chan, void* stream) {
+  return gfdm::launch_rx_estimate(d, bursts, e_w, chan, stream);
+}
+
+// The receiver on a given channel.
 extern "C" int gfdm_rx_factored_chan(const gfdm::FactoredDims* d,
-                                     const gfdm::FactoredConsts* c,
-                                     const float* bursts, const float* chan_in,
-                                     float* chan_out, float* sym, void* stream) {
-  return gfdm::launch_rx_factored<true>(d, c, bursts, chan_in, chan_out, sym, stream);
+                                     const gfdm::FactoredConsts* c, const float* bursts,
+                                     const float* chan, float* sym, void* stream) {
+  return gfdm::launch_rx_factored(d, c, bursts, chan, sym, stream);
 }
 
-// kind: 0 the Tx, 1 the receiver with its estimator, 2 with the channel read
-extern "C" size_t gfdm_factored_smem_bytes(const gfdm::FactoredDims* d, int kind) {
-  return gfdm::factored_smem_bytes(*d, kind);
+// Shared memory of the Tx's and the receiver's CTA.
+extern "C" size_t gfdm_factored_smem_bytes(const gfdm::FactoredDims* d) {
+  return gfdm::factored_smem_bytes(*d);
+}
+
+// The estimator GEMM's tile: out = (bursts, columns, k-depth) of a CTA.
+extern "C" int gfdm_rx_estimate_tile(int* out) {
+  out[0] = gfdm::fg::BM;
+  out[1] = gfdm::fg::BN;
+  out[2] = gfdm::fg::BK;
+  return 0;
 }
 
 // The K-point stage's plan at K: out[0] the row stride, out[1..] the FFT's

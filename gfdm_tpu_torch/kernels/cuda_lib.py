@@ -21,17 +21,15 @@ from pathlib import Path
 import torch
 
 __all__ = ["Dims", "Consts", "Act", "LinkIO", "DetectDims", "FactoredDims", "FactoredConsts",
-           "FACTORED_KINDS", "library", "launch", "build_dir", "build_info"]
+           "library", "launch", "build_dir", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("tx.cu", "rx.cu", "link.cu", "detect.cu", "factored.cu", "chain.cu")
-HEADERS = ("gfdm_common.cuh", "link_gemm.cuh", "hopper_gemm.cuh")
+HEADERS = ("gfdm_common.cuh", "link_gemm.cuh", "hopper_gemm.cuh", "fma_gemm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# csrc/factored.cu's FactoredKind of each factored launcher
-FACTORED_KINDS = {"tx_factored": 0, "rx_factored": 1, "rx_factored_chan": 2}
 
 
 class Dims(ctypes.Structure):
@@ -97,7 +95,7 @@ class FactoredConsts(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "fk", "tw", "fm", "ifm", "parts", "taps", "act", "map_idx", "win",
-        "pre", "e_w",
+        "pre",
     )]
 
 
@@ -195,8 +193,10 @@ def library() -> ctypes.CDLL:
     lib.gfdm_detect_dims_size.argtypes = []
     fdims_p, fconsts_p = ctypes.POINTER(FactoredDims), ctypes.POINTER(FactoredConsts)
     lib.gfdm_tx_factored.argtypes = [fdims_p, fconsts_p, vp, vp, vp]
-    for fn in (lib.gfdm_rx_factored, lib.gfdm_rx_factored_chan):
-        fn.argtypes = [fdims_p, fconsts_p, vp, vp, vp, vp, vp]
+    lib.gfdm_rx_factored.argtypes = [fdims_p, fconsts_p, vp, vp, vp, vp, vp]
+    lib.gfdm_rx_estimate.argtypes = [fdims_p, vp, vp, vp, vp]
+    lib.gfdm_rx_factored_chan.argtypes = [fdims_p, fconsts_p, vp, vp, vp, vp]
+    lib.gfdm_rx_estimate_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.gfdm_factored_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.gfdm_factored_plan.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
     lib.gfdm_chain.argtypes = [ci, ci, ci, vp, vp, vp, vp, cf, cf, cf, vp, vp, vp, vp]
@@ -204,7 +204,8 @@ def library() -> ctypes.CDLL:
                lib.gfdm_link_io_size, lib.gfdm_rx_variant, lib.gfdm_struct_sizes,
                lib.gfdm_detect_front, lib.gfdm_detect_lean,
                lib.gfdm_detect_dims_size, lib.gfdm_tx_factored,
-               lib.gfdm_rx_factored, lib.gfdm_rx_factored_chan,
+               lib.gfdm_rx_factored, lib.gfdm_rx_estimate, lib.gfdm_rx_factored_chan,
+               lib.gfdm_rx_estimate_tile,
                lib.gfdm_factored_struct_sizes, lib.gfdm_factored_plan, lib.gfdm_chain):
         fn.restype = ctypes.c_int
     lib.gfdm_error_string.argtypes = [ctypes.c_int]
@@ -213,7 +214,7 @@ def library() -> ctypes.CDLL:
     lib.gfdm_rx_smem_bytes.restype = ctypes.c_size_t
     lib.gfdm_detect_smem_bytes.argtypes = [det_p]
     lib.gfdm_detect_smem_bytes.restype = ctypes.c_size_t
-    lib.gfdm_factored_smem_bytes.argtypes = [fdims_p, ctypes.c_int]
+    lib.gfdm_factored_smem_bytes.argtypes = [fdims_p]
     lib.gfdm_factored_smem_bytes.restype = ctypes.c_size_t
     sizes = (ctypes.c_int * 2)()
     lib.gfdm_struct_sizes(sizes)

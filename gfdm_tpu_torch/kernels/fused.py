@@ -33,10 +33,14 @@ bf16 before each product.
 
 The large-K factored pair (``_tx_factored_kernel``, ``_rx_factored_kernel``,
 ``_rx_factored_chan_kernel``; ``csrc/factored.cu``) carries no dense
-operator: the N-point (I)DFT is K-point DFTs plus a twiddled M-point stage,
-the filter fold / overlap-add are L taps, the per-subcarrier M-point
-transforms are M-point products. Their plain versions are the stages of
-:mod:`..ops.planar_fast` with the kernels' ZF clamp and circulant IC.
+operator on the demodulation path: the N-point (I)DFT is K-point DFTs plus a
+twiddled M-point stage, the filter fold / overlap-add are L taps, the
+per-subcarrier M-point transforms are M-point products. Their plain
+versions are the stages of :mod:`..ops.planar_fast` with the kernels' ZF
+clamp and circulant IC. ``_rx_factored_kernel`` (``estimator="fused"``) is
+two launches: the dense estimate ``pre2 @ E_W`` as a register-blocked GEMM
+over (bursts x channel columns) tiles, then the receiver of
+``_rx_factored_chan_kernel`` on the channel it wrote.
 
 Dispatch: a wrapper runs the plain version only for a tensor on the CPU; for
 a CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts the
@@ -1162,17 +1166,24 @@ def _ic_factored(cfg: GfdmConfig, k: dict, d0: torch.Tensor, ic_iterations: int,
     return torch.stack([dr.reshape(B, n), di.reshape(B, n)], dim=1)
 
 
+def _rx_estimate_plain(cfg: GfdmConfig, bursts: torch.Tensor) -> torch.Tensor:
+    """The dense channel estimate (B, 2, N) = pre2 @ E_W, pre2 the (B, 4K)
+    preamble window [re | im] of each burst."""
+    B, K = bursts.shape[0], cfg.subcarriers
+    pre2 = bursts[..., cfg.cp_len : cfg.cp_len + 2 * K].reshape(B, 4 * K)
+    return (pre2 @ _estimator_op(cfg, bursts.device)).reshape(B, 2, cfg.block_len)
+
+
 def _rx_factored_plain(cfg: GfdmConfig, bursts: torch.Tensor, chan, ic_iterations: int,
                        amp: float = _QPSK_AMP):
     """(B, 2, frame_len) bursts [+ (B, 2, N) channel] -> chan, symbols (B, 2, N).
 
-    chan=None estimates it with the dense E_W (the in-kernel estimator); the
-    IC decisions have the amplitude ``amp``."""
+    chan=None estimates it with the dense E_W (:func:`_rx_estimate_plain`);
+    the IC decisions have the amplitude ``amp``."""
     k = _factored_consts(cfg, bursts.device)
-    B, n, K = bursts.shape[0], cfg.block_len, cfg.subcarriers
+    B, n = bursts.shape[0], cfg.block_len
     if chan is None:
-        pre2 = bursts[..., cfg.cp_len : cfg.cp_len + 2 * K].reshape(B, 4 * K)
-        chan = (pre2 @ _estimator_op(cfg, bursts.device)).reshape(B, 2, n)
+        chan = _rx_estimate_plain(cfg, bursts)
     fs = cfg.preamble_len + cfg.cp_len
     X = planar_fast.fast_fft_n(cfg, bursts[..., fs : fs + n], k)  # natural order
     S = planar_fast._fold_rx(cfg, _zf_clamped(X, chan), k)  # (B, K, 2, M)
@@ -1208,7 +1219,7 @@ def _factored_dims(cfg: GfdmConfig, batch: int, shift: int = 0, ic_iterations: i
     )
 
 
-def _factored_ptrs(k: dict, tx: bool, shift_index: int = 0, e_w=None, taps=None):
+def _factored_ptrs(k: dict, tx: bool, shift_index: int = 0, taps=None):
     from .cuda_lib import FactoredConsts
 
     taps = k["ftaps"] if taps is None else taps
@@ -1220,23 +1231,27 @@ def _factored_ptrs(k: dict, tx: bool, shift_index: int = 0, e_w=None, taps=None)
         taps=taps.data_ptr(), act=k["act"].data_ptr(),
         map_idx=k["map_idx"].data_ptr(), win=k["win"].data_ptr(),
         pre=k["preambles"][shift_index].data_ptr(),
-        e_w=None if e_w is None else e_w.data_ptr(),
     )
 
 
-def _run_factored(name: str, dims, consts, *ptrs, device) -> None:
-    """Launch ``gfdm_<name>``; a refused launch raises, naming the kernel and
-    the shared memory its one-burst CTA needs."""
-    from .cuda_lib import FACTORED_KINDS, launch
+def _run_factored(name: str, dims, args: tuple, device, counts=None) -> None:
+    """Launch ``gfdm_<name>`` (``args`` after the dims) and count it under
+    each key of ``counts`` (default: ``name``) unless the batch is empty (the
+    library launches nothing then); a refused launch raises, naming the
+    kernel and the shared memory its one-burst CTA needs."""
+    from .cuda_lib import launch
 
     def tile(lib):
-        nbytes = lib.gfdm_factored_smem_bytes(ctypes.byref(dims), FACTORED_KINDS[name])
+        if name == "rx_estimate":
+            return f"; the estimator GEMM, B={dims.batch}, 2N={2 * dims.n}"
+        nbytes = lib.gfdm_factored_smem_bytes(ctypes.byref(dims))
         return (f"; the {name} kernel keeps {nbytes} B in shared memory a CTA "
                 f"(one burst, K={dims.subcarriers}, M={dims.timeslots})")
 
-    launch(f"gfdm_{name}", (ctypes.byref(dims), ctypes.byref(consts), *ptrs),
-           device, hint=tile)
-    LAUNCHES[name] += 1
+    launch(f"gfdm_{name}", (ctypes.byref(dims), *args), device, hint=tile)
+    if dims.batch > 0:
+        for key in counts or (name,):
+            LAUNCHES[key] += 1
 
 
 def _tx_factored_cuda(cfg: GfdmConfig, data: torch.Tensor, shift_index: int):
@@ -1244,28 +1259,44 @@ def _tx_factored_cuda(cfg: GfdmConfig, data: torch.Tensor, shift_index: int):
     out = torch.empty(data.shape[0], 2, cfg.frame_len, dtype=torch.float32,
                       device=data.device)
     dims = _factored_dims(cfg, data.shape[0], shift=int(cfg.cyclic_shifts[shift_index]))
-    _run_factored("tx_factored", dims, _factored_ptrs(k, True, shift_index),
-                  data.data_ptr(), out.data_ptr(), device=data.device)
+    _run_factored("tx_factored", dims,
+                  (ctypes.byref(_factored_ptrs(k, True, shift_index)), data.data_ptr(),
+                   out.data_ptr()), data.device)
     return out
+
+
+def _rx_estimate_cuda(cfg: GfdmConfig, bursts: torch.Tensor) -> torch.Tensor:
+    """The estimator GEMM alone (one launch, counted under "rx_factored"):
+    chan (B, 2, N) = pre2 @ E_W from the bursts' preamble windows."""
+    chan = torch.empty(bursts.shape[0], 2, cfg.block_len, dtype=torch.float32,
+                       device=bursts.device)
+    _run_factored("rx_estimate", _factored_dims(cfg, bursts.shape[0]),
+                  (bursts.data_ptr(), _estimator_op(cfg, bursts.device).data_ptr(),
+                   chan.data_ptr()), bursts.device, counts=("rx_factored",))
+    return chan
 
 
 def _rx_factored_cuda(cfg: GfdmConfig, bursts: torch.Tensor, chan, ic_iterations: int,
                       amp: float = _QPSK_AMP):
+    """chan=None: the estimator GEMM, then the receiver on the channel it
+    wrote (two launches of one library call, counted under "rx_factored" and
+    "rx_factored_chan"); else the receiver on ``chan``."""
     k = _factored_consts(cfg, bursts.device)
     B, n = bursts.shape[0], cfg.block_len
     opts = dict(dtype=torch.float32, device=bursts.device)
     sym = torch.empty(B, 2, n, **opts)
     dims = _factored_dims(cfg, B, ic_iterations=ic_iterations)
-    taps = _factored_taps(cfg, bursts.device, amp)
+    consts = ctypes.byref(_factored_ptrs(k, False, taps=_factored_taps(cfg, bursts.device, amp)))
     if chan is None:
         chan = torch.empty(B, 2, n, **opts)
-        consts = _factored_ptrs(k, False, e_w=_estimator_op(cfg, bursts.device), taps=taps)
-        _run_factored("rx_factored", dims, consts, bursts.data_ptr(), None,
-                      chan.data_ptr(), sym.data_ptr(), device=bursts.device)
+        _run_factored("rx_factored", dims,
+                      (consts, bursts.data_ptr(), _estimator_op(cfg, bursts.device).data_ptr(),
+                       chan.data_ptr(), sym.data_ptr()), bursts.device,
+                      counts=("rx_factored", "rx_factored_chan"))
     else:
-        _run_factored("rx_factored_chan", dims, _factored_ptrs(k, False, taps=taps),
-                      bursts.data_ptr(), chan.data_ptr(), None, sym.data_ptr(),
-                      device=bursts.device)
+        _run_factored("rx_factored_chan", dims,
+                      (consts, bursts.data_ptr(), chan.data_ptr(), sym.data_ptr()),
+                      bursts.device)
     return chan, sym
 
 
@@ -1296,8 +1327,9 @@ def rx_receiver_factored(cfg: GfdmConfig, bursts: torch.Tensor, ic_iterations: i
     The IC decisions are +-``qpsk_amp`` (folded into the IC taps).
 
     estimator:
-      "fused" - channel estimated inside the kernel via the dense (4K, 2N)
-                operator (K <= ~128: 302 MB at K = 1024);
+      "fused" - channel estimated by the dense (4K, 2N) operator E_W in a
+                GEMM launch of its own, then read by the receiver kernel
+                (K <= ~128: E_W takes 302 MB at K = 1024);
       "fast"  - channel estimated outside by the O(K^2) factorized torch-op
                 estimator (ops.planar_fast.estimate_channel_fast) and read
                 by the kernel; no dense operator of any kind.

@@ -176,8 +176,8 @@ def test_rx_and_link_kernels_refuse_k1024():
 B_FACTORED = 37  # ragged: one CTA a burst
 
 
-def _factored_bursts(cfg, dev, seed):
-    data = torch.from_numpy(planar_payload(cfg, B_FACTORED, seed)).to(dev)
+def _factored_bursts(cfg, dev, seed, batch=B_FACTORED):
+    data = torch.from_numpy(planar_payload(cfg, batch, seed)).to(dev)
     bursts = fused._tx_factored_plain(cfg, data, 0)
     rng = np.random.default_rng(seed + 1)
     noise = rng.standard_normal(tuple(bursts.shape)).astype(np.float32)
@@ -187,21 +187,6 @@ def _factored_bursts(cfg, dev, seed):
 # IC iterations: none, one (a single iteration decides on d0 and writes the
 # symbols over it), the default two, and three
 FACTORED_IC = [0, 1, 2, 3]
-
-
-@pytest.mark.parametrize("ic_iterations", FACTORED_IC)
-@pytest.mark.parametrize("K", [64, 128])
-def test_rx_factored_kernel_with_estimator_matches_plain(K, ic_iterations):
-    dev = _cuda()
-    cfg = CONFIGS["canonical"] if K == 64 else large_k_config(K)
-    _data, bursts = _factored_bursts(cfg, dev, 100 + K)
-    before = dict(fused.LAUNCHES)
-    chan, sym = fused.rx_receiver_factored(cfg, bursts, ic_iterations, estimator="fused")
-    assert fused.LAUNCHES["rx_factored"] == before["rx_factored"] + 1
-    assert fused.LAUNCHES["rx_factored_chan"] == before["rx_factored_chan"]
-    rchan, rsym = fused._rx_factored_plain(cfg, bursts, None, ic_iterations)
-    assert _max_err(chan, rchan) < 2e-4
-    assert _max_err(sym, rsym) < 5e-4
 
 
 # the K-point stage's paths: an FFT for K a power of two, the direct DFT for
@@ -220,6 +205,62 @@ FACTORED_CONFIGS = {
     "K64_M5_unaligned": GfdmConfig(subcarriers=64, active_subcarriers=50, timeslots=5,
                                    cp_len=6, cs_len=3),
 }
+
+
+# the receiver with its own estimator (two launches: the estimator GEMM,
+# then the receiver on its channel): the canonical config, K = 128 (the
+# main path's), K = 96 (the direct DFT) and K = 64 at M = 5 with cp_len 6
+# (4-byte copies of the preamble windows); one row tile of the GEMM (37
+# bursts) and three, the last ragged (130)
+ESTIMATOR_CONFIGS = {
+    "canonical": CONFIGS["canonical"],
+    "K128": large_k_config(128),
+    **{name: FACTORED_CONFIGS[name] for name in ("K96_direct", "K64_M5_unaligned")},
+}
+
+
+@pytest.mark.parametrize("batch", [B_FACTORED, 130])
+@pytest.mark.parametrize("ic_iterations", FACTORED_IC)
+@pytest.mark.parametrize("name", list(ESTIMATOR_CONFIGS))
+def test_rx_factored_kernel_with_estimator_matches_plain(name, ic_iterations, batch):
+    dev = _cuda()
+    cfg = ESTIMATOR_CONFIGS[name]
+    _data, bursts = _factored_bursts(cfg, dev, 100 + cfg.subcarriers, batch)
+    before = dict(fused.LAUNCHES)
+    chan, sym = fused.rx_receiver_factored(cfg, bursts, ic_iterations, estimator="fused")
+    assert fused.LAUNCHES["rx_factored"] == before["rx_factored"] + 1
+    assert fused.LAUNCHES["rx_factored_chan"] == before["rx_factored_chan"] + 1
+    rchan, rsym = fused._rx_factored_plain(cfg, bursts, None, ic_iterations)
+    assert _max_err(chan, rchan) < 2e-4
+    assert _max_err(sym, rsym) < 5e-4
+
+
+# the estimator GEMM alone against a float64 product, at its copy widths
+# (tests/test_torch_estimator_tiles.py replays its tiles on the CPU): 16-byte
+# copies (canonical, K = 128; K = 96 with half a column tile), 4-byte
+# copies of A (K64_M5_unaligned) and of E_W with 4-byte stores (K = 33, M =
+# 5: N = 165), at ragged row tiles
+ESTIMATE_GEMM_CONFIGS = {
+    **ESTIMATOR_CONFIGS,
+    "K33_M5_odd_n": GfdmConfig(subcarriers=33, active_subcarriers=26, timeslots=5, cp_len=7,
+                               cs_len=4),
+}
+
+
+@pytest.mark.parametrize("batch", [1, 63, 65, 130])
+@pytest.mark.parametrize("name", list(ESTIMATE_GEMM_CONFIGS))
+def test_rx_estimate_gemm_matches_float64(name, batch):
+    dev = _cuda()
+    cfg = ESTIMATE_GEMM_CONFIGS[name]
+    _data, bursts = _factored_bursts(cfg, dev, 400 + batch, batch)
+    before = dict(fused.LAUNCHES)
+    chan = fused._rx_estimate_cuda(cfg, bursts)
+    assert fused.LAUNCHES["rx_factored"] == before["rx_factored"] + 1
+    K = cfg.subcarriers
+    pre2 = bursts[..., cfg.cp_len : cfg.cp_len + 2 * K].reshape(batch, 4 * K).double()
+    ref = (pre2 @ fused._estimator_op(cfg, dev).double()).reshape(chan.shape)
+    assert _max_err(chan, ref.float()) < 1e-5 * float(ref.abs().max())
+    assert _max_err(chan, fused._rx_estimate_plain(cfg, bursts)) < 2e-4
 
 
 @pytest.mark.parametrize("ic_iterations", FACTORED_IC)
@@ -259,6 +300,20 @@ def test_factored_plan_is_the_librarys(K):
     assert (out[0], tuple(out[1 : 1 + passes])) == (emu.row_stride(K), emu.fft_plan(K))
 
 
+def test_rx_estimate_tile_is_the_librarys():
+    """The built library's estimator GEMM tile (bursts, columns, k-depth of
+    a CTA) is the one tests/test_torch_estimator_tiles.py replays."""
+    import ctypes
+
+    from gfdm_tpu_torch.kernels.cuda_lib import library
+    from test_torch_estimator_tiles import BK, BM, BN
+
+    _cuda()
+    out = (ctypes.c_int * 3)()
+    library().gfdm_rx_estimate_tile(out)
+    assert tuple(out) == (BM, BN, BK)
+
+
 def test_factored_kernels_refuse_k2048():
     """K = 2048 needs 331,400 B (Tx, and the receiver with the channel read:
     twiddles, two stages of nine padded rows and the M-point constants) of
@@ -275,6 +330,20 @@ def test_factored_kernels_refuse_k2048():
     with pytest.raises(RuntimeError, match="gfdm_rx_factored_chan kernel failed to launch"
                                            ".*the rx_factored_chan kernel keeps 331400 B"):
         fused.rx_receiver_factored(cfg, bursts, estimator="fast")
+    assert fused.LAUNCHES == before
+
+
+def test_factored_kernels_count_nothing_for_an_empty_batch():
+    """The library launches nothing for B = 0, so no factored kernel is
+    counted; the outputs are empty of the right shape."""
+    dev = _cuda()
+    cfg = large_k_config(128)
+    before = dict(fused.LAUNCHES)
+    bursts = fused.tx_frame_factored(cfg, torch.zeros(0, 2, cfg.n_data_symbols, device=dev))
+    assert bursts.shape == (0, 2, cfg.frame_len)
+    for est in ("fused", "fast"):
+        chan, sym = fused.rx_receiver_factored(cfg, bursts, 2, estimator=est)
+        assert chan.shape == sym.shape == (0, 2, cfg.block_len)
     assert fused.LAUNCHES == before
 
 
