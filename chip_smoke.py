@@ -15,8 +15,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
              printed, then at the full batch; the staged
              receiver on noisy bursts (AWGN 20 dB) and the staged link,
              both IC modes, at the full batch and a ragged one (4,099); both
-             detection kernels on the service's 4,096 friendly chunks and on
-             37 chunks of a T that is not 128-aligned.
+             detection kernels on the service's 4,096 friendly chunks, on
+             37 chunks of a T that is not 128-aligned and on
+             entry._dynamic_range_chunks (power steps of 60 dB, an all-zero
+             chunk, a burst after silence).
 4. main    - the entry step (link_single_fused, matmul IC) and
              link_step_fused (Tx kernel -> the receiver's stages) at full
              batch, with the launch counters reset just before; EVM against
@@ -39,9 +41,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
              step and the receiver's part of it (torch.profiler), launches,
              and on the
              friendly stream the EVM of the found slots against the sent
-             payload; then the detection kernels' times, the receiver's
-             time a stage at the service's 4,096 slots, and one serve()
-             loop (batch 256, super-batch 1,024, pipeline depth 2).
+             payload; then the detection kernels' times with a note of
+             conv1d's (cuDNN, TF32 off) for their cross-correlation alone
+             at the same shape, the receiver's time a stage at the
+             service's 4,096 slots, and one serve() loop (batch 256,
+             super-batch 1,024, pipeline depth 2).
 7. large K - the factored kernels (entry.large_k_config, the crossover
              study's M = 9 configs): at K = 256, 512 (B = 4,096) and 1,024
              (B = 2,048) the Tx kernel and the receiver kernel with the
@@ -366,6 +370,20 @@ def _check_lean(torch, cfg, s, label, check, failures) -> float:
     return e
 
 
+def _xcorr_yardstick(torch, cfg, s, card) -> None:
+    """[6 note]: conv1d (cuDNN, TF32 off) of the detection kernels'
+    cross-correlation alone at the service's shape, 2K taps over every
+    position: one stage of their function, so not their library_ms, and the
+    port's kernels never call it."""
+    from gfdm_tpu_torch.kernels import detect
+    from gfdm_tpu_torch.ops.planar_pipeline import _conv_xcorr
+
+    w = detect._consts(cfg, s.device)["conv"]
+    ms = _time_ms(torch, lambda: _conv_xcorr(s, w))
+    print(f"[6 note] conv1d of the 2K-tap cross-correlation alone, ({s.shape[0]}, 2, "
+          f"{s.shape[-1]}) x (2, 2, {w.shape[-1]}), TF32 off: {ms:.3f} ms ({card})", flush=True)
+
+
 def _service_phase(torch, cfg, dev, streams, card, check, failures):
     """Phase 6: the streaming receive service through StreamingReceiver.
 
@@ -468,6 +486,7 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
         print(f"[6 time] {key}: kernel {ks} ms, plain {ps} ms,"
               f" kernel {N_CHUNKS * s.shape[-1] / (times[key][0] / 1e3):.4e} samples/s "
               f"(B={N_CHUNKS}, T={s.shape[-1]}, {card})", flush=True)
+    _xcorr_yardstick(torch, cfg, s, card)
     del s
 
     # the host loop: serve() over the friendly stream through the lean kernel
@@ -891,8 +910,18 @@ def _link_bound(cfg, batch: int, ic_mode: str = "matmul",
             1e3 * inter / PEAK_BYTES)
 
 
+def _ols_flops(taps: int) -> float:
+    """Operations an output of a ``taps``-tap complex cross-correlation as
+    overlap-save FFTs: a forward and an inverse N-point FFT (5 N log2 N
+    each) and N complex products (6 N) per N - taps + 1 outputs, at the
+    best power-of-two N."""
+    return min((10.0 * n * math.log2(n) + 6.0 * n) / (n - taps + 1)
+               for n in (2 ** k for k in range(1, 24)) if n > taps)
+
+
 def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
-          T: int = 0, n_valid: int = 0, direct_dft: bool = False) -> tuple[float, float]:
+          T: int = 0, n_valid: int = 0, direct_dft: bool = False,
+          detect_form: str = "least") -> tuple[float, float]:
     """(fp32 operations, bytes) of one call of kernel ``key`` at these
     shapes: the kernel's sums as written (a real MAC is 2 operations, a
     complex MAC 8; a Gauss product of an (a, b) operator 3 a b real MACs),
@@ -900,7 +929,12 @@ def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
     The factored kernels' K-point stage counts as an FFT's 5 M K log2 K for K
     a power of two (what the kernels run), else, or with ``direct_dft``, as
     the direct DFT's 8 M K^2 (the count the kernels' bound used before they
-    ran the FFT)."""
+    ran the FFT). The detection kernels' ``detect_form``: "least" counts the
+    2K-tap cross-correlation at each gated position in its cheaper form,
+    overlap-save FFTs (which the kernels do not run) or the direct FIR, and
+    the other traces as window sums; "fir" the direct FIR (what the kernels
+    run); "old" every sum taken anew at every position, as a kernel of one
+    position a thread would."""
     from gfdm_tpu_torch.kernels import chain, fused
 
     if key.startswith("chain_"):  # x in, out, the weights once (4, 2 or 1 B)
@@ -951,12 +985,18 @@ def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
     if key == "tx_factored":
         return batch * (kstage + 8.0 * n * (2 * M + L)), f4 * batch * (2 * nd + 2 * fl)
     if key in ("detect_front", "detect_lean"):
-        # per position: K-lag autocorrelation (K complex MACs), 2K energy
-        # (2K real |.|^2), 2K-tap cross-correlation (2K complex MACs)
+        # cc at each gated position: 2K complex MACs (16K operations) or
+        # overlap-save FFTs, whichever is less; at every position p, e and ic as window sums, a
+        # term in and a term out each (conj(a) b 6, |s|^2 3, in and out 6,
+        # 2 / e and ac 3, |ac| 4, ic 3), |cc| / 2K and the gating 6: 31
         n_ac = T - 2 * K
         pos = n_ac if key == "detect_front" else n_valid
         out = 4 * n_ac + n_valid if key == "detect_front" else 2 * n_valid
-        return batch * pos * 32.0 * K, f4 * batch * (2 * T + out)
+        nbytes = f4 * batch * (2 * T + out)
+        if detect_form == "old":
+            return batch * pos * 32.0 * K, nbytes
+        xc = 16.0 * K if detect_form == "fir" else min(16.0 * K, _ols_flops(2 * K))
+        return batch * (n_valid * xc + pos * 31.0), nbytes
     raise KeyError(key)
 
 
@@ -1449,7 +1489,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from gfdm_tpu_torch import GfdmConfig
-    from gfdm_tpu_torch.entry import entry, large_k_config, planar_payload, service_stream
+    from gfdm_tpu_torch.entry import (_dynamic_range_chunks, entry, large_k_config,
+                                      planar_payload, service_stream)
     from gfdm_tpu_torch.kernels import cuda_lib, fused
     from gfdm_tpu_torch.ops.planar_pipeline import evm, link_step_planar
 
@@ -1557,9 +1598,12 @@ def main() -> int:
     friendly_dev = torch.from_numpy(streams["friendly"][0]).to(dev)
     ragged = friendly_dev[:N_RAGGED, :, : friendly_dev.shape[-1] - RAGGED_TRIM]
     ragged = ragged.contiguous()
+    dynamic = torch.from_numpy(_dynamic_range_chunks(cfg, CHUNK_LEN,
+                                                     np.random.default_rng(11))).to(dev)
     err["detect_front"] = err["detect_lean"] = 0.0
     for label, s_in in ((f"B={N_CHUNKS},T={friendly_dev.shape[-1]}", friendly_dev),
-                        (f"B={N_RAGGED},T={ragged.shape[-1]}", ragged)):
+                        (f"B={N_RAGGED},T={ragged.shape[-1]}", ragged),
+                        (f"B={dynamic.shape[0]},60dB_steps", dynamic)):
         err["detect_front"] = max(err["detect_front"],
                                   _check_front(cfg, s_in, label, check))
         err["detect_lean"] = max(err["detect_lean"],
@@ -1714,6 +1758,13 @@ def main() -> int:
             note = (f"; with the K-point stage as the direct DFT "
                     f"{extra['dft_bound_ms']:.3f} ms ({dft_by}) = "
                     f"{extra['dft_bound_ms'] / times[key][0]:.1%}")
+        if key in ("detect_front", "detect_lean"):  # the FIR's and the old count beside it
+            extra["fir_bound_ms"], fir_by = _bound(key, kcfg, kb, detect_form="fir", **kw)
+            extra["old_bound_ms"] = _bound(key, kcfg, kb, detect_form="old", **kw)[0]
+            note = (f" (the cross-correlation as overlap-save FFTs, not run); as the direct "
+                    f"FIR the kernels run {extra['fir_bound_ms']:.3f} ms ({fir_by}) = "
+                    f"{extra['fir_bound_ms'] / times[key][0]:.1%}; every sum anew at every "
+                    f"position {extra['old_bound_ms']:.3f} ms")
         if key == "rx_factored":  # two launches: the estimator GEMM, the receiver
             extra["launches_by_kernel"] = row6
         if key == "link":  # tensor-core bound; the fp32 FMA one as PRs 1-6 gave it

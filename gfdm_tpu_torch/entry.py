@@ -135,6 +135,30 @@ def service_stream(cfg: GfdmConfig, n_chunks: int, chunk_len: int, snr_db: float
     return stream.astype(np.float32), counts, payload
 
 
+def _dynamic_range_chunks(cfg: GfdmConfig, chunk_len: int, rng: np.random.Generator,
+                          drop_db: float = 60.0) -> np.ndarray:
+    """(39, 2, chunk_len + halo) float32 chunks whose power steps by
+    ``drop_db`` or more: detection inputs whose 2K windows hold terms of
+    very different sizes.
+
+    Rows 0-36 are friendly ``service_stream`` chunks (20 dB, one burst
+    each) scaled by 10^(-drop_db / 20) from one sample on: a burst or its
+    noise followed by near-silence, the step at 34 offsets spread over the
+    chunk (every residue mod 8) and at 1,024, 2,047 and 2,048 (2,048: the
+    edge of csrc/detect.cu's 2,048-position tiles). Row 37 is all zero; row 38
+    is zero up to chunk_len // 2, then one noiseless burst, then zero.
+    """
+    steps = np.concatenate([np.linspace(1, chunk_len + cfg.frame_len + cfg.cp_len - 1,
+                                        34).astype(int), [1024, 2047, 2048]])
+    x, _counts, _payload = service_stream(cfg, steps.size + 1, chunk_len, 20.0, False, rng)
+    for row, at in zip(x, steps):
+        row[:, at:] *= np.float32(10.0 ** (-drop_db / 20.0))
+    burst = transmit_planar(cfg, torch.from_numpy(planar_payload(cfg, 1, seed=1)))
+    x[-1] = 0.0
+    x[-1, :, chunk_len // 2 : chunk_len // 2 + cfg.frame_len] = burst[0, 0].numpy()
+    return np.concatenate([x[:-1], np.zeros_like(x[-1:]), x[-1:]])
+
+
 def _fir(x: torch.Tensor, h: np.ndarray) -> torch.Tensor:
     """(B, 2, T) planar signal through the complex FIR ``h``, truncated to T."""
     T = x.shape[-1]

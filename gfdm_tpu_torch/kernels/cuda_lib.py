@@ -191,6 +191,7 @@ def library() -> ctypes.CDLL:
     for fn in (lib.gfdm_detect_front, lib.gfdm_detect_lean):
         fn.argtypes = [det_p, vp, vp, vp, vp, vp, vp, vp]
     lib.gfdm_detect_dims_size.argtypes = []
+    lib.gfdm_detect_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fdims_p, fconsts_p = ctypes.POINTER(FactoredDims), ctypes.POINTER(FactoredConsts)
     lib.gfdm_tx_factored.argtypes = [fdims_p, fconsts_p, vp, vp, vp]
     lib.gfdm_rx_factored.argtypes = [fdims_p, fconsts_p, vp, vp, vp, vp, vp]
@@ -203,7 +204,7 @@ def library() -> ctypes.CDLL:
     for fn in (lib.gfdm_tx, lib.gfdm_tx_tile, lib.gfdm_link_stage, lib.gfdm_tf32_split,
                lib.gfdm_link_io_size, lib.gfdm_rx_variant, lib.gfdm_struct_sizes,
                lib.gfdm_detect_front, lib.gfdm_detect_lean,
-               lib.gfdm_detect_dims_size, lib.gfdm_tx_factored,
+               lib.gfdm_detect_dims_size, lib.gfdm_detect_tile, lib.gfdm_tx_factored,
                lib.gfdm_rx_factored, lib.gfdm_rx_estimate, lib.gfdm_rx_factored_chan,
                lib.gfdm_rx_estimate_tile,
                lib.gfdm_factored_struct_sizes, lib.gfdm_factored_plan, lib.gfdm_chain):

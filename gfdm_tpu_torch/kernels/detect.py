@@ -35,6 +35,7 @@ __all__ = ["LAUNCHES", "detect_front_fused", "detect_bursts_fused"]
 LAUNCHES = {"detect_front": 0, "detect_lean": 0}
 
 _CONSTS: dict = {}
+_TAP_PAD = 64  # a multiple of 2 x DETECT_R (8 in csrc/detect.cu)
 
 
 def _taps_np(cfg: GfdmConfig) -> np.ndarray:
@@ -45,10 +46,21 @@ def _taps_np(cfg: GfdmConfig) -> np.ndarray:
     return np.stack([p.real.astype(np.float32), p.imag.astype(np.float32)])
 
 
+def _kernel_taps_np(cfg: GfdmConfig) -> np.ndarray:
+    """(KP, 2) float32 interleaved [re, im] taps, zero past 2K, KP = 2K
+    rounded up to _TAP_PAD: the kernels' FIR reads them a float4 (two taps)
+    at a time, up to 2K rounded up to 2 x csrc/detect.cu DETECT_R."""
+    taps = _taps_np(cfg)
+    w = taps.shape[1]
+    out = np.zeros((-(-w // _TAP_PAD) * _TAP_PAD, 2), np.float32)
+    out[:w] = taps.T
+    return out
+
+
 def _consts(cfg: GfdmConfig, device) -> dict:
     """The kernels' constants on ``device``, built once per (config, device):
-    the xcorr taps, and for the plain versions the same taps as 2-channel
-    conv weights."""
+    the xcorr taps (2, 2K), the same interleaved as the kernels read them,
+    and for the plain versions the same taps as 2-channel conv weights."""
     device = torch.device(device)
     key = (cfg, str(device))
     hit = _CONSTS.get(key)
@@ -56,7 +68,8 @@ def _consts(cfg: GfdmConfig, device) -> dict:
         taps = torch.from_numpy(_taps_np(cfg)).to(device)
         tr, ti = taps[0], taps[1]
         conv = torch.stack([torch.stack([tr, -ti]), torch.stack([ti, tr])])
-        hit = _CONSTS[key] = {"taps": taps, "conv": conv.contiguous()}
+        hit = _CONSTS[key] = {"taps": taps, "conv": conv.contiguous(),
+                              "taps_k": torch.from_numpy(_kernel_taps_np(cfg)).to(device)}
     return hit
 
 
@@ -119,7 +132,7 @@ def _run(name: str, cfg: GfdmConfig, flat: torch.Tensor, n_valid: int, *outs):
         return (f"; the {name} tile keeps {lib.gfdm_detect_smem_bytes(ctypes.byref(dims))}"
                 f" B in shared memory a CTA (K={cfg.subcarriers}, cp_len={cfg.cp_len})")
 
-    taps = _consts(cfg, flat.device)["taps"]
+    taps = _consts(cfg, flat.device)["taps_k"]
     ptrs = [None if o is None else o.data_ptr() for o in outs]
     launch(f"gfdm_{name}", (ctypes.byref(dims), flat.data_ptr(), taps.data_ptr(), *ptrs),
            flat.device, hint=tile)

@@ -349,3 +349,29 @@ def test_detection_wrappers_validate_inputs():
     # leading axes pass through, as in the JAX wrappers
     out = detect.detect_bursts_fused(TC, torch.zeros(3, 2, 2, 1000), 500)
     assert out["start"].shape == (3, 2)
+
+
+@pytest.mark.parametrize("snr_db", [0.0, 2.0, 4.0])
+def test_low_snr_starts_match_jax_and_twostage_parity(snr_db, monkeypatch):
+    """Low-SNR detection parity (ROADMAP Queue 3: twostage against the dense
+    front was pinned only at 15 dB). 32 friendly service chunks at 0, 2 and
+    4 dB into both packages: the port's "twostage" and "pallas2" starts
+    equal the JAX package's (its Pallas kernel in interpret mode), and the
+    chunks where twostage's start differs from the dense front's ("matmul")
+    are the same chunks in both packages."""
+    from gfdm_tpu_torch.entry import service_stream
+
+    chunks, _counts, _payload = service_stream(TC, 32, CHUNK, snr_db, False,
+                                               np.random.default_rng(40 + int(snr_db)))
+    s_j, s_t = _both(chunks)
+    starts = {}
+    for impl in ("twostage", "pallas2", "matmul"):
+        monkeypatch.setattr(jax_pp, "DETECT_IMPL", impl)
+        monkeypatch.setattr(pp, "DETECT_IMPL", impl)
+        ref = jax_pp.detect_bursts_planar(JC, s_j, search_limit=CHUNK)
+        got = pp.detect_bursts_planar(TC, s_t, search_limit=CHUNK)
+        starts[impl] = (np.asarray(ref["start"]), got["start"].numpy())
+    for impl in ("twostage", "pallas2"):
+        np.testing.assert_array_equal(starts[impl][1], starts[impl][0], err_msg=impl)
+    jax_off, port_off = (starts["twostage"][i] != starts["matmul"][i] for i in (0, 1))
+    np.testing.assert_array_equal(port_off, jax_off)

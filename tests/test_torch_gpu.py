@@ -355,13 +355,27 @@ TRACE_TOL = dict(atol=3e-5, rtol=3e-3)  # the JAX package's Pallas limits
 PEAK_TOL = dict(atol=1e-6, rtol=1e-4)
 
 
-def _chunks(cfg, dev, trim=0):
-    from gfdm_tpu_torch.entry import service_stream
+# the detection kernels' inputs: 37 service chunks (trim 0 or 5 samples:
+# T not 128-aligned), the replay's power steps of 60 dB with an all-zero
+# chunk and a burst after silence (entry._dynamic_range_chunks), and one
+# long chunk: five tiles of 2,048 positions for either kernel, n_valid not
+# a multiple of the tile and below n_ac
+DETECT_CASES = ("trim0", "trim5", "dynamic", "long")
 
-    stream, _counts, _pay = service_stream(cfg, N_CHUNKS, 2048, 20.0, False,
+
+def _chunks(cfg, dev, case="trim0"):
+    """(chunks on ``dev``, search limit) of a detection case."""
+    from gfdm_tpu_torch.entry import _dynamic_range_chunks, service_stream
+
+    if case == "dynamic":
+        stream = _dynamic_range_chunks(cfg, 2048, np.random.default_rng(11))
+        return torch.from_numpy(stream).to(dev), 2048
+    n, chunk = (1, 9000) if case == "long" else (N_CHUNKS, 2048)
+    stream, _counts, _pay = service_stream(cfg, n, chunk, 20.0, False,
                                            np.random.default_rng(7))
+    trim = int(case.removeprefix("trim")) if case.startswith("trim") else 0
     stream = stream[..., : stream.shape[-1] - trim]
-    return torch.from_numpy(np.ascontiguousarray(stream)).to(dev)
+    return torch.from_numpy(np.ascontiguousarray(stream)).to(dev), chunk
 
 
 def _close(a, b, atol, rtol):
@@ -369,40 +383,41 @@ def _close(a, b, atol, rtol):
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-@pytest.mark.parametrize("trim", [0, 5])
-def test_detect_front_kernel_matches_plain(name, trim):
+@pytest.mark.parametrize("case", DETECT_CASES)
+def test_detect_front_kernel_matches_plain(name, case):
     from gfdm_tpu_torch.kernels import detect
 
     dev = _cuda()
     cfg = CONFIGS[name]
-    s = _chunks(cfg, dev, trim)
+    s, limit = _chunks(cfg, dev, case)
     before = detect.LAUNCHES["detect_front"]
-    got = detect.detect_front_fused(cfg, s, 2048)
+    got = detect.detect_front_fused(cfg, s, limit)
     assert detect.LAUNCHES["detect_front"] == before + 1
-    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, 2048)
+    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, limit)
     ref = detect._detect_front_plain(cfg, s, n_valid)
     for g, r in zip(got, ref):
         assert g.shape == r.shape
         assert _close(g, r, **TRACE_TOL)
+    assert torch.equal(torch.argmax(got[0], dim=-1), torch.argmax(ref[0], dim=-1))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-@pytest.mark.parametrize("trim", [0, 5])
-def test_detect_lean_kernel_matches_plain(name, trim):
+@pytest.mark.parametrize("case", DETECT_CASES)
+def test_detect_lean_kernel_matches_plain(name, case):
     from gfdm_tpu_torch.kernels import detect
 
     dev = _cuda()
     cfg = CONFIGS[name]
-    s = _chunks(cfg, dev, trim)
+    s, limit = _chunks(cfg, dev, case)
     before = detect.LAUNCHES["detect_lean"]
-    got = detect.detect_bursts_fused(cfg, s, 2048)
+    got = detect.detect_bursts_fused(cfg, s, limit)
     assert detect.LAUNCHES["detect_lean"] == before + 1
-    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, 2048)
+    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, limit)
     gated, ic = detect._detect_lean_plain(cfg, s, n_valid)
     g2, ic2 = detect._detect_lean_cuda(cfg, s, n_valid)
     assert _close(g2, gated, **TRACE_TOL) and _close(ic2, ic, **TRACE_TOL)
     # the plain epilogue on the plain traces: the wrapper on a CPU copy
-    ref = detect.detect_bursts_fused(cfg, s.cpu(), 2048)
+    ref = detect.detect_bursts_fused(cfg, s.cpu(), limit)
     assert torch.equal(got["start"].cpu(), ref["start"])
     for key in ("cfo", "scale", "strength", "ac_peak", "noise_floor"):
         assert _close(got[key].cpu(), ref[key], **PEAK_TOL), key
@@ -439,15 +454,51 @@ def test_streaming_service_fused_engine_on_card(impl, monkeypatch):
     assert out["found"].sum() == counts.sum() == 64
 
 
-def test_detection_tile_too_large_for_shared_memory_raises():
-    """K = 8192 needs ~260 KB of shared memory a CTA (taps and the 2K-sample
-    windows): the launch is refused and each wrapper raises, naming its
-    kernel."""
+def test_detect_tile_is_the_librarys():
+    """The built library's detection tile (threads of a CTA, consecutive
+    positions a thread) is the one tests/test_torch_detect_tiles.py
+    replays, and the wrapper pads the taps to a multiple of the 2R taps
+    the FIR reads a step."""
+    import ctypes
+
+    from gfdm_tpu_torch.kernels import detect
+    from gfdm_tpu_torch.kernels.cuda_lib import library
+    from test_torch_detect_tiles import R, TP
+
+    _cuda()
+    out = (ctypes.c_int * 2)()
+    library().gfdm_detect_tile(out)
+    assert tuple(out) == (TP, R)
+    assert detect._TAP_PAD % (2 * R) == 0
+
+
+def test_detection_kernels_at_k8192_match_plain():
+    """K = 8192 (16,384 taps): the sample window, 195 KB of shared memory a
+    CTA, fits since the taps are read through L1 (a kernel that stages the
+    taps too refuses K above ~7,000 at cp_len 16)."""
     from gfdm_tpu_torch.kernels import detect
 
     dev = _cuda()
     cfg = GfdmConfig(subcarriers=8192, active_subcarriers=8000, timeslots=3)
-    s = torch.zeros(2, 2, 2 * 8192 + 300, device=dev)
+    rng = np.random.default_rng(5)
+    s = torch.from_numpy(rng.standard_normal((2, 2, 2 * 8192 + 300), dtype=np.float32)).to(dev)
+    got = detect.detect_front_fused(cfg, s, 200)
+    for g, r in zip(got, detect._detect_front_plain(cfg, s, 200)):
+        assert _close(g, r, **TRACE_TOL)
+    gated, ic = detect._detect_lean_cuda(cfg, s, 200)
+    ref = detect._detect_lean_plain(cfg, s, 200)
+    assert _close(gated, ref[0], **TRACE_TOL) and _close(ic, ref[1], **TRACE_TOL)
+
+
+def test_detection_tile_too_large_for_shared_memory_raises():
+    """K = 16384 needs ~359 KB of shared memory a CTA (the 2K-sample windows
+    of its 2,048 positions): the launch is refused and each wrapper raises,
+    naming its kernel."""
+    from gfdm_tpu_torch.kernels import detect
+
+    dev = _cuda()
+    cfg = GfdmConfig(subcarriers=16384, active_subcarriers=16000, timeslots=3)
+    s = torch.zeros(2, 2, 2 * 16384 + 300, device=dev)
     before = dict(detect.LAUNCHES)
     with pytest.raises(RuntimeError, match="gfdm_detect_lean kernel failed to launch"
                                            ".*the detect_lean tile keeps"):
