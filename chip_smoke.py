@@ -109,6 +109,26 @@ Phases, one line each (any failure exits non-zero and prints no result):
              float32 output; torch._int_mm with torch-op quantization
              between), and torch.linalg.multi_dot's time as a note (it
              reassociates: not the chain's function).
+11. coded  - the coded modem through both services: a seeded payload of
+             4,096 coded QPSK bursts framed by cli.payload_to_symbols(fec=
+             "conv"), StreamingTransmitter(cycle_samples=2,048).serve (one
+             burst a cycle, the Tx kernel), the stream delayed by a seeded
+             offset (each burst whole in its owned chunk) plus AWGN at 10 dB,
+             runtime.stream.chunk_with_lookahead, then
+             StreamingReceiver(engine="fused", fec="conv", batch_chunks=
+             4,096).serve, under the default DETECT_IMPL, "pallas2" and
+             "pallas", each with the launch counters reset just before and
+             read just after: found >= 0.999, CRC-clean share >= 0.99, the
+             clean payloads equal to those sent. Then
+             eval.sensitivity.modem_sensitivity at 4,096 bursts a point (4
+             and 10 dB: found >= 0.999, CRC >= 0.9 / 0.95, not lower at 10
+             dB); the Viterbi decoder card against CPU in every mode on
+             dyadic LLRs (bit for bit) and on the found slots' real LLRs (the
+             share of slots differing, <= 1e-3), the soft bits card against
+             CPU (1e-5 relative); the coded and the uncoded service step
+             (CUDA events, friendly stream, default DETECT_IMPL), the
+             decoder alone and its share, their launches (torch.profiler),
+             and StreamingTransmitter.step at 4,096 bursts.
 
 Then a JSON line of per-kernel results (launches on the main paths, error
 against the plain version, kernel, plain and library ms, the bound: the
@@ -176,6 +196,11 @@ TOL = {
     # row 6's estimator GEMM against a float64 product, relative to its
     # largest output: float32 sums over 4K = 512 terms in order (~1e-6)
     "estimate64": 1e-5,
+    # phase 11, the coded services link at CODED_SNR_DB: the share of sent
+    # bursts whose CRC-clean payload comes back; the share of found slots
+    # whose decoded bits differ between the card and the CPU on the same
+    # LLRs (equal branch sums, so only an argmax over a float tie could)
+    "crc_min": 0.99, "decode_differ": 1e-3,
 }
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 FMA (no TF32), HBM3
 # H100 SXM dense tensor cores (NVIDIA's data sheet; FP64 tensor cores 67 TFLOP/s)
@@ -187,6 +212,7 @@ LINK_K = (128, 256, 512)  # phase 7: the dense receiver and link at larger K, B 
 N_CHUNKS = 4096  # service batch: 8.4 M owned samples a step
 CHUNK_LEN = 2048
 N_RAGGED, RAGGED_TRIM = 37, 5  # chunks of T - 5 samples: not 128-aligned
+CODED_SNR_DB = 10.0  # phase 11's services link
 SOURCES = {
     "tx": ("tx_frame_fused", "gfdm_tpu_torch/csrc/tx.cu",
            "gfdm_tpu/kernels/fused.py:1662"),
@@ -1482,6 +1508,299 @@ def _chain_phase(torch, dev, card, check, failures):
     return launches, err, times
 
 
+def _launch_counts(torch, fn):
+    """(kernels the device ran, kernel-launch API calls the host made) in one
+    call of ``fn`` after a warm-up, from torch.profiler; None where the
+    profiler records no device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sum(1 for ev in events if ev.device_type == DeviceType.CUDA)
+    calls = sum(1 for ev in events if ev.device_type == DeviceType.CPU
+                and ev.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                                "cuLaunchKernelEx"))
+    return (kernels, calls) if kernels else None
+
+
+def _span_ms(torch, fn, iters: int = 3) -> tuple[float, float]:
+    """(host ms to enqueue ``fn``, ms from the first event to the last on
+    the card) a call, after a warm-up: where the two are close, the host's
+    launches set the pace."""
+    fn()
+    torch.cuda.synchronize()
+    host = span = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host += time.perf_counter() - t0
+        stop.record()
+        stop.synchronize()
+        span += start.elapsed_time(stop)
+    return host * 1e3 / iters, span / iters
+
+
+def _decoder_stages(torch, rx, data, snr, card) -> None:
+    """[11 stages]: the decoder's parts at the service's slots, each timed
+    alone (host enqueue and event span): the LLRs and deinterleave, the
+    branch pattern sums, the forward ACS steps and the traceback."""
+    from gfdm_tpu_torch import coding
+    from gfdm_tpu_torch.ops import softbits
+
+    n, T = data.shape[0], rx.fec_info_bits + coding.CONV_TAIL_BITS
+    k = next(kk for kk in (4, 3, 2) if T % kk == 0)
+    nv = 1.0 / torch.clamp_min(snr, 1e-6)
+
+    def llr():
+        return softbits.maxlog_llrs_planar(data, rx._fec_points, nv[:, None]).reshape(
+            n, -1).index_select(1, rx._fec_inv)
+
+    lt = llr().reshape(n, T // k, 2 * k).transpose(0, 1)
+    pat = coding._pattern_sums(lt)
+    idx = coding.device_const(("pattern", k), data.device, lambda: coding._pattern_index(k))
+    pm0 = coding._initial_metrics(n, data.device)
+    decs = coding._forward(pat, idx, k, pm0)[1]
+    state = torch.zeros(n, dtype=torch.int64, device=data.device)
+    parts = (("llrs+deinterleave", llr), ("pattern sums", lambda: coding._pattern_sums(lt)),
+             (f"forward ({T // k} steps)", lambda: coding._forward(pat, idx, k, pm0)),
+             (f"traceback ({T // k - 1} steps)", lambda: coding._traceback(decs, state, k)))
+    line = []
+    for name, fn in parts:
+        host, span = _span_ms(torch, fn)
+        line.append(f"{name} host {host:.3f} / card {span:.3f} ms")
+    print(f"[11 stages] decoder at {n} slots, radix-{1 << k}: " + "; ".join(line)
+          + f" ({card})", flush=True)
+
+
+def _coded_link(torch, cfg, dev, impl, payload, noise, delay):
+    """The services link of phase 11 once, with the launch counters reset
+    just before it and read just after: the coded payload framed by
+    cli.payload_to_symbols(fec="conv"), StreamingTransmitter(cycle_samples =
+    CHUNK_LEN).serve (one burst a cycle, the Tx kernel), the stream delayed by
+    ``delay`` samples plus ``noise`` (AWGN), chunk_with_lookahead, then
+    StreamingReceiver(engine="fused", fec="conv", batch_chunks=N_CHUNKS).serve
+    under DETECT_IMPL ``impl``. Returns (sink outputs, launches, bursts sent)."""
+    from gfdm_tpu_torch.cli import payload_to_symbols
+    from gfdm_tpu_torch.ops import planar_pipeline as pp
+    from gfdm_tpu_torch.runtime.service import StreamingReceiver
+    from gfdm_tpu_torch.runtime.stream import chunk_with_lookahead
+    from gfdm_tpu_torch.runtime.transmit_service import StreamingTransmitter
+
+    default_impl = pp.DETECT_IMPL
+    pp.DETECT_IMPL = impl
+    tx = StreamingTransmitter(cfg, cycle_samples=CHUNK_LEN, device=dev)
+    rx = StreamingReceiver(cfg, chunk_len=CHUNK_LEN, batch_chunks=N_CHUNKS,
+                           engine="fused", fec="conv", device=dev)
+    halo = cfg.frame_len + cfg.cp_len
+    _reset_launches()
+    torch.cuda.synchronize()
+    syms, n_bursts = payload_to_symbols(cfg, payload, fec="conv")
+    planar = np.stack([syms.real, syms.imag], axis=1).astype(np.float32)
+    parts = []
+    batches = iter([planar])
+    tx.serve(lambda: next(batches, None), lambda out: parts.append(out["samples"]))
+    sig = np.concatenate(parts, axis=-1)
+    sig = np.concatenate([np.zeros((2, delay), np.float32), sig], axis=-1)
+    sig = sig[:, : N_CHUNKS * CHUNK_LEN] + noise
+    chunks = chunk_with_lookahead(torch.from_numpy(sig), CHUNK_LEN, halo)
+    chunks = chunks.transpose(0, 1).contiguous().numpy()
+    outs = []
+    src = iter([(chunks, 0)])
+    rx.serve(lambda: next(src, None), outs.append)
+    torch.cuda.synchronize()
+    run = _launches()
+    pp.DETECT_IMPL = default_impl
+    return outs, run, n_bursts
+
+
+def _coded_phase(torch, cfg, dev, streams, card, check, failures):
+    """Phase 11: the coded modem through both services (see the module
+    docstring)."""
+    from gfdm_tpu_torch.cli import burst_capacity_bytes, payload_to_symbols
+    from gfdm_tpu_torch.coding import conv_encode, viterbi_decode
+    from gfdm_tpu_torch.eval.sensitivity import modem_sensitivity
+    from gfdm_tpu_torch.kernels import fused
+    from gfdm_tpu_torch.ops import planar_pipeline as pp
+    from gfdm_tpu_torch.ops import softbits
+    from gfdm_tpu_torch.runtime.service import StreamingReceiver
+    from gfdm_tpu_torch.runtime.transmit_service import StreamingTransmitter
+    from gfdm_tpu_torch.utils.framing import check_crc32, pack_bits
+
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(14)
+    cap = burst_capacity_bytes(cfg, 2, "conv")
+    payload = bytes(rng.integers(0, 256, N_CHUNKS * cap, dtype=np.uint8))
+    delay = int(rng.integers(0, CHUNK_LEN - cfg.frame_len))  # each burst whole in its chunk
+    # AWGN at CODED_SNR_DB over the bursts' per-sample power (of 64 of them)
+    s0, _ = payload_to_symbols(cfg, payload[: 64 * cap], fec="conv")
+    b0 = StreamingTransmitter(cfg, device=dev).step(
+        np.stack([s0.real, s0.imag], axis=1).astype(np.float32))
+    sigma = (float(np.mean(np.sum(b0**2, axis=1))) * 10 ** (-CODED_SNR_DB / 10) / 2) ** 0.5
+    noise = (sigma * np.random.default_rng(15).standard_normal(
+        (2, N_CHUNKS * CHUNK_LEN))).astype(np.float32)
+    kernel_of = {"pallas2": "detect_lean", "pallas": "detect_front"}
+    results = {}
+    for impl in (pp.DETECT_IMPL, "pallas2", "pallas"):
+        outs, run, n_bursts = _coded_link(torch, cfg, dev, impl, payload, noise, delay)
+        out = outs[0]
+        found, bits = out["found"], out["bits"]
+        n_info = bits.shape[1]
+        ok = np.zeros(n_bursts, bool)
+        same = True
+        for i in range(n_bursts):
+            if not found[i]:
+                continue
+            good, part = check_crc32(pack_bits(bits[i][: (cap + 4) * 8]))
+            ok[i] = good
+            if good and part != payload[i * cap : (i + 1) * cap]:
+                same = False
+        lag = out["start_abs"][found] - (delay + CHUNK_LEN * np.arange(n_bursts)[found])
+        need = ["tx", "rx"] + ([kernel_of[impl]] if impl in kernel_of else [])
+        for key in need:
+            if run[key] < 1:
+                failures.append(f"kernel {key} was not launched on the coded path ({impl})")
+        if run["tx"] != 1 or run["rx"] != fused.rx_launches(2):
+            failures.append(f"coded path ({impl}): launches {run}, expected tx 1 and rx "
+                            f"{fused.rx_launches(2)}")
+        if not same:
+            failures.append(f"coded path ({impl}): a CRC-clean payload differs from the sent one")
+        if len(set(lag.tolist())) > 1:
+            failures.append(f"coded path ({impl}): detections off the cycle grid {set(lag)}")
+        results[impl] = out
+        print(f"[11 main] services link DETECT_IMPL={impl}: StreamingTransmitter.serve "
+              f"({n_bursts} coded QPSK bursts, cycle {CHUNK_LEN}) -> delay {delay} + AWGN "
+              f"{CODED_SNR_DB} dB -> StreamingReceiver(fused, fec=conv).serve: found="
+              f"{int(found.sum())}/{n_bursts} crc_clean={int(ok.sum())}/{n_bursts} "
+              f"payloads_equal={same} launches={{tx: {run['tx']}, rx: {run['rx']}, "
+              f"detect_front: {run['detect_front']}, detect_lean: {run['detect_lean']}}} "
+              + check(f"{impl}:1-found", 1.0 - float(found.mean()), 1.0 - TOL["found_min"])
+              + " " + check(f"{impl}:1-crc", 1.0 - float(ok.mean()), 1.0 - TOL["crc_min"])
+              + f" ({card})", flush=True)
+
+    # 2. sensitivity at full width
+    t0 = time.perf_counter()
+    sens = modem_sensitivity(cfg, snr_db=(4.0, 10.0), bursts_per_point=N_CHUNKS, device=dev)
+    dt = time.perf_counter() - t0
+    fr, cr = sens["found_rate"], sens["crc_rate"]
+    print(f"[11 sensitivity] modem_sensitivity(bursts_per_point={N_CHUNKS}, seed 0): "
+          f"snr_db={sens['snr_db'].tolist()} found={fr.tolist()} crc={cr.tolist()} "
+          f"info_ber={sens['info_ber'].tolist()} ({dt:.1f} s) "
+          + " ".join([
+              check("1-found@4", 1.0 - float(fr[0]), 1.0 - TOL["found_min"]),
+              check("1-found@10", 1.0 - float(fr[1]), 1.0 - TOL["found_min"]),
+              check("0.9-crc@4", 0.9 - float(cr[0]), 0.0),
+              check("0.95-crc@10", 0.95 - float(cr[1]), 0.0),
+              check("crc@4-crc@10", float(cr[0] - cr[1]), 0.0),
+          ]) + f" ({card})", flush=True)
+
+    # 3. the decoder and the soft bits on the card against the CPU
+    drng = np.random.default_rng(16)
+    info = drng.integers(0, 2, (N_CHUNKS, n_info)).astype(np.uint8)
+    sym = 1.0 - 2.0 * conv_encode(info).astype(np.float64)
+    sd = drng.choice([0.0, 0.5**0.5, (10**0.2 / 2) ** 0.5], (N_CHUNKS, 1))
+    dy = np.clip(np.round(4.0 * (sym + sd * drng.standard_normal(sym.shape)) * 8) / 8,
+                 -16.0, 16.0).astype(np.float32)
+    dy[::64] = 0.0  # all-zero rows: every candidate ties
+    parts = []
+    for mode in ("auto", "radix", "full", "sm", "windowed"):
+        card_bits = viterbi_decode(torch.from_numpy(dy).to(dev), n_info, mode).cpu()
+        cpu_bits = viterbi_decode(torch.from_numpy(dy), n_info, mode)
+        parts.append(check(f"{mode}:rows_differing", float(
+            (card_bits != cpu_bits).any(dim=1).sum()), 0.0))
+    print(f"[11 check] viterbi card vs CPU on dyadic LLRs ({N_CHUNKS} x {2 * (n_info + 6)}, "
+          f"{N_CHUNKS // 64} all-zero rows): " + " ".join(parts), flush=True)
+    out = results[pp.DETECT_IMPL]
+    rx = StreamingReceiver(cfg, chunk_len=CHUNK_LEN, batch_chunks=N_CHUNKS, engine="fused",
+                           fec="conv", device=dev)
+    f = out["found"]
+    data = torch.from_numpy(out["data"][f]).to(dev)
+    snr = torch.from_numpy(out["snr_lin"][f]).to(dev)
+    nv = 1.0 / torch.clamp_min(snr, 1e-6)
+    llr_card = softbits.maxlog_llrs_planar(data, rx._fec_points, nv[:, None])
+    llr_cpu = softbits.maxlog_llrs_planar(data.cpu(), rx._fec_points, nv[:, None].cpu())
+    soft = _rel_excess(llr_card.cpu(), llr_cpu, 1e-5 * float(llr_cpu.abs().max()), 1e-5)
+    llrs = llr_card.reshape(llr_card.shape[0], -1)[:, rx._fec_inv]
+    dec_card = viterbi_decode(llrs, n_info).cpu()
+    dec_cpu = viterbi_decode(llrs.cpu(), n_info)
+    differ = float((dec_card != dec_cpu).any(dim=1).float().mean())
+    svc = float((dec_card.numpy() != out["bits"][f]).any(axis=1).mean())
+    print(f"[11 check] found slots' LLRs card vs CPU " + check("softbits(rel excess)", soft, 1.0)
+          + f" decoded {int(f.sum())} slots: " + check("share_differing_card_vs_cpu", differ,
+                                                       TOL["decode_differ"])
+          + " " + check("service_bits_vs_recomputed", svc, 0.0), flush=True)
+    del data, snr, llr_card, llr_cpu, llrs
+
+    # 4. times: the coded and the uncoded step on the friendly stream
+    chunks = torch.from_numpy(streams["friendly"][0]).to(dev)
+    samples = N_CHUNKS * CHUNK_LEN
+    rx_plain = StreamingReceiver(cfg, chunk_len=CHUNK_LEN, batch_chunks=N_CHUNKS,
+                                 engine="fused", device=dev)
+    rx._step(chunks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rx._step(chunks)
+    except RuntimeError as exc:
+        failures.append(f"coded service step waits for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    coded = rx._step(chunks)
+    data, snr = coded["data"], coded["snr_lin"]
+    u1, c1, c2, u2 = (_time_ms(torch, fn) for fn in (
+        lambda: rx_plain._step(chunks), lambda: rx._step(chunks),
+        lambda: rx._step(chunks), lambda: rx_plain._step(chunks)))
+    coded_ms, plain_ms = (c1 + c2) / 2, (u1 + u2) / 2
+    dec_ms = _time_ms(torch, lambda: rx._fec_decode(data, snr))
+    llrs = softbits.maxlog_llrs_planar(data, rx._fec_points, (1.0 / torch.clamp_min(
+        snr, 1e-6))[:, None]).reshape(N_CHUNKS, -1).index_select(1, rx._fec_inv)
+    vit_ms = _time_ms(torch, lambda: viterbi_decode(llrs, n_info))
+    n_coded = _launch_counts(torch, lambda: rx._step(chunks))
+    n_plain = _launch_counts(torch, lambda: rx_plain._step(chunks))
+    n_dec = _launch_counts(torch, lambda: rx._fec_decode(data, snr))
+    busy = _device_busy(torch, lambda: rx._step(chunks))
+    print(f"[11 time] coded step {c1:.3f}/{c2:.3f} ms = {samples / (coded_ms / 1e3):.4e} "
+          f"coded samples/s, uncoded step {u1:.3f}/{u2:.3f} ms = "
+          f"{samples / (plain_ms / 1e3):.4e} samples/s (DETECT_IMPL={pp.DETECT_IMPL}, "
+          f"{N_CHUNKS} chunks x {CHUNK_LEN}, friendly stream seed 0, {card})", flush=True)
+    print(f"[11 time] decoder (LLRs + deinterleave + Viterbi) {dec_ms:.3f} ms = "
+          f"{dec_ms / coded_ms:.1%} of the coded step, of it the Viterbi decoder alone "
+          f"{vit_ms:.3f} ms; coded - uncoded {coded_ms - plain_ms:.3f} ms; "
+          + ("device busy not measured" if busy is None else
+             f"coded step device busy {busy[0]:.3f} ms (idle {1 - busy[0] / coded_ms:.1%})")
+          + f" ({card})", flush=True)
+    _decoder_stages(torch, rx, data, snr, card)
+    fmt = lambda c: "not measured" if c is None else f"{c[0]} kernels, {c[1]} launch calls"  # noqa: E731
+    print(f"[11 launches] coded step {fmt(n_coded)}; uncoded step {fmt(n_plain)}; decoder "
+          f"alone {fmt(n_dec)} (torch.profiler, one step after a warm-up, {card})", flush=True)
+    del chunks, coded, data, snr, llrs
+
+    # the transmit service's step at N_CHUNKS bursts
+    tx = StreamingTransmitter(cfg, cycle_samples=CHUNK_LEN, device=dev)
+    syms = streams["friendly"][2][:N_CHUNKS]
+    dev_syms = torch.from_numpy(syms).to(dev)
+    ref = fused._tx_frame_plain(cfg, dev_syms.reshape(N_CHUNKS, -1), 0)
+    got = tx.step(syms)
+    e = float(np.abs(got.reshape(N_CHUNKS, -1) - ref.cpu().numpy()).max())
+    tx.step(syms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tx.step(syms)
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    dev_ms = _time_ms(torch, lambda: tx._tx(dev_syms))
+    print(f"[11 time] StreamingTransmitter.step B={N_CHUNKS}: host {host_ms:.3f} ms (copies "
+          f"in and out), device {dev_ms:.3f} ms (the Tx kernel and the scale), "
+          + check("vs plain", e, TOL["tx"]) + f" bit_equal={e == 0.0} ({card})", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1718,6 +2037,9 @@ def main() -> int:
     launches.update(ch_launches)
     err.update(ch_err)
     times.update(ch_times)
+
+    # 11. the coded modem through the transmit and receive services
+    _coded_phase(torch, cfg, dev, streams, card, check, failures)
 
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -14,7 +14,15 @@ counterpart of the same name:
   kernels, the two detection front-end kernels and the link's GEMM chain
   (f32, bf16, int8), written in CUDA C++ for Hopper (``csrc/``), each with
   its plain torch version;
-- :mod:`.runtime` - chunked streams and the streaming receive service;
+- :mod:`.runtime` - chunked streams, the streaming receive service (with
+  the coded modem, ``fec="conv"``), the streaming transmit service on the
+  Tx kernel and the burst scheduler;
+- :mod:`.coding`, :mod:`.ops.softbits`, :mod:`.cli`, :mod:`.utils.framing`
+  - the rate-1/2 K=7 code with its Viterbi decoder (torch ops), max-log
+  soft bits, and the CRC-32 payload framing;
+- :mod:`.eval` - the coded service's sensitivity sweep;
+- :mod:`.device` - where an entry point runs: the card unless the caller
+  passes ``device="cpu"``;
 - :mod:`.entry` - the main-path step and the service's synthetic stream,
   :mod:`.convert` - constants carried over from the JAX package;
 - :mod:`.benchmarks` - the benchmarks run on the card

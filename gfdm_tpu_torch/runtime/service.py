@@ -14,9 +14,11 @@ enqueues work (no ``.item()``, no Python branch on a tensor), so with
 ``pipeline_depth=2`` the next batch is copied and enqueued while the card
 still runs the previous one. Only ``_fetch`` waits for the card.
 
-The JAX package's device mesh, ``shard_map`` and VMEM block picker have no
-counterpart on one card; ``sp_shards > 1`` and ``fec="conv"`` wait for
-ROADMAP.md Queue 1 items 10 and 5.
+``fec="conv"`` also soft-decodes every slot on the service's device (max-log
+LLRs, deinterleave, radix Viterbi: ``_build_fec``) and returns its info
+bits. The JAX package's device mesh, ``shard_map`` and VMEM block picker
+have no counterpart on one card; ``sp_shards > 1`` waits for ROADMAP.md
+Queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import GfdmConfig
+from ..device import resolve_device
 from .stream import _flatten_slots, _found_mask, receive_chunks_planar
 
 __all__ = ["host_chunk_range", "ServiceStats", "StreamingReceiver"]
@@ -91,7 +94,12 @@ class StreamingReceiver:
     false_alarm_prob: float = 1e-5
     equalizer: str = "zf"  # "zf" | "mmse" | "mmse_cnr"
     constellation: str = "qpsk"  # "qpsk" | "qam16" | "qam64"
-    fec: str = "none"  # "none"; "conv" is ROADMAP.md Queue 1 item 5
+    # fec="conv": the step also soft-decodes each slot on the service's
+    # device - planar max-log LLRs from the per-slot SNR estimate,
+    # deinterleave, radix Viterbi - and returns its info bits ("bits"); the
+    # framing is cli.payload_to_symbols(fec="conv")'s, so a sink can
+    # pack_bits + check_crc32 directly
+    fec: str = "none"  # "none" | "conv"
     # receiver of the xla engine: "dense" operators or the factorized
     # "fast" stages; the fused engine runs the dense receiver kernel
     method: str = "dense"
@@ -123,22 +131,13 @@ class StreamingReceiver:
                 f"sp_shards={self.sp_shards}: the sample-axis-sharded service "
                 "is ROADMAP.md Queue 1 item 10"
             )
-        if self.fec == "conv":
-            raise NotImplementedError(
-                "fec='conv': the device-side soft decoder is ROADMAP.md Queue 1 item 5"
-            )
-        if self.fec != "none":
+        if self.fec not in ("none", "conv"):
             raise ValueError(f"unknown fec {self.fec!r}")
         if self.engine not in ("xla", "fused"):
             raise ValueError(f"unknown engine {self.engine!r}")
-        if self.device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "StreamingReceiver: no CUDA device; pass device='cpu' to run "
-                    "the service on the CPU"
-                )
-            self.device = "cuda"
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device, "StreamingReceiver")
+        if self.fec == "conv":
+            self._build_fec()
         self.halo = self.cfg.frame_len + self.cfg.cp_len
         self.ext = self.chunk_len + self.halo
         self._spc = max(1, self.max_bursts_per_chunk)  # slots per chunk
@@ -154,8 +153,42 @@ class StreamingReceiver:
             prepare(self.cfg, "float32", self.device, method=self.method)
             self._step = self._xla_step
 
+    def _build_fec(self):
+        """Device-side soft decoder matching the CLI's conv framing.
+
+        Per slot: planar max-log LLRs weighted by the estimated noise
+        variance 1/max(snr_lin, 1e-6), deinterleave (the arithmetic
+        golden-ratio permutation, inverted, as one index tensor built
+        here), radix Viterbi -> n_info bits. One burst carries one
+        zero-terminated rate-1/2 K=7 codeword (cli.payload_to_symbols).
+        """
+        from ..coding import info_bits_for_block, interleaver
+        from ..ops.rx import constellation_points
+
+        pts = constellation_points(self.constellation)
+        n_bits = int(np.log2(pts.size)) * self.cfg.n_data_symbols
+        if n_bits % 2:
+            raise ValueError(
+                f"fec='conv' needs an even bits-per-burst budget, got {n_bits}"
+            )
+        self.fec_info_bits = info_bits_for_block(n_bits)
+        self._fec_points = pts
+        self._fec_inv = torch.as_tensor(np.argsort(interleaver(n_bits)),
+                                        device=self.device)
+
+    def _fec_decode(self, data_pl: torch.Tensor, snr_lin: torch.Tensor) -> torch.Tensor:
+        """(slots, 2, n_data) payload symbols and (slots,) SNRs -> (slots,
+        n_info) uint8 info bits, on the service's device."""
+        from ..coding import viterbi_decode
+        from ..ops.softbits import maxlog_llrs_planar
+
+        nv = 1.0 / torch.clamp_min(snr_lin, 1e-6)
+        llrs = maxlog_llrs_planar(data_pl, self._fec_points, nv[..., None])
+        llrs = llrs.reshape(llrs.shape[0], -1).index_select(1, self._fec_inv)
+        return viterbi_decode(llrs, self.fec_info_bits)
+
     def _xla_step(self, chunks: torch.Tensor) -> dict:
-        return receive_chunks_planar(
+        out = receive_chunks_planar(
             self.cfg, chunks, self.chunk_len,
             ic_iterations=self.ic_iterations,
             min_strength=self.min_strength,
@@ -168,6 +201,9 @@ class StreamingReceiver:
             constellation=self.constellation,
             refine_cfo=self.refine_cfo,
         )
+        if self.fec == "conv":
+            out["bits"] = self._fec_decode(out["data"], out["snr_lin"])
+        return out
 
     def _fused_step(self, chunks: torch.Tensor) -> dict:
         """Detection, extraction and two-stage CFO as torch ops (or the
@@ -202,6 +238,8 @@ class StreamingReceiver:
         out["detection"] = det
         out["found"] = _found_mask(det, chunk_len, self.min_strength,
                                    self.false_alarm_prob)
+        if self.fec == "conv":
+            out["bits"] = self._fec_decode(out["data"], out["snr_lin"])
         return out
 
     def _slot_offsets(self, n: int) -> np.ndarray:
@@ -248,6 +286,8 @@ class StreamingReceiver:
             "start": host(out["detection"]["start"].reshape(-1)),
             "cfo": host(out["detection"]["cfo"].reshape(-1)),
         }
+        if "bits" in out:  # fec="conv": the device-decoded info bits a slot
+            got["bits"] = host(out["bits"])
         for key in fetch:
             got[key] = host(out[key])
         self.stats.batches += 1

@@ -45,7 +45,10 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "gfdm_tpu_torch.ops.sync, gfdm_tpu_torch.ops.rx, gfdm_tpu_torch.ops.planar_fast, "
         "gfdm_tpu_torch.kernels.cuda_lib, gfdm_tpu_torch.kernels.chain, "
         "gfdm_tpu_torch.benchmarks.int8_gauss, "
-        "gfdm_tpu_torch.runtime.stream, gfdm_tpu_torch.runtime.service, sys; "
+        "gfdm_tpu_torch.runtime.stream, gfdm_tpu_torch.runtime.service, "
+        "gfdm_tpu_torch.device, gfdm_tpu_torch.utils.framing, gfdm_tpu_torch.coding, "
+        "gfdm_tpu_torch.ops.softbits, gfdm_tpu_torch.cli, gfdm_tpu_torch.runtime.timing, "
+        "gfdm_tpu_torch.runtime.transmit_service, gfdm_tpu_torch.eval.sensitivity, sys; "
         "assert 'jax' not in sys.modules and 'gfdm_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'gfdm_tpu.')))"
     )

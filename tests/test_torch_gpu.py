@@ -15,6 +15,7 @@ from gfdm_tpu_torch import GfdmConfig
 from gfdm_tpu_torch.entry import large_k_config, planar_payload
 from gfdm_tpu_torch.kernels import fused
 import factored_fft_emulation as emu
+from dyadic_llrs import dyadic_llrs
 
 pytestmark = pytest.mark.gpu
 
@@ -926,3 +927,116 @@ def test_chain_kernel_refuses_other_shapes():
         chain.gemm_chain(torch.zeros(128, 936, device=dev), cw)
     with pytest.raises(ValueError, match="multiple of 128"):
         chain.gemm_chain(torch.zeros(100, 936, device=dev), cw)
+
+
+# the coded modem on the card: the decoder and the soft bits against their
+# CPU runs, the transmit service on the Tx kernel, the coded service
+VITERBI_MODES = ("auto", "radix", "full", "sm", "windowed")
+
+
+@pytest.mark.parametrize("mode", VITERBI_MODES)
+@pytest.mark.parametrize("n_info", [462, 133])
+def test_viterbi_card_matches_cpu(mode, n_info):
+    """Every mode bit-equal card against CPU on dyadic LLRs (462: the
+    canonical block, radix 16; 133: T = 139, no radix divides it)."""
+    from gfdm_tpu_torch.coding import viterbi_decode
+
+    _cuda()
+    llrs = dyadic_llrs(n_info, 1027, seed=n_info)[0]
+    if mode == "radix" and n_info == 133:
+        with pytest.raises(ValueError, match="no radix"):
+            viterbi_decode(llrs, n_info, mode)
+        return
+    card = viterbi_decode(llrs, n_info, mode)  # a NumPy array goes to the card
+    assert card.device.type == "cuda" and card.dtype == torch.uint8
+    cpu = viterbi_decode(torch.from_numpy(llrs), n_info, mode)
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("name", ["qpsk", "qam16", "qam64"])
+def test_softbits_card_matches_cpu(name):
+    from gfdm_tpu_torch.ops import softbits
+    from gfdm_tpu_torch.ops.rx import constellation_points
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    pl = rng.standard_normal((257, 2, 468)).astype(np.float32)
+    nv = rng.uniform(0.05, 0.5, (257, 1)).astype(np.float32)
+    pts = constellation_points(name)
+    s = torch.from_numpy(pl[:, 0] + 1j * pl[:, 1]).to(torch.complex64)
+    for fn, x in ((softbits.maxlog_llrs_planar, torch.from_numpy(pl)),
+                  (softbits.maxlog_llrs, s)):
+        cpu = fn(x, pts, torch.from_numpy(nv))
+        card = fn(x.to(dev), pts, torch.from_numpy(nv).to(dev))
+        assert card.device.type == "cuda"
+        tol = 1e-5 * float(cpu.abs().max())
+        assert float(((card.cpu() - cpu).abs() - 1e-5 * cpu.abs()).max()) <= tol
+    if name == "qpsk":
+        cpu = softbits.qpsk_llrs_planar(torch.from_numpy(pl), torch.from_numpy(nv[:, 0]))
+        card = softbits.qpsk_llrs_planar(torch.from_numpy(pl).to(dev),
+                                         torch.from_numpy(nv[:, 0]).to(dev))
+        torch.testing.assert_close(card.cpu(), cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [1, 65, 4096])
+def test_transmitter_step_runs_the_tx_kernel(batch):
+    """StreamingTransmitter on the card (its default device): one Tx-kernel
+    launch a step, bit-equal to the plain Tx times the scale."""
+    from gfdm_tpu_torch.runtime.transmit_service import StreamingTransmitter
+
+    dev = _cuda()
+    cfg = GfdmConfig(cyclic_shifts=(0, 4))
+    pls = planar_payload(cfg, batch, seed=5)
+    tx = StreamingTransmitter(cfg, scale=0.5, cyclic_shift_index=1)
+    assert tx.device.type == "cuda"
+    before = fused.LAUNCHES["tx"]
+    got = tx.step(pls)
+    assert fused.LAUNCHES["tx"] == before + 1
+    flat = torch.from_numpy(pls).to(dev).reshape(batch, -1)
+    ref = (fused._tx_frame_plain(cfg, flat, 1) * 0.5).reshape(batch, 2, cfg.frame_len)
+    err = float(np.abs(got - ref.cpu().numpy()).max())
+    print(f"tx_service[B={batch}] max_abs={err:.3e} bit_equal={err == 0.0}")
+    assert err < 2e-5
+    if batch == 4096:
+        assert err == 0.0
+
+
+def test_coded_service_on_card():
+    """StreamingReceiver(fused, fec="conv") on the card: every found slot's
+    payload CRC-clean and equal to what was sent, and its bits equal to a
+    CPU decode of the LLRs the card computed."""
+    from gfdm_tpu_torch.cli import burst_capacity_bytes, payload_to_symbols
+    from gfdm_tpu_torch.coding import viterbi_decode
+    from gfdm_tpu_torch.ops import softbits
+    from gfdm_tpu_torch.runtime.service import StreamingReceiver
+    from gfdm_tpu_torch.utils.framing import check_crc32, pack_bits
+
+    dev = _cuda()
+    cfg, n, chunk = GfdmConfig(), 64, 2048
+    cap = burst_capacity_bytes(cfg, 2, "conv")
+    rng = np.random.default_rng(12)
+    payload = bytes(rng.integers(0, 256, n * cap, dtype=np.uint8))
+    syms, nb = payload_to_symbols(cfg, payload, fec="conv")
+    bursts = fused.tx_frame_fused(cfg, torch.from_numpy(
+        np.stack([syms.real, syms.imag], axis=1).astype(np.float32)).to(dev)).cpu().numpy()
+    sig = float(np.mean(np.sum(bursts**2, axis=1)))
+    halo = cfg.frame_len + cfg.cp_len
+    chunks = (np.sqrt(sig / 10 / 2) * rng.standard_normal((n, 2, chunk + halo))
+              ).astype(np.float32)
+    offs = rng.integers(0, chunk - cfg.frame_len, n)
+    for i in range(n):
+        chunks[i, :, offs[i] : offs[i] + cfg.frame_len] += bursts[i]
+    rx = StreamingReceiver(cfg, chunk_len=chunk, batch_chunks=n, engine="fused",
+                           fec="conv")
+    out = rx._step(torch.from_numpy(chunks).to(dev))
+    found = out["found"].cpu().numpy()
+    assert found.all()
+    bits = out["bits"].cpu().numpy()
+    got = b"".join(check_crc32(pack_bits(b[: (cap + 4) * 8]))[1] for b in bits)
+    assert all(check_crc32(pack_bits(b[: (cap + 4) * 8]))[0] for b in bits)
+    assert got == payload
+    nv = 1.0 / torch.clamp_min(out["snr_lin"], 1e-6)
+    llrs = softbits.maxlog_llrs_planar(out["data"], rx._fec_points, nv[:, None])
+    llrs = llrs.reshape(n, -1)[:, rx._fec_inv]
+    np.testing.assert_array_equal(viterbi_decode(llrs.cpu(), rx.fec_info_bits).numpy(),
+                                  bits)

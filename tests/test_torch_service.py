@@ -223,8 +223,8 @@ def test_batch_ladder_and_host_ranges_match_jax():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
         service.StreamingReceiver(TC, sp_shards=2, engine="fused", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        service.StreamingReceiver(TC, fec="conv", device="cpu")
+    # fec="conv" builds since the coded modem was ported
+    assert service.StreamingReceiver(TC, fec="conv", device="cpu").fec_info_bits == 462
     with pytest.raises(ValueError, match="batch_chunks"):
         service.StreamingReceiver(TC, batch_chunks=0, device="cpu")
     with pytest.raises(ValueError, match="max_batch_chunks"):
