@@ -95,9 +95,13 @@ Phases, one line each (any failure exits non-zero and prints no result):
              counters reset, the two-antenna CDD link (entry.cdd_link: the
              example's taps) at 34 dB, no symbol error allowed, and at 28 dB
              beside its plain version; each superseded receiver (rx_core,
-             rx_ic, rx_full, rx_hybrid) against its plain version at
-             B = 65,536, launched once with the counters reset; then kernel
-             and plain times of the CDD Tx and the four receivers.
+             rx_ic, rx_full, rx_hybrid; IC at 2 iterations) against its
+             plain version at B = 65,536, called once with the counters
+             reset, each with exactly fused.variant_launches launches; the
+             device time of each of their stages (CUDA events around each
+             launch); rx_core's two Gauss products as six torch.mm (TF32
+             off), the yardstick of a part; then kernel and plain times of
+             the CDD Tx and the four receivers.
 10. chain  - the link's GEMM chain (benchmarks/int8_gauss.py's shapes,
              (B, 936) -> 1152 -> 1152 -> 1152) at B = 65,536 with the
              benchmark's inputs (gfdm_tpu_torch.benchmarks.int8_gauss): with
@@ -1384,6 +1388,7 @@ def _cdd_variants_phase(torch, cfg, dev, data, noisy, card, check, failures):
         "rx_full": lambda: fused._rx_variant_plain("rx_full", cfg, nflat, None, 2, amp),
         "rx_hybrid": lambda: fused._rx_variant_plain("rx_hybrid", cfg, nflat, None, 2, amp),
     }
+    depth = {"rx_core": 0, "rx_ic": 2, "rx_full": 2, "rx_hybrid": 2}
     _reset_launches()
     torch.cuda.synchronize()
     outs = {key: fn() for key, fn in kern.items()}
@@ -1392,8 +1397,9 @@ def _cdd_variants_phase(torch, cfg, dev, data, noisy, card, check, failures):
     parts = []
     for key, out in outs.items():
         launches[key] = run[key]
-        if run[key] < 1:
-            failures.append(f"kernel {key} was not launched")
+        if run[key] != fused.variant_launches(key, depth[key]):
+            failures.append(f"kernel {key}: {run[key]} launches, not "
+                            f"{fused.variant_launches(key, depth[key])}")
         ref_chan, ref_sym = plain[key]()
         if key == "rx_hybrid":
             ec = _max_abs(out[0].reshape(Bc, -1), ref_chan)
@@ -1409,6 +1415,31 @@ def _cdd_variants_phase(torch, cfg, dev, data, noisy, card, check, failures):
     print(f"[9 check] B={Bc} launches={ {k: run[k] for k in kern} } " + " ".join(parts),
           flush=True)
     del outs
+
+    # each stage of each superseded receiver, and rx_core's two products as
+    # six torch.mm (TF32 off): the yardstick of a part, not of the function
+    inputs = {"rx_core": (fflat, chan), "rx_ic": (fflat, chan), "rx_full": (nflat, None),
+              "rx_hybrid": (nflat, None)}
+    for key, (x, c) in inputs.items():
+        names, ms = _stage_ms(
+            lambda ev, key=key, x=x, c=c: fused._rx_variant_cuda(key, cfg, x, c, depth[key], amp,
+                                                                 events=ev),
+            fused._variant_plan(key, depth[key]))
+        print(f"[9 stages] {key} B={Bc} ic={depth[key]}: "
+              + " ".join(f"{nm} {t:.3f}" for nm, t in zip(names, ms))
+              + f" = {sum(ms):.3f} ms ({card})", flush=True)
+    k = fused._kernel_consts(cfg, dev)
+    y = fused._rx_variant_plain("rx_core", cfg, fflat, chan, 0, amp)[1]  # any (B, 2N) rows
+    mm_args = []
+    for x, g in ((fflat, k["F_G"]), (y, k["Bfd_G"])):
+        xr, xi = x[:, :n].contiguous(), x[:, n:].contiguous()
+        mm_args += [(xr, g[:n]), (xi, g[n : 2 * n]), (xr + xi, g[2 * n :])]
+    mm_ms = _time_ms(torch, lambda: [torch.mm(a, w) for a, w in mm_args])
+    times["rx_core_mm"] = mm_ms
+    print(f"[9 library] rx_core's two Gauss products as six torch.mm ({Bc}, {n}) @ ({n}, "
+          f"{n}), TF32 off: {mm_ms:.3f} ms (cuBLAS's SGEMM; no ZF, adds or intermediates) "
+          f"({card})", flush=True)
+    del y, mm_args
 
     # times (plain, kernel, kernel, plain)
     runs = {"tx_cdd": (lambda: fused.tx_cdd_fused(cfg_c, data),
@@ -2089,6 +2120,10 @@ def main() -> int:
                     f"position {extra['old_bound_ms']:.3f} ms")
         if key == "rx_factored":  # two launches: the estimator GEMM, the receiver
             extra["launches_by_kernel"] = row6
+        if key == "rx_core":  # its two products as six torch.mm: a part's yardstick
+            extra["mm_yardstick_ms"] = times["rx_core_mm"]
+            note = (f"; its two Gauss products as six torch.mm "
+                    f"{extra['mm_yardstick_ms']:.3f} ms")
         if key == "link":  # tensor-core bound; the fp32 FMA one as PRs 1-6 gave it
             extra["fma_bound_ms"] = bound_ms
             bound_ms, bound_by, inter_ms = _link_bound(kcfg, kb, **kw)

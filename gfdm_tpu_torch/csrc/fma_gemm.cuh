@@ -1,13 +1,14 @@
 // The register-blocked fp32 FMA GEMM body on CUDA cores shared by the
 // chain's f32 stages (chain.cu) and the factored receiver's estimator GEMM
-// (factored.cu): a CTA of 128 threads computes a 64 x 128 output tile, each
-// thread an 8 x 8 block (rows ty + 8 i, columns 4 tx + 64 h + e). k runs in
-// 16-deep tiles through a four-slot cp.async ring (48 KB); the caller's
-// loader fills a slot (A [m][k], W [k][n]) and zero-fills what lies past its
-// operands, so four k of a row and a k-row of eight columns are 16-byte
-// shared loads (LDS.128): 16 shared loads per 256 FMA, the FMAs in a zigzag
-// over the columns. Every output is one FMA chain over k in order, from
-// zero, with no split-k. FMA on CUDA cores, no TF32.
+// (factored.cu); rx.cu's Gauss GEMM takes its cp.async copies. A CTA of
+// 128 threads computes a 64 x 128 output tile, each thread an 8 x 8 block
+// (rows ty + 8 i, columns 4 tx + 64 h + e). k runs in 16-deep tiles
+// through a four-slot cp.async ring (48 KB); the caller's loader fills a
+// slot (A [m][k], W [k][n]) and zero-fills what lies past its operands, so
+// four k of a row and a k-row of eight columns are 16-byte shared loads
+// (LDS.128): 16 shared loads per 256 FMA, the FMAs in a zigzag over the
+// columns. Every output is one FMA chain over k in order, from zero, with
+// no split-k. FMA on CUDA cores, no TF32.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -450,13 +450,6 @@ extern "C" const char* gfdm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory of a superseded receiver's launch: the chosen tile, or one
-// burst where none fits.
-extern "C" size_t gfdm_rx_smem_bytes(const gfdm::Dims* d) {
-  const int tb = gfdm::rx_tile_bursts(*d);
-  return sizeof(float) * gfdm::rx_smem_floats(*d, tb > 0 ? tb : 1);
-}
-
 extern "C" int gfdm_struct_sizes(int* out) {
   out[0] = static_cast<int>(sizeof(gfdm::Dims));
   out[1] = static_cast<int>(sizeof(gfdm::Consts));

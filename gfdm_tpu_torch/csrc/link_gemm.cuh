@@ -28,6 +28,7 @@
 // 2 x 2 fragments for each of P1, P2, P3.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <mma.h>
 
 #include "gfdm_common.cuh"

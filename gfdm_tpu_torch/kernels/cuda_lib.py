@@ -142,8 +142,10 @@ def _source_hash() -> str:
 def _build() -> Path:
     out_dir = build_dir()
     lib_path = out_dir / f"libgfdm_kernels_{_source_hash()}.so"
+    log_path = out_dir / f"{lib_path.stem}.log"
     if lib_path.exists():
-        _BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True, log="")
+        log = log_path.read_text() if log_path.exists() else ""
+        _BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True, log=log)
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -167,7 +169,7 @@ def _build() -> Path:
         os.replace(tmp_lib, lib_path)
     seconds = time.perf_counter() - t0
     log = "\n".join(logs)
-    (out_dir / f"{lib_path.stem}.log").write_text(log)
+    log_path.write_text(log)
     _BUILD_INFO.update(path=str(lib_path), seconds=seconds, cached=False, log=log)
     return lib_path
 
@@ -185,7 +187,7 @@ def library() -> ctypes.CDLL:
     lib.gfdm_link_stage.argtypes = [dims_p, consts_p, ctypes.POINTER(LinkIO), ci, ci, vp]
     lib.gfdm_tf32_split.argtypes = [ci, vp, vp, vp, vp]
     lib.gfdm_link_io_size.argtypes = []
-    lib.gfdm_rx_variant.argtypes = [dims_p, consts_p, vp, vp, vp, vp, ctypes.c_int, vp]
+    lib.gfdm_rx_variant.argtypes = [dims_p, consts_p, vp, vp, vp, vp, vp, ci, ci, vp]
     lib.gfdm_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     det_p = ctypes.POINTER(DetectDims)
     for fn in (lib.gfdm_detect_front, lib.gfdm_detect_lean):
@@ -252,6 +254,7 @@ def launch(name: str, args: tuple, device, hint=None) -> None:
 
 
 def build_info() -> dict:
-    """Path, build seconds, whether it was cached, and the nvcc log."""
+    """Path, build seconds, whether it was cached, and the nvcc log (a
+    cached library's: the one its build left beside it)."""
     library()
     return dict(_BUILD_INFO)

@@ -21,8 +21,10 @@ plain torch version here that computes the same thing the same way:
   stage, ``LINK_STAGES`` then one an IC iteration; float32 stacks as 3xTF32
   products, the IC operator and bfloat16 stacks as bf16 products;
 - the superseded receivers ``_rx_core_kernel``, ``_rx_ic_kernel``,
-  ``_rx_full_kernel`` and ``_rx_hybrid_kernel`` -> compile-time variants of
-  one receiver template (``rx_variant_kernel``, csrc/rx.cu).
+  ``_rx_full_kernel`` and ``_rx_hybrid_kernel`` -> a plan of launches each
+  (``variant_launches``) of csrc/rx.cu's stages: register-blocked Gauss
+  GEMMs over (bursts x columns) tiles (estimate, DFT + ZF, demod) and one
+  per-burst pass (the IC; for the hybrid the fold, IDFTs and IC).
 
 What every plain version pins: the Gauss 3-product stacks, the ZF
 denominator clamped at 1e-30, decisions ``>= 0 -> +1`` (QPSK) or the odd
@@ -78,6 +80,7 @@ __all__ = [
     "LINK_STAGES",
     "rx_launches",
     "RX_STAGES",
+    "variant_launches",
     "rx_core_fused",
     "rx_ic_fused",
     "rx_full_fused",
@@ -107,8 +110,10 @@ _IC_MODES = {"conv": 0, "matmul": 1}
 _DEC_KINDS = {"qpsk": 0, "qam16": 1, "qam64": 2}
 _EQUALIZERS = {"zf": 0, "mmse": 1, "mmse_cnr": 2}
 _DTYPES = ("float32", "bfloat16")
-# csrc/rx.cu::RxVariant of each superseded receiver
+# csrc/rx.cu gfdm::rxv::Variant of each superseded receiver, and the
+# number of each of its stages (gfdm::rxv::Stage)
 _VARIANTS = {"rx_core": 0, "rx_ic": 0, "rx_full": 1, "rx_hybrid": 2}
+_VARIANT_STAGES = {"estimate": 0, "dft_zf": 1, "demod": 2, "cancel": 3, "hybrid": 4}
 # csrc/link.cu gfdm::lg::Stage: the number of each staged launch
 _STAGE = {"tx": 0, "est_zf": 1, "pre_dft": 2, "metrics": 3, "demod": 4, "ic": 5, "phase": 6}
 # the link's launches, in order: these five once a call, then one an IC
@@ -151,6 +156,30 @@ def _rx_plan(ic_iterations: int, phase_compensation: bool = False):
     if phase_compensation and ic_iterations > 0:
         plan.append(("phase", _STAGE["phase"], 0))
     return plan + [("ic", _STAGE["ic"], it) for it in range(int(ic_iterations))]
+
+
+def variant_launches(key: str, ic_iterations: int = 0) -> int:
+    """Kernel launches of one call of the superseded receiver ``key`` on a
+    CUDA tensor at ``ic_iterations`` (rx_core runs none): rx_core 2, rx_ic 2
+    + (1 with IC), rx_full 3 + (1 with IC), rx_hybrid 3."""
+    return len(_variant_plan(key, ic_iterations))
+
+
+def _variant_plan(key: str, ic_iterations: int):
+    """(stage name, csrc/rx.cu stage number, 0) of each launch of the
+    superseded receiver ``key``: the estimate where the channel is not
+    given, DFT + ZF, then the demodulator and, with IC, one launch of all
+    its iterations; or the hybrid's fold / IDFT / IC pass."""
+    _choice("key", key, _VARIANTS)
+    if key == "rx_core" and ic_iterations:
+        raise ValueError(f"rx_core runs no IC, got ic_iterations={ic_iterations}")
+    names = [] if key in ("rx_core", "rx_ic") else ["estimate"]
+    names.append("dft_zf")
+    if key == "rx_hybrid":
+        names.append("hybrid")
+    else:
+        names += ["demod"] + (["cancel"] if ic_iterations > 0 else [])
+    return [(name, _VARIANT_STAGES[name], 0) for name in names]
 
 
 def _check_dense_size(cfg: GfdmConfig, fn: str, factored: str) -> None:
@@ -579,21 +608,15 @@ def _rx_consts(cfg: GfdmConfig, device, opts: _RxOptions, dtype_name: str = "flo
 
 def _run(name: str, key: str, dims, consts, *args, device) -> None:
     """Launch ``gfdm_<name>`` on the current stream of ``device`` and count
-    it under ``key``; raise if the launch is refused (e.g. a superseded
-    receiver whose tile exceeds shared memory)."""
+    it under ``key``; raise if the launch is refused."""
     from .cuda_lib import launch
-
-    def rx_tile(lib):
-        return (f"; the receiver tile keeps {lib.gfdm_rx_smem_bytes(ctypes.byref(dims))}"
-                " B in shared memory a CTA even at one burst, so a larger "
-                "N = M*K takes rx_receiver_factored")
 
     def tx_tile(lib):
         return (f"; the Tx tile {TX_TILE} keeps {_tx_tile(lib)[3]} B in shared memory a "
                 "CTA")
 
     launch(f"gfdm_{name}", (ctypes.byref(dims), ctypes.byref(consts), *args),
-           device, hint=tx_tile if name == "tx" else rx_tile)
+           device, hint=tx_tile if name == "tx" else None)
     LAUNCHES[key] += 1
 
 
@@ -639,18 +662,21 @@ def _run_stages(key: str, plan, dims, consts, io, device, events=None) -> None:
     each launch and after the last (chip_smoke.py's per-stage times)."""
     from .cuda_lib import launch
 
-    def record():
-        if events is not None:
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-
     for name, stage, it in plan:
-        record()
+        _record(events)
         launch("gfdm_link_stage",
                (ctypes.byref(dims), ctypes.byref(consts), ctypes.byref(io), stage, it), device,
                hint=lambda lib, name=name, it=it: f" ({key} stage {name}, iteration {it})")
         LAUNCHES[key] += 1
-    record()
+    _record(events)
+
+
+def _record(events) -> None:
+    """Append a CUDA event recorded on the current stream to ``events``
+    (a list, or None for no event)."""
+    if events is not None:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
 
 
 def _burst_windows(cfg: GfdmConfig) -> dict:
@@ -844,27 +870,49 @@ def _tf32_split_cuda(x: torch.Tensor):
     return hi, lo
 
 
-def _rx_variant_cuda(key: str, cfg, x, chan, ic_iterations: int, amp: float):
+def _rx_variant_cuda(key: str, cfg, x, chan, ic_iterations: int, amp: float, events=None):
     """As _rx_variant_plain; the channel is None for rx_full, which writes
-    only the symbols."""
+    only the symbols. One launch a stage of ``_variant_plan`` on the current
+    stream, each counted under ``key``; the estimate writes the channel
+    (rx_hybrid's output), DFT + ZF the equalized spectrum Y, the
+    demodulator D0 (the symbols where no IC follows), all (B, 2N).
+    ``events``: as _run_stages."""
+    from .cuda_lib import launch
+
+    dev = x.device
     B, n = x.shape[0], cfg.block_len
-    k = _kernel_consts(cfg, x.device)
-    sym = torch.empty(B, 2 * n, dtype=torch.float32, device=x.device)
-    chan_out = None
-    if chan is None and key == "rx_hybrid":
-        chan_out = torch.empty_like(sym)
+    kw = dict(dtype=torch.float32, device=dev)
+    sym = torch.empty(B, 2 * n, **kw)
+    plan = _variant_plan(key, ic_iterations)
+    chan_buf = chan if chan is not None else torch.empty(B, 2 * n, **kw)
+    out_chan = chan_buf if key == "rx_hybrid" else chan
+    if B == 0:
+        return out_chan, sym
+    y = torch.empty(B, 2 * n, **kw)
+    d0 = torch.empty(B, 2 * n, **kw) if plan[-1][0] == "cancel" else sym
+    k = _kernel_consts(cfg, dev)
     tabs = {}
     if key == "rx_hybrid":
-        fc = planar_fast.fast_consts(cfg, "float32", x.device)
+        fc = planar_fast.fast_consts(cfg, "float32", dev)
         tabs = dict(parts=fc["rx_parts"], ifm=fc["iFM_W"])
     consts = _consts(e_g=k["E_G"], f_g=k["F_G"], bfd_g=k["Bfd_G"], act=k["act"],
-                     taps=_ic_operand(cfg, "conv", x.device, amp), **tabs)
-    opts = _rx_options(ic_iterations, qpsk_amp=amp)
-    _run("rx_variant", key, _dims(cfg, B, opts), consts, x.data_ptr(),
-         None if chan is None else chan.data_ptr(),
-         None if chan_out is None else chan_out.data_ptr(), sym.data_ptr(),
-         _VARIANTS[key], device=x.device)
-    return chan if chan_out is None else chan_out, sym
+                     taps=_ic_operand(cfg, "conv", dev, amp), **tabs)
+    dims = _dims(cfg, B, _rx_options(ic_iterations, qpsk_amp=amp))
+
+    def hint(lib):
+        return (f"; a superseded receiver takes a config whose one-burst state, "
+                f"{lib.gfdm_rx_smem_bytes(ctypes.byref(dims))} B, fits a CTA's shared "
+                "memory, so a larger N = M*K takes rx_receiver_factored")
+
+    for _name, stage, _it in plan:
+        _record(events)
+        launch("gfdm_rx_variant",
+               (ctypes.byref(dims), ctypes.byref(consts), x.data_ptr(), chan_buf.data_ptr(),
+                y.data_ptr(), d0.data_ptr(), sym.data_ptr(), _VARIANTS[key], stage), dev,
+               hint=hint)
+        LAUNCHES[key] += 1
+    _record(events)
+    return out_chan, sym
 
 
 # ---------------------------------------------------------------------------

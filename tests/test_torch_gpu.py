@@ -778,11 +778,18 @@ def test_tx_cdd_kernel_matches_plain(name, shifts, batch):
     assert err < 2e-5
 
 
-@pytest.mark.parametrize("key", ["rx_core", "rx_ic", "rx_full", "rx_hybrid"])
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_rx_variant_kernels_match_plain(key, name):
+# the superseded receivers' configs: N = 160 a ragged column tile; at K =
+# 128 and 512 the one-kernel receivers they replaced took 4 and 1 bursts a CTA
+VARIANT_CONFIGS = {**CONFIGS, "K128": TX_CONFIGS["K128"], "K512": TX_CONFIGS["K512"]}
+VARIANT_CASES = [(key, it) for key in ("rx_core", "rx_ic", "rx_full", "rx_hybrid")
+                 for it in ((0,) if key == "rx_core" else (0, 1, 2, 3))]
+
+
+@pytest.mark.parametrize("key,iterations", VARIANT_CASES)
+@pytest.mark.parametrize("name", sorted(VARIANT_CONFIGS))
+def test_rx_variant_kernels_match_plain(key, name, iterations):
     dev = _cuda()
-    cfg = CONFIGS[name]
+    cfg = VARIANT_CONFIGS[name]
     bursts = fused.tx_frame_fused(cfg, _payload(cfg, 91, dev))
     gen = torch.Generator(dev).manual_seed(3)
     bursts = bursts + 0.01 * torch.randn(bursts.shape, device=dev, generator=gen)
@@ -793,14 +800,16 @@ def test_rx_variant_kernels_match_plain(key, name):
     before = dict(fused.LAUNCHES)
     if key in ("rx_core", "rx_ic"):
         args = (frames, chan.reshape(B, 2, n))
-        ref = fused._rx_variant_plain(key, cfg, frames.reshape(B, -1), chan,
-                                      0 if key == "rx_core" else 2, 2.0**-0.5)
+        ref = fused._rx_variant_plain(key, cfg, frames.reshape(B, -1), chan, iterations,
+                                      2.0**-0.5)
     else:
         args = (bursts,)
-        ref = fused._rx_variant_plain(key, cfg, flat, None, 2, 2.0**-0.5)
-    got = getattr(fused, {"rx_hybrid": "rx_receiver_hybrid"}.get(key, key + "_fused"))(cfg, *args)
-    assert fused.LAUNCHES[key] == before[key] + 1
-    assert sum(fused.LAUNCHES.values()) == sum(before.values()) + 1
+        ref = fused._rx_variant_plain(key, cfg, flat, None, iterations, 2.0**-0.5)
+    fn = getattr(fused, {"rx_hybrid": "rx_receiver_hybrid"}.get(key, key + "_fused"))
+    got = fn(cfg, *args) if key == "rx_core" else fn(cfg, *args, ic_iterations=iterations)
+    launches = fused.variant_launches(key, iterations)
+    assert fused.LAUNCHES[key] == before[key] + launches
+    assert sum(fused.LAUNCHES.values()) == sum(before.values()) + launches
     if key == "rx_hybrid":
         assert _max_err(got[0], ref[0]) < 2e-4
         got = got[1]
