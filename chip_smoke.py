@@ -111,8 +111,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
              and against a float64 chain; then kernel, plain and library
              times (three torch.mm with TF32 off; three torch.mm with
              float32 output; torch._int_mm with torch-op quantization
-             between), and torch.linalg.multi_dot's time as a note (it
-             reassociates: not the chain's function).
+             between); the int8 call's device time a launch (x's pass,
+             three stages) and the clusters its stages run as; torch._int_mm
+             x3 on operands quantized beforehand (the GEMMs alone); and
+             torch.linalg.multi_dot's time as a note (it reassociates: not
+             the chain's function).
 11. coded  - the coded modem through both services: a seeded payload of
              4,096 coded QPSK bursts framed by cli.payload_to_symbols(fec=
              "conv"), StreamingTransmitter(cycle_samples=2,048).serve (one
@@ -1457,22 +1460,17 @@ def _chain_library(torch, variant: str, x, cw):
     the same order: three torch.mm with TF32 off (f32: cuBLAS's SGEMMs),
     three torch.mm with float32 output (bf16), three torch._int_mm with
     torch-op int8 quantization between (int8)."""
+    from gfdm_tpu_torch.benchmarks.chain_int8 import int_mm_chain
     from gfdm_tpu_torch.kernels import chain
 
     if variant == "f32":
         with chain._no_tf32(x.device):
             return torch.mm(torch.mm(torch.mm(x, cw.w[0]), cw.w[1]), cw.w[2])
+    if variant == "int8":
+        return int_mm_chain(x, cw)
     a = x
-    for i, w in enumerate(cw.w):
-        if variant == "bf16":
-            a = torch.mm(a.to(torch.bfloat16), w, out_dtype=torch.float32)
-            continue
-        g = a.reshape(a.shape[0] // chain.GROUP, chain.GROUP, -1)
-        m = torch.clamp(g.abs().amax(dim=(1, 2), keepdim=True), min=1e-20)
-        q = torch.clamp(torch.round(g * (torch.full_like(m, 127.0) / m)), -127, 127)
-        acc = torch._int_mm(q.to(torch.int8).reshape(a.shape[0], -1), w)
-        a = (acc.reshape(g.shape[0], chain.GROUP, -1).float()
-             * (m * chain._dequant_const(cw.inv[i]))).reshape(a.shape[0], -1)
+    for w in cw.w:
+        a = torch.mm(a.to(torch.bfloat16), w, out_dtype=torch.float32)
     return a
 
 
@@ -1531,6 +1529,27 @@ def _chain_phase(torch, dev, card, check, failures):
         print(f"[10 time] chain_{v}: kernel {ks} ms = {ops / (k_ms * 1e-3) / 1e12:.1f} "
               f"TF(OP)/s, plain {ps} ms, library {lib_ms:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}) = {bound_ms / k_ms:.1%} of it (B={B_CHAIN}, {card})", flush=True)
+    # the int8 call launch by launch, and PyTorch's int8 GEMM alone on
+    # operands quantized beforehand: the yardstick of a part
+    from gfdm_tpu_torch.benchmarks.chain_int8 import quantized_operands
+
+    cw = cws["int8"]
+    names = chain.INT8_LAUNCHES
+    _names, ms = _stage_ms(lambda ev: chain._chain_cuda(xs, cw, events=ev),
+                           [(n, None, 0) for n in names])
+    cl = chain.int8_clusters(dev)
+    print(f"[10 stages] chain_int8 B={B_CHAIN}: " + " ".join(f"{n} {t:.3f}" for n, t in
+                                                             zip(names, ms))
+          + f" = {sum(ms):.3f} ms; stages 1-2 as {cl['active_clusters']} clusters of "
+          f"{cl['cluster']} CTAs at once ({card})", flush=True)
+    qs = quantized_operands(xs, cw)
+    pre_ms = _time_ms(torch, lambda: [torch._int_mm(q, w) for q, w in zip(qs, cw.w)])
+    times["chain_int8_int_mm"] = pre_ms
+    print(f"[10 library] chain_int8: torch._int_mm x3 on operands quantized beforehand "
+          f"{pre_ms:.3f} ms (the GEMMs alone); with torch-op quantization between "
+          f"{times['chain_int8'][2]:.3f} ms (the function, library_ms) (B={B_CHAIN}, {card})",
+          flush=True)
+    del qs
     cw = cws["f32"]
     md_ms = _time_ms(torch, lambda: torch.linalg.multi_dot([xs, *cw.w]))
     print(f"[10 note] chain_f32: torch.linalg.multi_dot {md_ms:.3f} ms, not a yardstick: it "
@@ -2124,6 +2143,10 @@ def main() -> int:
             extra["mm_yardstick_ms"] = times["rx_core_mm"]
             note = (f"; its two Gauss products as six torch.mm "
                     f"{extra['mm_yardstick_ms']:.3f} ms")
+        if key == "chain_int8":  # PyTorch's int8 GEMMs alone: a part's yardstick
+            extra["int_mm_yardstick_ms"] = times["chain_int8_int_mm"]
+            note = (f"; torch._int_mm x3 on operands quantized beforehand "
+                    f"{extra['int_mm_yardstick_ms']:.3f} ms")
         if key == "link":  # tensor-core bound; the fp32 FMA one as PRs 1-6 gave it
             extra["fma_bound_ms"] = bound_ms
             bound_ms, bound_by, inter_ms = _link_bound(kcfg, kb, **kw)

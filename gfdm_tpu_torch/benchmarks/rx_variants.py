@@ -85,15 +85,16 @@ def bound_ms(key: str, cfg: GfdmConfig, batch: int, ic: int) -> float:
     return 1e3 * batch * ops / PEAK_FMA
 
 
-def ptxas_lines() -> list:
+def ptxas_lines(keys=("rxv",)) -> list:
     """'<kernel>: <ptxas line>' for the registers and spills of every
-    rx.cu kernel in the library's build log."""
+    kernel whose mangled name holds one of ``keys`` (default: rx.cu's) in
+    the library's build log."""
     out, fn = [], None
     for ln in cuda_lib.build_info()["log"].splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             fn = m.group(1)
-        elif fn and "rxv" in fn and ("registers" in ln or "spill" in ln):
+        elif fn and any(k in fn for k in keys) and ("registers" in ln or "spill" in ln):
             out.append((fn, ln.split(":", 1)[-1].strip()))
     if shutil.which("c++filt") and out:
         names = subprocess.run(["c++filt"], input="\n".join(f for f, _ in out),

@@ -1,15 +1,18 @@
 // Hopper (sm_90a) building blocks for tensor-core GEMMs: TMA tensor maps,
-// the mbarrier ring, wgmma shared-memory descriptors and the wgmma launch and
-// wait wrappers. chain.cu's bf16 GEMM is built from them.
+// the mbarrier ring, wgmma shared-memory descriptors, the wgmma launch and
+// wait wrappers, and the thread-block-cluster exchange (distributed shared
+// memory, cluster barriers). chain.cu's bf16 and int8 GEMMs are built from
+// them.
 //
-// The layout they assume: an operand tile of R rows x 64 bf16 (128 bytes a
-// row, k contiguous: "K-major") loaded by TMA with the 128-byte swizzle.
-// TMA writes row r's eight 16-byte chunks at chunk index c ^ (r % 8), and
-// the wgmma descriptor with layout SWIZZLE_128B reads the same pattern:
-// 8-row groups 1,024 bytes apart (SBO), each tile 1,024-byte aligned. A
-// k16 step inside the 64-wide slab advances the descriptor's start address
-// by 32 bytes. Elements of a box that lie outside the tensor arrive as
-// zeros, so a ragged k (936 = 14 x 64 + 40) needs no padding.
+// The layout they assume: an operand tile of R rows x 128 bytes (64 bf16 or
+// 128 int8, k contiguous: "K-major") loaded by TMA with the 128-byte
+// swizzle. TMA writes row r's eight 16-byte chunks at chunk index c ^ (r %
+// 8), and the wgmma descriptor with layout SWIZZLE_128B reads the same
+// pattern: 8-row groups 1,024 bytes apart (SBO), each tile 1,024-byte
+// aligned. A 32-byte k step inside the slab (k16 of bf16, k32 of int8)
+// advances the descriptor's start address by 32 bytes. Elements of a box
+// that lie outside the tensor arrive as zeros, so a ragged k (936 = 14 x 64
+// + 40) needs no padding.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the entry point comes from the runtime
@@ -53,22 +56,37 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major bf16 matrix (rows, cols) with row pitch ld elements, read in
-// boxes of box_rows x SLAB, 128-byte swizzle, out-of-bounds elements zero.
-// Needs p 16-byte aligned and ld a multiple of 8.
-inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* p, uint64_t rows, uint64_t cols,
-                                uint64_t ld, uint32_t box_rows) {
+// A row-major matrix (rows, cols) of elem-byte elements with row pitch ld
+// elements, read in boxes of box_rows x 128 bytes, 128-byte swizzle,
+// out-of-bounds elements zero. Needs p 16-byte aligned and ld * elem a
+// multiple of 16.
+inline cudaError_t tma_map_2d(CUtensorMap* map, CUtensorMapDataType type, uint32_t elem,
+                              const void* p, uint64_t rows, uint64_t cols, uint64_t ld,
+                              uint32_t box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {ld * sizeof(bf16)};
-  const cuuint32_t box[2] = {SLAB, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint64_t strides[1] = {ld * elem};
+  const cuuint32_t box[2] = {128 / elem, box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(p), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16 (rows, cols), boxes of box_rows x SLAB; ld a multiple of 8
+inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* p, uint64_t rows, uint64_t cols,
+                                uint64_t ld, uint32_t box_rows) {
+  return tma_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), p, rows, cols, ld,
+                    box_rows);
+}
+
+// int8 (rows, cols), boxes of box_rows x 128 (as unsigned bytes: the same
+// bits); ld a multiple of 16
+inline cudaError_t tma_map_s8(CUtensorMap* map, const void* p, uint64_t rows, uint64_t cols,
+                              uint64_t ld, uint32_t box_rows) {
+  return tma_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p, rows, cols, ld, box_rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -136,6 +154,63 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// device: thread-block clusters
+// ---------------------------------------------------------------------------
+// Every thread of the cluster that has not exited arrives, then waits: the
+// release / acquire pair makes each CTA's earlier shared-memory writes, remote
+// ones included, visible to every thread of the cluster after it. Not
+// .aligned: a warp may reach it diverged.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the address of this CTA's shared `p` in the CTA of cluster rank `rank`
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, int v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// an arrival on a peer CTA's mbarrier that releases this thread's earlier
+// writes (st_peer) to the cluster
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+// mbar_wait with cluster-scope acquire: the peers' writes released by their
+// arrivals are visible after it; traps as mbar_wait does
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  do {
+    if (clock64() - t0 > (1ll << 33)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (done == 0);
+}
+
 // A ring position: slot and the parity of its current round.
 struct Ring {
   int slot = 0;
@@ -173,8 +248,9 @@ __device__ __forceinline__ uint64_t smem_desc_sw128(const void* tile) {
          | (1ull << 62);                   // layout: SWIZZLE_128B
 }
 
-// the descriptor advanced by k16 steps inside its slab (32 bytes each)
-__device__ __forceinline__ uint64_t desc_k16(uint64_t desc, int step) {
+// the descriptor advanced by `step` 32-byte steps inside its slab: one
+// wgmma's k (k16 of bf16, k32 of int8)
+__device__ __forceinline__ uint64_t desc_step32(uint64_t desc, int step) {
   return desc + static_cast<uint64_t>(2 * step);
 }
 
@@ -198,6 +274,12 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (64 x 192, float32, the warpgroup's fragment) (+)= A (64 x 16) B^T,
@@ -235,6 +317,44 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
         "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 192, int32, the warpgroup's fragment) (+)= A (64 x 32) B^T, A
+// and B^T (192 x 32) K-major int8 in shared memory; integer sums are exact
+// (no scale or transpose operands); scale_d = 0 starts the sum afresh. The
+// fragment is laid out as wgmma_m64n192k16's.
+__device__ __forceinline__ void wgmma_m64n192k32_s8(int (&d)[96], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]),
+        "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]),
+        "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

@@ -359,10 +359,14 @@ __global__ void tf32_split_kernel(int n, const float* x, float* hi, float* lo) {
 template <typename... P, typename... A>
 int launch(void (*kernel)(P...), dim3 grid, int threads, size_t smem, cudaStream_t st,
            A... args) {
+  (void)cudaGetLastError();  // report this launch's error only (earlier calls reported theirs)
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      (void)cudaGetLastError();  // a refused launch leaves no error behind
+      return static_cast<int>(err);
+    }
   }
   kernel<<<grid, threads, smem, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
@@ -439,6 +443,7 @@ extern "C" int gfdm_link_stage(const gfdm::Dims* d, const gfdm::Consts* c,
 
 extern "C" int gfdm_tf32_split(int n, const float* x, float* hi, float* lo, void* stream) {
   if (n <= 0) return 0;
+  (void)cudaGetLastError();  // report this launch's error only
   gfdm::lg::tf32_split_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       n, x, hi, lo);
   return static_cast<int>(cudaGetLastError());
@@ -449,6 +454,15 @@ extern "C" int gfdm_link_io_size() { return static_cast<int>(sizeof(gfdm::lg::Li
 extern "C" const char* gfdm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// The library's own CUDA runtime (cudart is linked in statically, apart
+// from PyTorch's, and exports no symbol): its last error, read without
+// clearing it, and its cudaSetDevice. tests/test_torch_gpu.py leaves an
+// error there (an ordinal no card has) and checks that each launcher
+// reports its own launch only.
+extern "C" int gfdm_peek_error() { return static_cast<int>(cudaPeekAtLastError()); }
+
+extern "C" int gfdm_set_device(int dev) { return static_cast<int>(cudaSetDevice(dev)); }
 
 extern "C" int gfdm_struct_sizes(int* out) {
   out[0] = static_cast<int>(sizeof(gfdm::Dims));

@@ -269,9 +269,13 @@ tx_kernel(Dims d, Consts c, const float* __restrict__ data, float* __restrict__ 
 
 template <int VEC>
 int launch(const Dims* d, const Consts* c, const float* data, float* out, void* stream) {
+  (void)cudaGetLastError();  // report this launch's error only (earlier calls reported theirs)
   cudaError_t err = cudaFuncSetAttribute(
       tx_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(TX_SMEM));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    (void)cudaGetLastError();  // a refused launch leaves no error behind
+    return static_cast<int>(err);
+  }
   const int tiles = ((d->n + TX_BN - 1) / TX_BN) * ((d->batch + TX_BM - 1) / TX_BM);
   tx_kernel<VEC><<<tiles, TX_THREADS, TX_SMEM,
                    static_cast<cudaStream_t>(stream)>>>(*d, *c, data, out);

@@ -23,10 +23,13 @@ that asks what tensor cores give on this card, in time and in accuracy.
 
 :func:`gemm_chain` runs ``csrc/chain.cu`` for a tensor on the card (one
 launch a stage for f32; for bf16 a pass rounding x to bf16, then one a
-stage on TMA and ``wgmma``; for int8 an absmax pass, then one a stage) and
-the plain torch version (:func:`_chain_plain`) for a tensor on the CPU. The
-JAX kernel's grid leaves a remainder of rows unwritten; here a batch that is
-not a multiple of 128 raises. ``LAUNCHES`` counts the kernel launches.
+stage on TMA and ``wgmma``; for int8 a pass quantizing x into an int8
+plane, then one s8 TMA + ``wgmma`` launch a stage, stages 1 and 2 as
+thread-block clusters that settle each group's scale and store the next
+stage's int8 operand: :data:`INT8_LAUNCHES`) and the plain torch version
+(:func:`_chain_plain`) for a tensor on the CPU. The JAX kernel's grid
+leaves a remainder of rows unwritten; here a batch that is not a multiple
+of 128 raises. ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import torch
 
 from ..ops.planar import bf16_operator
 
-__all__ = ["CHAIN_SHAPES", "GROUP", "VARIANTS", "LAUNCHES", "ChainWeights",
+__all__ = ["CHAIN_SHAPES", "GROUP", "VARIANTS", "LAUNCHES", "INT8_LAUNCHES", "ChainWeights",
            "quantize_weights", "chain_weights_from_numpy", "gemm_chain"]
 
 # the one-kernel link's chain (K = 64: 2 n_data = 936 in, 2 N = 1152 a stage)
@@ -49,6 +52,8 @@ VARIANTS = ("f32", "bf16", "int8")
 # kernel launches per wrapper since the last reset (plain runs do not count)
 LAUNCHES = {"chain_f32": 0, "chain_bf16": 0, "chain_int8": 0}
 _KERNELS = {"f32": 3, "bf16": 4, "int8": 4}  # launches of one call
+# the int8 call's launches, in order (csrc/chain.cu int8_launch)
+INT8_LAUNCHES = ("quantize_x", "stage1", "stage2", "stage3")
 _VARIANT_IDS = {"f32": 0, "bf16": 1, "int8": 2}  # csrc/chain.cu's variant
 _KPAD = 64  # the CUDA bf16 and int8 operands' k padding (csrc/chain.cu KPAD)
 _HID = 1152  # the CUDA kernels' stage width (csrc/chain.cu HID)
@@ -184,34 +189,63 @@ def _chain_plain(x: torch.Tensor, cw: ChainWeights) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def _chain_scratch(batch: int, variant: str, device):
     """The kernels' scratch for one call: (intermediates, int8 group maxima
-    or None). f32 and int8: two float32 (B, 1152) planes, one a stage's
-    output; bf16: one (B, 1152) bf16 plane (bf16(x), then stage 2's
-    output; stage 1 writes into the bytes of ``out``)."""
+    or None). f32: two float32 (B, 1152) planes, one a stage's output;
+    bf16: one (B, 1152) bf16 plane (bf16(x), then stage 2's output; stage 1
+    writes into the bytes of ``out``); int8: two int8 (B, 1152) planes
+    (x's int8 copy, its rows d_in rounded up to a multiple of 64 bytes apart,
+    then stage 2's output; stage 1's output) and the (3, B / 128) group
+    maxima, each stage's input's."""
     if variant == "bf16":
         return torch.empty(batch, _HID, dtype=torch.bfloat16, device=device), None
-    scratch = torch.empty(2, batch, _HID, dtype=torch.float32, device=device)
     if variant != "int8":
-        return scratch, None
-    return scratch, torch.empty(3, batch // GROUP, dtype=torch.int32, device=device)
+        return torch.empty(2, batch, _HID, dtype=torch.float32, device=device), None
+    return (torch.empty(2, batch, _HID, dtype=torch.int8, device=device),
+            torch.empty(3, batch // GROUP, dtype=torch.int32, device=device))
 
 
-def _chain_cuda(x: torch.Tensor, cw: ChainWeights) -> torch.Tensor:
+def _chain_cuda(x: torch.Tensor, cw: ChainWeights, events=None) -> torch.Tensor:
+    """The chain on the card. ``events`` (int8): a list that takes a CUDA
+    event before each launch and after the last (the launches then go one
+    C call each, :data:`INT8_LAUNCHES`)."""
     from .cuda_lib import launch
+    from .fused import _record
 
     B, d_in = x.shape
     if d_in % 8 or d_in > _HID or any(w.shape[1] != _HID for w in cw.w):
         raise ValueError(f"the chain kernels take d_in <= {_HID} (a multiple of 8) and "
                          f"{_HID}-wide stages, got {[tuple(w.shape) for w in cw.w]}")
+    if events is not None and cw.variant != "int8":
+        raise ValueError("per-launch events are taken for int8 only")
     out = torch.empty(B, _HID, dtype=torch.float32, device=x.device)
     scratch, gmax = _chain_scratch(B, cw.variant, x.device)
     ws = cw.w_t if cw.w_t else cw.w
     consts = tuple(_dequant_const(v) for v in cw.inv) if cw.inv else (0.0, 0.0, 0.0)
-    launch("gfdm_chain", (
-        _VARIANT_IDS[cw.variant], B, d_in, x.data_ptr(), *(w.data_ptr() for w in ws),
-        *(ctypes.c_float(v) for v in consts), out.data_ptr(), scratch.data_ptr(),
-        None if gmax is None else gmax.data_ptr()), x.device)
-    LAUNCHES[f"chain_{cw.variant}"] += _KERNELS[cw.variant]
+    variant, n = _VARIANT_IDS[cw.variant], _KERNELS[cw.variant]
+    args = (B, d_in, x.data_ptr(), *(w.data_ptr() for w in ws),
+            *(ctypes.c_float(v) for v in consts), out.data_ptr(), scratch.data_ptr(),
+            None if gmax is None else gmax.data_ptr())
+    for part in ([-1] if events is None else range(n)):
+        _record(events)
+        launch("gfdm_chain", (variant, part, *args), x.device)
+    _record(events)
+    LAUNCHES[f"chain_{cw.variant}"] += n
     return out
+
+
+def int8_clusters(device) -> dict:
+    """The int8 stage's clusters on ``device`` (a card): how many the card
+    holds at once (``cudaOccupancyMaxActiveClusters``), CTAs a cluster, and
+    dynamic shared memory a CTA in bytes."""
+    from .cuda_lib import library
+
+    lib = library()
+    got = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        rc = lib.gfdm_chain_int8_clusters(got)
+    if rc != 0:
+        raise RuntimeError(f"gfdm_chain_int8_clusters: {lib.gfdm_error_string(rc).decode()} "
+                           f"({rc}): no cluster of the int8 stage fits the card")
+    return {"active_clusters": got[0], "cluster": got[1], "smem_bytes": got[2]}
 
 
 def gemm_chain(x: torch.Tensor, weights: ChainWeights, variant: str | None = None):

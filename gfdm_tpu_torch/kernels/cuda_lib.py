@@ -202,14 +202,18 @@ def library() -> ctypes.CDLL:
     lib.gfdm_rx_estimate_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.gfdm_factored_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.gfdm_factored_plan.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
-    lib.gfdm_chain.argtypes = [ci, ci, ci, vp, vp, vp, vp, cf, cf, cf, vp, vp, vp, vp]
+    lib.gfdm_chain.argtypes = [ci, ci, ci, ci, vp, vp, vp, vp, cf, cf, cf, vp, vp, vp, vp]
+    lib.gfdm_chain_int8_clusters.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.gfdm_peek_error.argtypes = []
+    lib.gfdm_set_device.argtypes = [ci]
     for fn in (lib.gfdm_tx, lib.gfdm_tx_tile, lib.gfdm_link_stage, lib.gfdm_tf32_split,
                lib.gfdm_link_io_size, lib.gfdm_rx_variant, lib.gfdm_struct_sizes,
                lib.gfdm_detect_front, lib.gfdm_detect_lean,
                lib.gfdm_detect_dims_size, lib.gfdm_detect_tile, lib.gfdm_tx_factored,
                lib.gfdm_rx_factored, lib.gfdm_rx_estimate, lib.gfdm_rx_factored_chan,
                lib.gfdm_rx_estimate_tile,
-               lib.gfdm_factored_struct_sizes, lib.gfdm_factored_plan, lib.gfdm_chain):
+               lib.gfdm_factored_struct_sizes, lib.gfdm_factored_plan, lib.gfdm_chain,
+               lib.gfdm_chain_int8_clusters, lib.gfdm_peek_error, lib.gfdm_set_device):
         fn.restype = ctypes.c_int
     lib.gfdm_error_string.argtypes = [ctypes.c_int]
     lib.gfdm_error_string.restype = ctypes.c_char_p

@@ -175,23 +175,28 @@ def test_benchmark_inputs_are_the_scripts_draws():
 
 def test_chip_smoke_counts_the_wrappers_launches():
     """chip_smoke.py's phase 10 expects the launches the wrapper counts for
-    one call (f32 3, bf16 4, int8 4); importing it needs no card."""
+    one call (f32 3, bf16 4, int8 4: x's pass and three stages); importing
+    it needs no card."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     assert smoke.CHAIN_LAUNCHES == chain._KERNELS
     assert chain._KERNELS == {"f32": 3, "bf16": 4, "int8": 4}
+    assert len(chain.INT8_LAUNCHES) == chain._KERNELS["int8"]
 
 
 @pytest.mark.parametrize("variant", chain.VARIANTS)
 def test_cuda_scratch_plan(variant):
-    """What _chain_cuda allocates besides out: f32 and int8 two float32
-    (B, 1152) planes (int8 also the (3, B / 128) int32 group maxima), bf16
-    one bf16 (B, 1152) plane (stage 1 writes into out's bytes)."""
+    """What _chain_cuda allocates besides out: f32 two float32 (B, 1152)
+    planes, bf16 one bf16 (B, 1152) plane (stage 1 writes into out's
+    bytes), int8 two int8 (B, 1152) planes (x's int8 copy, then the stages'
+    int8 outputs) and the (3, B / 128) int32 group maxima."""
     batch = 384
     scratch, gmax = chain._chain_scratch(batch, variant, "cpu")
     if variant == "bf16":
         assert scratch.dtype == torch.bfloat16 and scratch.shape == (batch, 1152)
+    elif variant == "int8":
+        assert scratch.dtype == torch.int8 and scratch.shape == (2, batch, 1152)
     else:
         assert scratch.dtype == torch.float32 and scratch.shape == (2, batch, 1152)
     if variant == "int8":

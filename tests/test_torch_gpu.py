@@ -7,6 +7,8 @@ Imports torch and the port only, so it runs on a machine without JAX:
 Without a CUDA device every test skips. chip_smoke.py runs the same
 comparisons at the main path's full batch.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -923,6 +925,129 @@ def test_chain_kernel_input_widths(variant, d_in):
     x = rng.standard_normal((384, d_in)).astype(np.float32)
     cw = chain.chain_weights_from_numpy(weights, variant).to(dev)
     _chain_check(chain, variant, torch.from_numpy(x).to(dev), cw)
+
+
+# int8 edge groups: a group of zeros (its scale clamps to 1e-20), a group
+# whose stage-1 max sits in the last 192-column tile (the cluster's last
+# rank), one group (one cluster), 65 groups (an odd count, more groups than
+# the clusters the card holds at once, so clusters take several)
+CHAIN_INT8_CASES = {"zero_group": 1024, "max_in_last_tile": 384, "one_cluster": 128,
+                    "odd_groups": 8320}
+
+
+@pytest.mark.parametrize("case", list(CHAIN_INT8_CASES))
+def test_chain_int8_edge_groups(case):
+    """The int8 chain (x's pass, two cluster-epilogue stages, a float32
+    stage) against its plain version, bit for bit, on edge groups; the
+    per-launch calls give the same bits."""
+    from gfdm_tpu_torch.benchmarks.int8_gauss import make_inputs
+    from gfdm_tpu_torch.kernels import chain
+
+    dev = _cuda()
+    batch = CHAIN_INT8_CASES[case]
+    weights, x, _s = make_inputs(batch, 1)
+    x = x * np.repeat(np.resize(np.float32([1.0, 10.0, 0.01]), batch // 128), 128)[:, None]
+    cw = chain.chain_weights_from_numpy(weights, "int8")
+    if case == "zero_group":
+        x[128:256] = 0.0
+    if case == "max_in_last_tile":  # x along W1's column 1151 (int8 weights, rescaled)
+        col = cw.w[0][:, 1151].float().numpy()
+        x[256:384] = 1e-3 * x[256:384] + col / np.abs(col).max()
+    cw = cw.to(dev)
+    xd = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
+    _chain_check(chain, "int8", xd, cw)
+    ref = chain._chain_plain(xd, cw)
+    if case == "max_in_last_tile":
+        a1 = chain._int8_stage(xd[256:384], cw.w[0], cw.inv[0])
+        assert int(a1.abs().amax(dim=0).argmax()) // 192 == 5
+    if case == "zero_group":
+        assert not ref[128:256].any()
+    ev = []
+    got = chain._chain_cuda(xd, cw, events=ev)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert len(ev) == chain._KERNELS["int8"] + 1
+
+
+def _plant_stale_error(lib):
+    """Leave a non-sticky error in the kernel library's own CUDA runtime
+    (cudaSetDevice on an ordinal no card has): the error a launcher reads
+    back with cudaGetLastError unless it cleared it first."""
+    assert lib.gfdm_set_device(999) != 0
+    assert lib.gfdm_peek_error() != 0
+
+
+def _chain_args(chain, cw, x, batch, scratch, gmax):
+    return (batch, x.shape[1], x.data_ptr(), *(w.data_ptr() for w in cw.w_t or cw.w),
+            *(ctypes.c_float(chain._dequant_const(v)) for v in cw.inv or (0.0,) * 3),
+            torch.empty(batch, 1152, device=x.device).data_ptr(), scratch.data_ptr(),
+            None if gmax is None else gmax.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def test_chain_refusal_leaves_no_error_behind():
+    """A call gfdm_chain refuses (a batch that is not a multiple of 128, a
+    launch index past the schedule) after an earlier call left an error
+    returns its own error and leaves none: the runtime's last error is
+    clear after it, and a valid chain right after it, in each mode, runs
+    and holds to the plain version."""
+    from gfdm_tpu_torch.kernels import chain, cuda_lib
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    weights = [rng.standard_normal(s).astype(np.float32) / np.sqrt(s[0])
+               for s in chain.CHAIN_SHAPES]
+    x = torch.from_numpy(rng.standard_normal((256, 936)).astype(np.float32)).to(dev)
+    cws = {v: chain.chain_weights_from_numpy(weights, v).to(dev) for v in chain.VARIANTS}
+    scratch, gmax = chain._chain_scratch(256, "int8", dev)
+    lib = cuda_lib.library()
+    for batch, part in ((100, -1), (256, 4), (256, -2)):
+        for variant in chain.VARIANTS:
+            _plant_stale_error(lib)
+            args = _chain_args(chain, cws["int8"], x, batch, scratch, gmax)
+            assert lib.gfdm_chain(2, part, *args) == 1  # cudaErrorInvalidValue
+            assert lib.gfdm_peek_error() == 0
+            _chain_check(chain, variant, x, cws[variant])
+
+
+def _stale_error_calls(dev):
+    """name -> a call through a launcher's wrapper (a refused launch raises)."""
+    from gfdm_tpu_torch.kernels import chain
+
+    cfg = GfdmConfig()
+    data = _payload(cfg, 90, dev)
+    rng = np.random.default_rng(6)
+    weights = [rng.standard_normal(s).astype(np.float32) / np.sqrt(s[0])
+               for s in chain.CHAIN_SHAPES]
+    x = torch.from_numpy(rng.standard_normal((256, 936)).astype(np.float32)).to(dev)
+    cws = {v: chain.chain_weights_from_numpy(weights, v).to(dev) for v in chain.VARIANTS}
+    return {
+        "tx": lambda: fused.tx_frame_fused(cfg, data),
+        "link": lambda: fused.link_single_fused(cfg, data)[0],
+        "tf32_split": lambda: torch.stack(fused._tf32_split_cuda(x)),
+        **{f"chain_{v}": (lambda v=v: chain.gemm_chain(x, cws[v])) for v in chain.VARIANTS},
+    }
+
+
+@pytest.mark.parametrize("name", ["tx", "link", "tf32_split", "chain_f32", "chain_bf16",
+                                  "chain_int8"])
+def test_launchers_clear_a_stale_error(name):
+    """Each launcher (csrc/tx.cu, link.cu's stage launches and tf32 split,
+    chain.cu) reports its own launch only: with an error left in the
+    runtime before it, the call runs, gives the bits of a clean call, and
+    leaves the runtime's last error clear."""
+    from gfdm_tpu_torch.kernels import cuda_lib
+
+    dev = _cuda()
+    call = _stale_error_calls(dev)[name]
+    lib = cuda_lib.library()
+    clean = call()
+    torch.cuda.synchronize()
+    _plant_stale_error(lib)
+    got = call()
+    torch.cuda.synchronize()
+    assert lib.gfdm_peek_error() == 0
+    assert torch.equal(got, clean)
 
 
 def test_chain_kernel_refuses_other_shapes():
