@@ -136,6 +136,27 @@ Phases, one line each (any failure exits non-zero and prints no result):
              (CUDA events, friendly stream, default DETECT_IMPL), the
              decoder alone and its share, their launches (torch.profiler),
              and StreamingTransmitter.step at 4,096 bursts.
+12. live   - the live-ring modem at the canonical config: 4,096 seeded QPSK
+             bursts, one a 2,048-sample cycle. (a) StreamingTransmitter(
+             batch_bursts=256).serve into a native StreamBuffer holding the
+             whole stream (plus the halo flush), then StreamingReceiver(
+             engine="fused", 256 / 1,024).serve from it under "pallas2",
+             with the launch counters reset just before: all found,
+             start_abs on the cycle grid, every decision right, the Tx,
+             detection and receiver kernels each launched. (b) the same
+             through UdpSink -> UdpIngest on a free loopback port under
+             "pallas", the sender paced on the ring's chunk count (the
+             ingest thread reports its count only at the end), ingested ==
+             sent + halo. (c) push_sc16 against push of the converted
+             samples: equal chunks. (d) runtime.receiver.receive_stream on
+             complex64 over the friendly stream's 4,096 chunks, card against
+             CPU (starts equal, data within 5e-4 on whole bursts), and the
+             simulated link of gfdm_tpu/cli.py's simulate (Tx, shape, the
+             3-tap multipath, AWGN at 15 dB, receive_stream) on the card and
+             the CPU with the same noise: decisions equal. Host wall times of
+             Tx serve, ring push, the sink's push and the pacing waits, ring
+             pull and Rx serve; CUDA-event times of the Tx kernel and the
+             receive steps; the live loop's samples/s and the card's share.
 
 Then a JSON line of per-kernel results (launches on the main paths, error
 against the plain version, kernel, plain and library ms, the bound: the
@@ -264,6 +285,14 @@ N_RAGGED_CDD = 4099
 # estimator="fused" runs at K = 128, where its dense (4K, 2N) E is 4.7 MB
 LARGE_K = ((256, 4096), (512, 4096), (1024, 2048))
 K_FULL, K_ESTIMATOR, B_LARGE_K = 512, 128, 4096
+# phase 12: bursts of the live loop (one a 2,048-sample cycle), the transmit
+# service's batch, the receive service's batch and super-batch, the longest
+# wait for the UDP ingest thread; the complex chain card vs CPU at the CPU
+# parity tests' limits (tests/test_torch_receiver.py); the simulated link of
+# gfdm_tpu/cli.py's simulate
+N_LIVE, LIVE_TX_BATCH, LIVE_RX_BATCH, LIVE_RX_MAX, LIVE_WAIT_S = 4096, 256, 256, 1024, 10.0
+LIVE_TOL = {"data": 5e-4, "snr_rtol": 1e-3}
+SIM_TAPS, SIM_SNR_DB = np.array([1.0, 0.25 + 0.15j, -0.1j]), 15.0
 
 
 def _card_line() -> str:
@@ -1851,6 +1880,291 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
           + check("vs plain", e, TOL["tx"]) + f" bit_equal={e == 0.0} ({card})", flush=True)
 
 
+class _Timed:
+    """A ring or sink whose ``push`` / ``pull`` is timed on the host clock;
+    ``keep`` also keeps every pushed block."""
+
+    def __init__(self, inner, keep: bool = False):
+        self.inner, self.seconds, self.kept = inner, 0.0, [] if keep else None
+
+    def push(self, planar):
+        t0 = time.perf_counter()
+        self.inner.push(planar)
+        self.seconds += time.perf_counter() - t0
+        if self.kept is not None:
+            self.kept.append(planar)
+
+    def pull(self, n: int):
+        t0 = time.perf_counter()
+        got = self.inner.pull(n)
+        self.seconds += time.perf_counter() - t0
+        if self.kept is not None and got[0].shape[0]:
+            self.kept.append(got[0])
+        return got
+
+    @property
+    def dropped(self) -> int:
+        return self.inner.dropped
+
+
+class _PacedUdp:
+    """UdpSink.push in slices of ``slice_samples``; after each slice, wait
+    (up to LIVE_WAIT_S) until the ring's framing shows the ingest thread has
+    pushed all but the last chunk of what was sent. A lost datagram is then
+    a fault, not a race: the socket buffer never holds more than a slice
+    and a chunk. (``UdpIngest.poll`` reports only at the end of the stream,
+    so the ring's chunk count is the progress signal.)"""
+
+    def __init__(self, sink, ring, slice_samples: int):
+        self.sink, self.ring, self.slice = sink, ring, int(slice_samples)
+        self.sent = 0
+        self.push_s = self.wait_s = 0.0
+
+    def push(self, planar):
+        for i in range(0, planar.shape[-1], self.slice):
+            part = planar[:, i : i + self.slice]
+            t0 = time.perf_counter()
+            self.sink.push(part)
+            t1 = time.perf_counter()
+            self.sent += part.shape[-1]
+            need = max(0, (self.sent - self.ring.halo) // self.ring.chunk_len)
+            while self.ring.available_chunks < need:
+                if time.perf_counter() - t1 > LIVE_WAIT_S:
+                    raise RuntimeError(f"UDP ingest stalled: {self.ring.available_chunks} of "
+                                       f"{need} chunks after {self.sent} samples sent")
+                time.sleep(2e-5)
+            self.push_s += t1 - t0
+            self.wait_s += time.perf_counter() - t1
+
+
+def _live_rx(torch, cfg, dev, source):
+    """StreamingReceiver(engine="fused", 256 / 1,024) .serve over ``source``
+    under the caller's DETECT_IMPL: (receiver, sink outputs, wall s)."""
+    from gfdm_tpu_torch.runtime.service import StreamingReceiver
+
+    rx = StreamingReceiver(cfg, chunk_len=CHUNK_LEN, batch_chunks=LIVE_RX_BATCH,
+                           max_batch_chunks=LIVE_RX_MAX, engine="fused", device=dev)
+    outs = []
+    t0 = time.perf_counter()
+    rx.serve(source, outs.append)
+    wall = time.perf_counter() - t0
+    got = {k: np.concatenate([o[k] for o in outs]) for k in ("found", "start_abs", "data")}
+    return rx, got, wall
+
+
+def _live_checks(cfg, label, got, payload, cycle, launches, detect_key, check) -> str:
+    """4,096 of 4,096 found on the cycle grid, every decision right, each
+    kernel of the loop launched (tests/test_transmit_service.py:94-101)."""
+    f = got["found"]
+    order = np.argsort(got["start_abs"][f])
+    n = int(f.sum())
+    grid = np.arange(N_LIVE) * cycle + cfg.cp_len
+    starts_off = (N_LIVE if n != N_LIVE
+                  else int(np.count_nonzero(got["start_abs"][f][order] != grid)))
+    wrong = (payload.size if n != N_LIVE else
+             int(np.count_nonzero(np.sign(got["data"][f][order]) != np.sign(payload))))
+    parts = [f"found={n}/{N_LIVE}", check(f"{label}:missed", float(N_LIVE - n), 0.0),
+             check(f"{label}:starts_off_grid", float(starts_off), 0.0),
+             check(f"{label}:wrong_decisions", float(wrong), 0.0)]
+    for key in ("tx", detect_key, "rx"):
+        parts.append(check(f"{label}:no_{key}_launch", float(launches[key] < 1), 0.0))
+    return " ".join(parts) + f" launches={ {k: launches[k] for k in ('tx', detect_key, 'rx')} }"
+
+
+def _live_device_ms(torch, tx, rx, payload_dev, chunks):
+    """CUDA-event ms of the loop's device work, (Tx, receive, busy): the Tx
+    kernel over every batch, the receive step over every super-batch (one
+    timed, scaled), and one step's device busy ms with its receiver part."""
+    tx_ms = _time_ms(torch, lambda: tx._tx(payload_dev)) * (N_LIVE // LIVE_TX_BATCH)
+    t = torch.from_numpy(chunks).to(rx.device)
+    rx_ms = _time_ms(torch, lambda: rx._step(t)) * (N_LIVE / chunks.shape[0])
+    busy = _device_busy(torch, lambda: rx._step(t))
+    return tx_ms, rx_ms, busy
+
+
+def _live_phase(torch, cfg, dev, streams, card, check, failures):
+    """Phase 12: the live-ring modem and the complex chain (see the module
+    docstring)."""
+    from gfdm_tpu_torch import native
+    from gfdm_tpu_torch.entry import planar_payload
+    from gfdm_tpu_torch.ops import planar_pipeline as pp
+    from gfdm_tpu_torch.runtime import channel, receiver, transmitter
+    from gfdm_tpu_torch.runtime.transmit_service import StreamingTransmitter, UdpSink
+
+    torch.cuda.empty_cache()
+    halo = cfg.frame_len + cfg.cp_len
+    payload = planar_payload(cfg, N_LIVE, seed=12)
+    samples = N_LIVE * CHUNK_LEN
+    capacity = samples + halo + CHUNK_LEN
+
+    def batches():
+        it = iter(range(0, N_LIVE, LIVE_TX_BATCH))
+        return lambda: None if (i := next(it, None)) is None else payload[i : i + LIVE_TX_BATCH]
+
+    # (a) the ring loopback, under "pallas2"
+    ring = native.StreamBuffer(capacity=capacity, chunk_len=CHUNK_LEN, halo=halo)
+    tx = StreamingTransmitter(cfg, batch_bursts=LIVE_TX_BATCH, device=dev)
+    push = _Timed(ring, keep=True)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tx.serve(batches(), push)
+    push.push(np.zeros((2, halo), np.float32))  # flush the tail chunk
+    tx_wall = time.perf_counter() - t0
+    pull = _Timed(ring, keep=True)
+    default_impl = pp.DETECT_IMPL
+    pp.DETECT_IMPL = "pallas2"
+    rx, got, rx_wall = _live_rx(torch, cfg, dev, pull)
+    launches = _launches()
+    line = _live_checks(cfg, "ring", got, payload, tx.cycle_samples, launches, "detect_lean",
+                        check)
+    if tx.cycle_samples != CHUNK_LEN or rx.stats.dropped_ring:
+        failures.append(f"ring loopback: cycle {tx.cycle_samples}, dropped {rx.stats.dropped_ring}")
+    print(f"[12 live] ring loopback B={N_LIVE} DETECT_IMPL=pallas2 {line} "
+          f"dropped={rx.stats.dropped_ring}", flush=True)
+    tx_ms, rx_ms, busy = _live_device_ms(torch, tx, rx, torch.from_numpy(
+        payload[:LIVE_TX_BATCH]).to(dev), pull.kept[0])
+    pp.DETECT_IMPL = default_impl
+    loop_s = tx_wall + rx_wall
+    print(f"[12 time] ring loopback wall: Tx serve {tx_wall * 1e3:.1f} ms (of it the ring "
+          f"push {push.seconds * 1e3:.1f}), Rx serve {rx_wall * 1e3:.1f} ms (of it the ring "
+          f"pull {pull.seconds * 1e3:.1f}); live loop {samples / loop_s:.4e} samples/s; card: "
+          f"Tx kernel {tx_ms:.3f} ms, receive steps {rx_ms:.3f} ms (CUDA events, "
+          f"{N_LIVE // LIVE_RX_MAX} steps of {LIVE_RX_MAX} chunks), "
+          + ("device busy not measured" if busy is None else
+             f"a step's device busy {busy[0]:.3f} ms, receiver kernels {busy[1]:.3f}")
+          + f"; card share of the loop {(tx_ms + rx_ms) / (loop_s * 1e3):.2%} ({card})",
+          flush=True)
+    stream_blocks = push.kept
+    del pull, rx, got
+
+    # (c) push_sc16 into a ring against push of the converted samples
+    raw = native.planar_to_sc16(np.concatenate(stream_blocks, axis=-1))
+    rings = [native.StreamBuffer(capacity=capacity, chunk_len=CHUNK_LEN, halo=halo)
+             for _ in range(2)]
+    t0 = time.perf_counter()
+    rings[0].push_sc16(raw)
+    t1 = time.perf_counter()
+    rings[1].push(native.sc16_to_planar(raw))
+    t2 = time.perf_counter()
+    (c0, b0), (c1, b1) = rings[0].pull(N_LIVE), rings[1].pull(N_LIVE)
+    differ = float(np.count_nonzero(c0 != c1)) + float(b0 != b1) + abs(c0.shape[0] - N_LIVE)
+    print(f"[12 check] push_sc16 vs push(sc16_to_planar) over {raw.size // 2} samples: "
+          f"chunks={c0.shape[0]} " + check("values_differing", differ, 0.0)
+          + f"; push_sc16 {(t1 - t0) * 1e3:.1f} ms, convert + push {(t2 - t1) * 1e3:.1f} ms "
+          f"(host, {card})", flush=True)
+    del raw, rings, c0, c1, stream_blocks
+
+    # (b) the UDP loopback over a real socket, under "pallas"
+    ring = native.StreamBuffer(capacity=capacity, chunk_len=CHUNK_LEN, halo=halo)
+    ing = _udp_ingest(native, ring)
+    try:
+        with open("/proc/sys/net/core/rmem_default") as f:
+            rmem = int(f.read())
+    except OSError:
+        rmem = 212992  # Linux's default
+    spd = 4096
+    slice_samples = spd * max(1, min(8, rmem // (8 * spd) - 1))
+    tx = StreamingTransmitter(cfg, batch_bursts=LIVE_TX_BATCH, scale=0.5, device=dev)
+    sink = UdpSink(ing.port, samples_per_datagram=spd)
+    paced = _PacedUdp(sink, ring, slice_samples)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tx.serve(batches(), paced)
+    paced.push(np.zeros((2, halo), np.float32))
+    sink.close()
+    deadline = time.perf_counter() + LIVE_WAIT_S
+    while ing.running and time.perf_counter() < deadline:
+        time.sleep(1e-4)
+    if ing.running:  # the end-of-stream datagram was lost: end the thread
+        failures.append("UDP ingest never saw the end-of-stream datagram")
+        ing.stop()
+    ingested = ing.finish()
+    tx_wall = time.perf_counter() - t0
+    pull = _Timed(ring)
+    pp.DETECT_IMPL = "pallas"
+    rx, got, rx_wall = _live_rx(torch, cfg, dev, pull)
+    pp.DETECT_IMPL = default_impl
+    launches = _launches()
+    line = _live_checks(cfg, "udp", got, payload, tx.cycle_samples, launches, "detect_front",
+                        check)
+    print(f"[12 live] UDP loopback B={N_LIVE} DETECT_IMPL=pallas {line} "
+          + check("udp:ingested-(sent+halo)", abs(ingested - (tx.stats.samples + halo)), 0.0)
+          + f" ingested={ingested} datagrams={sink.datagrams_sent} "
+          f"slice={slice_samples} rmem_default={rmem} dropped={rx.stats.dropped_ring}",
+          flush=True)
+    if rx.stats.dropped_ring:
+        failures.append(f"UDP loopback: dropped {rx.stats.dropped_ring}")
+    loop_s = tx_wall + rx_wall
+    print(f"[12 time] UDP loopback wall: Tx serve + ingest {tx_wall * 1e3:.1f} ms (of it the "
+          f"sink's push, sc16 conversion + sendto, {paced.push_s * 1e3:.1f}, pacing waits on "
+          f"the ingest thread {paced.wait_s * 1e3:.1f}), Rx serve {rx_wall * 1e3:.1f} ms (of "
+          f"it the ring pull {pull.seconds * 1e3:.1f}); live loop {samples / loop_s:.4e} "
+          f"samples/s ({card})", flush=True)
+    del pull, rx, got, ring
+
+    # (d) the complex chain on the card against the same call on the CPU
+    x = streams["friendly"][0]
+    s = (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
+    s_dev = torch.from_numpy(s).to(dev)
+    card_out = receiver.receive_stream(cfg, s_dev)
+    cuda_ms = _time_ms(torch, lambda: receiver.receive_stream(cfg, s_dev), iters=3)
+    t0 = time.perf_counter()
+    cpu_out = receiver.receive_stream(cfg, s, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    start_g = card_out["detection"]["start"].cpu().numpy()
+    start_c = cpu_out["detection"]["start"].numpy()
+    whole = start_c - cfg.cp_len + cfg.frame_len <= s.shape[-1]  # the burst whole in its chunk
+    e_data = float(np.abs(card_out["data"].cpu().numpy()[whole] - cpu_out["data"].numpy()[whole]).max())
+    e_snr = float(np.max(np.abs(card_out["snr_lin"].cpu().numpy()[whole] / cpu_out["snr_lin"].numpy()[whole] - 1)))
+    print(f"[12 chain] receive_stream complex64 B={N_LIVE} T={s.shape[-1]} card vs CPU: "
+          + check("starts_differing", float(np.count_nonzero(start_g != start_c)), 0.0) + " "
+          + check(f"data[{int(whole.sum())} whole bursts]", e_data, LIVE_TOL["data"]) + " "
+          + check("snr_rel", e_snr, LIVE_TOL["snr_rtol"])
+          + f"; card {cuda_ms:.3f} ms (CUDA events), CPU {cpu_s * 1e3:.1f} ms ({card})",
+          flush=True)
+    del s_dev, card_out, cpu_out
+
+    # ... and the simulated link of gfdm_tpu/cli.py:394-457: Tx -> shape ->
+    # multipath -> AWGN at 15 dB -> receive_stream, the same noise and taps
+    rng = np.random.default_rng(13)
+    sym = ((rng.integers(0, 2, (N_LIVE, cfg.n_data_symbols)) * 2 - 1)
+           + 1j * (rng.integers(0, 2, (N_LIVE, cfg.n_data_symbols)) * 2 - 1)) / np.sqrt(2.0)
+    unit = torch.from_numpy((rng.standard_normal((N_LIVE, cfg.padded_frame_len))
+                             + 1j * rng.standard_normal((N_LIVE, cfg.padded_frame_len))
+                             ).astype(np.complex64))
+    decisions, errors = {}, {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        b = transmitter.transmit_bursts(cfg, sym, device=where)[:, 0]
+        rxs = channel.awgn(unit, channel.multipath(transmitter.shape_bursts(cfg, b), SIM_TAPS),
+                           SIM_SNR_DB)
+        d = receiver.receive_stream(cfg, rxs)["data"].cpu().numpy()
+        decisions[key] = np.sign(d.real) + 1j * np.sign(d.imag)
+        errors[key] = int(np.count_nonzero(
+            decisions[key] != np.sign(sym.real) + 1j * np.sign(sym.imag)))
+    differ = float(np.count_nonzero(decisions["card"] != decisions["cpu"]))
+    print(f"[12 chain] simulate B={N_LIVE} multipath {SIM_TAPS.tolist()} AWGN {SIM_SNR_DB} dB: "
+          + check("decisions_differing_card_vs_cpu", differ, 0.0)
+          + f" symbol errors card={errors['card']} cpu={errors['cpu']} of "
+          f"{sym.size} ({card})", flush=True)
+
+
+def _udp_ingest(native, ring, tries: int = 20):
+    """native.UdpIngest on a free loopback port (the OS picks it)."""
+    import socket
+
+    for _ in range(tries):
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        try:
+            return native.UdpIngest(port, ring)
+        except OSError:
+            continue
+    raise OSError(f"no free UDP port in {tries} tries")
+
+
 def main() -> int:
     import torch
 
@@ -2090,6 +2404,9 @@ def main() -> int:
 
     # 11. the coded modem through the transmit and receive services
     _coded_phase(torch, cfg, dev, streams, card, check, failures)
+
+    # 12. the live-ring modem over the ring and a real socket, the complex chain
+    _live_phase(torch, cfg, dev, streams, card, check, failures)
 
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -7,7 +7,9 @@ counterpart of the same name:
 - :mod:`.config` - :class:`GfdmConfig` (NumPy float64 host constants);
 - :mod:`.ref` - the NumPy golden-model modules the operators need;
 - :mod:`.ops` - operators (NumPy), planar primitives, the planar link and
-  the detection/extraction path as plain torch ops;
+  the detection/extraction path as plain torch ops, and the complex-dtype
+  ops (Tx, estimation, receiver, detection, extraction) on complex64
+  tensors;
 - :mod:`.kernels` - a counterpart of every Pallas kernel of the reference:
   the fused Tx (one port or every CDD port), the receiver with every option,
   the one-kernel link, the superseded receivers, the large-K factored
@@ -16,10 +18,15 @@ counterpart of the same name:
   its plain torch version;
 - :mod:`.runtime` - chunked streams, the streaming receive service (with
   the coded modem, ``fec="conv"``), the streaming transmit service on the
-  Tx kernel and the burst scheduler;
+  Tx kernel with its UDP sink, the burst scheduler, the complex-dtype
+  transmitter / receiver chain and the channel simulation;
+- :mod:`.native` - the host runtime over ``csrc/gfdm_host.cpp`` (built with
+  g++ at first use): sc16 converters, the stream ring and its file / UDP
+  ingest threads;
 - :mod:`.coding`, :mod:`.ops.softbits`, :mod:`.cli`, :mod:`.utils.framing`
   - the rate-1/2 K=7 code with its Viterbi decoder (torch ops), max-log
-  soft bits, and the CRC-32 payload framing;
+  soft bits, and the CRC-32 payload framing; :mod:`.utils.converter` - sc16
+  <-> complex in NumPy;
 - :mod:`.eval` - the coded service's sensitivity sweep;
 - :mod:`.device` - where an entry point runs: the card unless the caller
   passes ``device="cpu"``;

@@ -27,6 +27,11 @@ __all__ = [
     "pconj",
     "pdiv",
     "pabs2",
+    "re",
+    "im",
+    "pangle",
+    "pexp_i",
+    "pscale_real",
 ]
 
 
@@ -94,6 +99,14 @@ def bf16_operator(a: np.ndarray) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # tensor primitives (operate on tensors shaped (..., 2, n))
 # ---------------------------------------------------------------------------
+def re(x):
+    return x[..., 0, :]
+
+
+def im(x):
+    return x[..., 1, :]
+
+
 def _pack(r, i):
     return torch.stack([r, i], dim=-2)
 
@@ -138,3 +151,17 @@ def pdiv(a, b, eps: float = 0.0):
         d = torch.clamp(d, min=eps)
     num = pmul(a, pconj(b))
     return _pack(num[..., 0, :] / d, num[..., 1, :] / d)
+
+
+def pangle(a):
+    return torch.atan2(im(a), re(a))
+
+
+def pexp_i(phase):
+    """e^{j phase} as a planar tensor (phase real, shape (..., n))."""
+    return _pack(torch.cos(phase), torch.sin(phase))
+
+
+def pscale_real(a, s):
+    """Multiply by a real scalar/array broadcast over both planes."""
+    return a * s[..., None, :] if hasattr(s, "ndim") and s.ndim == a.ndim - 1 else a * s

@@ -2,7 +2,7 @@
 
 The port of ``gfdm_tpu.runtime.service`` for one card. Radio front-ends or
 file readers feed a ring of halo-extended chunks (the framework-free native
-``StreamBuffer`` of ``gfdm_tpu.native`` fits: anything with ``.pull(n)``);
+``StreamBuffer`` of the port's ``native`` fits: anything with ``.pull(n)``);
 the service copies each batch to the device, runs detection, extraction,
 two-stage CFO and the receiver, and hands payloads and metrics to a sink.
 The GNU Radio analogue is the running flowgraph's scheduler loop

@@ -10,8 +10,9 @@ scheduler threads, and the service assembles the timed burst train into a
 continuous planar sample stream that any sink consumes. Burst timing comes
 from runtime.timing.BurstScheduler, the cycle-grid quantization of the
 reference's timed-Tx path (gr-gfdm/lib/short_burst_shaper_impl.cc:184-233).
-The UDP sink needs the native sc16 converters and waits for ROADMAP.md
-Queue 1 item 6.
+:class:`UdpSink` sends the stream as sc16 datagrams, the wire format the
+native ``UdpIngest`` receives: StreamingTransmitter -> UdpSink -> UdpIngest
+-> StreamBuffer -> StreamingReceiver is the modem over a real socket.
 """
 from __future__ import annotations
 
@@ -23,7 +24,60 @@ import torch
 from ..config import GfdmConfig
 from ..device import resolve_device
 
-__all__ = ["TxStats", "StreamingTransmitter"]
+__all__ = ["TxStats", "StreamingTransmitter", "UdpSink"]
+
+
+class UdpSink:
+    """Datagram sc16 IQ sender: the uhd_usrp_sink analogue over UDP.
+
+    Accepts (2, n) planar float32 sample blocks through ``push`` (the
+    StreamingTransmitter sink contract), converts them to interleaved sc16
+    with the native converter (times ``gain``) and sends them as datagrams
+    of at most ``samples_per_datagram`` samples to ``host:port``, the format
+    ``native.UdpIngest`` ingests (the software analogue of the reference's
+    USRP OTA loop, gr-gfdm/examples/gfdm_ota_demo.grc). ``close()`` sends the
+    zero-length end-of-stream datagram UdpIngest understands.
+    """
+
+    def __init__(self, port: int, host: str = "127.0.0.1",
+                 samples_per_datagram: int = 4096, gain: float = 1.0):
+        import socket
+
+        from ..native import SC16_SCALE
+
+        self.addr = (host, int(port))
+        self.samples_per_datagram = int(samples_per_datagram)
+        self.gain = float(gain)
+        self.scale = SC16_SCALE
+        self.samples_sent = 0
+        self.datagrams_sent = 0
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+
+    def push(self, planar: np.ndarray) -> None:
+        """Send a (2, n) planar float32 block as sc16 datagrams."""
+        from ..native import planar_to_sc16
+
+        if self._sock is None:
+            raise RuntimeError("UdpSink is closed")
+        planar = np.ascontiguousarray(planar, np.float32)
+        if self.gain != 1.0:
+            planar = planar * np.float32(self.gain)
+        raw = planar_to_sc16(planar, self.scale)
+        step = 2 * self.samples_per_datagram
+        for i in range(0, raw.size, step):
+            self._sock.sendto(raw[i : i + step].tobytes(), self.addr)
+            self.datagrams_sent += 1
+        self.samples_sent += planar.shape[-1]
+
+    def close(self, end_of_stream: bool = True) -> None:
+        """Send the end-of-stream datagram (unless told not to) and close."""
+        if self._sock is not None:
+            try:
+                if end_of_stream:
+                    self._sock.sendto(b"", self.addr)
+            finally:
+                self._sock.close()
+                self._sock = None
 
 
 @dataclass

@@ -48,7 +48,12 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "gfdm_tpu_torch.runtime.stream, gfdm_tpu_torch.runtime.service, "
         "gfdm_tpu_torch.device, gfdm_tpu_torch.utils.framing, gfdm_tpu_torch.coding, "
         "gfdm_tpu_torch.ops.softbits, gfdm_tpu_torch.cli, gfdm_tpu_torch.runtime.timing, "
-        "gfdm_tpu_torch.runtime.transmit_service, gfdm_tpu_torch.eval.sensitivity, sys; "
+        "gfdm_tpu_torch.runtime.transmit_service, gfdm_tpu_torch.eval.sensitivity, "
+        "gfdm_tpu_torch.native, gfdm_tpu_torch.utils.converter, gfdm_tpu_torch.runtime.channel, "
+        "gfdm_tpu_torch.runtime.transmitter, gfdm_tpu_torch.runtime.receiver, "
+        "gfdm_tpu_torch.ops.tx, gfdm_tpu_torch.ops.estimation, gfdm_tpu_torch.ops.burst, "
+        "gfdm_tpu_torch.ops._validate, gfdm_tpu_torch.ops._complex, sys; "
+        "gfdm_tpu_torch.native.available(); "
         "assert 'jax' not in sys.modules and 'gfdm_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'gfdm_tpu.')))"
     )
@@ -56,6 +61,25 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_live_chain_without_a_device_never_falls_back_to_the_cpu(monkeypatch):
+    """Given no device and no card, the transmit and receive services and
+    the complex chain's entry points raise, naming device='cpu'."""
+    from gfdm_tpu_torch.runtime import receiver, stream, transmitter
+    from gfdm_tpu_torch.runtime.service import StreamingReceiver
+    from gfdm_tpu_torch.runtime.transmit_service import StreamingTransmitter
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GfdmConfig()
+    chunks = np.zeros((2, 2048), np.complex64)
+    for call in (lambda: StreamingTransmitter(cfg), lambda: StreamingReceiver(cfg),
+                 lambda: receiver.receive_stream(cfg, chunks),
+                 lambda: receiver.receive_bursts(cfg, chunks[:, : cfg.frame_len]),
+                 lambda: transmitter.transmit_bursts(cfg, chunks[:, : cfg.n_data_symbols]),
+                 lambda: stream.receive_long_stream(cfg, chunks.reshape(-1))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 @pytest.mark.parametrize("K", [256, 512, 1024])
