@@ -157,6 +157,36 @@ Phases, one line each (any failure exits non-zero and prints no result):
              Tx serve, ring push, the sink's push and the pacing waits, ring
              pull and Rx serve; CUDA-event times of the Tx kernel and the
              receive steps; the live loop's samples/s and the card's share.
+13. app    - the application layer at the canonical config. (a) a seeded 1
+             MiB payload through `python -m gfdm_tpu_torch tx` then `rx`,
+             each a process on the card: QPSK in a cf32 file (9,280
+             bursts), qam16 with --fec conv in an sc16 file (9,363 bursts):
+             both exit 0, every burst CRC-clean, the payload back
+             byte-equal; the host wall of each command and the card time
+             of rx_file's receive_stream on the capture (CUDA events). (b)
+             `rx --udp-port` on a free loopback port fed the QPSK capture
+             as sc16 datagrams by UdpSink (paced), then the empty datagram:
+             the payload back byte-equal. (c) cli.simulate at 4,096 bursts
+             at the JAX tests' settings: 20 dB every burst clean, the
+             estimate tracking the nominal SNR dB for dB (12 dB), the coded
+             link at 4 dB through the multipath CRC-clean on at least 0.9 of
+             the bursts, the uncoded one on less than half. (d)
+             eval.ber_sweep at examples/ber_sweep.py's grids (qpsk, qam16,
+             qam64) at 4,096 bursts a point, and at 1,024 card against CPU
+             on the same generator (bit errors within max(2, 1e-4 x bits),
+             EVM 1e-4 relative); the card time of one point. (e)
+             eval.coded.coded_vs_uncoded at examples/coded_link.py's points:
+             coded BER <= uncoded from 3 dB up; a coded point's card time
+             and its decoder's share. (f) the block flowgraph (mapper,
+             transmitter, sync + extraction, estimator, receiver, demapper)
+             card against CPU (Tx 2e-5, data 5e-4, starts equal, every
+             decision right). (g) the legacy modulator on 4,096 grids, card
+             against CPU and against a float64 product, 2e-5 of the largest
+             output. (h) eval.spectrum.spectrum_study(4,096 bursts), card
+             against CPU within 1e-6 relative, OOB ordered gfdm_frame >
+             gfdm_core > ofdm. With the launch counters reset before (c) and
+             read after (h): the application layer runs the complex chain
+             and the planar torch-op link, no kernel of the port.
 
 Then a JSON line of per-kernel results (launches on the main paths, error
 against the plain version, kernel, plain and library ms, the bound: the
@@ -293,6 +323,15 @@ K_FULL, K_ESTIMATOR, B_LARGE_K = 512, 128, 4096
 N_LIVE, LIVE_TX_BATCH, LIVE_RX_BATCH, LIVE_RX_MAX, LIVE_WAIT_S = 4096, 256, 256, 1024, 10.0
 LIVE_TOL = {"data": 5e-4, "snr_rtol": 1e-3}
 SIM_TAPS, SIM_SNR_DB = np.array([1.0, 0.25 + 0.15j, -0.1j]), 15.0
+# phase 13: a 1 MiB payload through the CLI; simulate, the sweeps, the block
+# flowgraph, the legacy modulator and the spectrum study at 4,096 bursts; the
+# sweeps card vs CPU at 1,024 bursts a point; the coded simulate at 4 dB held
+# to the CRC share the JAX package's sensitivity test holds at 4 dB
+APP_PAYLOAD, APP_SEED, APP_BURSTS, APP_BER_CMP = 1 << 20, 18, 4096, 1024
+APP_CODED_CRC_MIN, APP_OFFSET, APP_CLI_TIMEOUT_S = 0.9, 300, 120.0
+# the sender's pace: at 8e6 samples/s, eight datagrams at a time, the ingest
+# thread lost 8 of 4,640 datagrams to the socket's default buffer
+APP_UDP_DATAGRAM, APP_UDP_RATE = 4096, 4e6  # samples a datagram, samples/s sent
 
 
 def _card_line() -> str:
@@ -2150,16 +2189,342 @@ def _live_phase(torch, cfg, dev, streams, card, check, failures):
           f"{sym.size} ({card})", flush=True)
 
 
-def _udp_ingest(native, ring, tries: int = 20):
-    """native.UdpIngest on a free loopback port (the OS picks it)."""
+def _cli_cmd(args: list) -> list:
+    """The command line of ``python -m gfdm_tpu_torch <args>`` (the card)."""
+    return [sys.executable, "-m", "gfdm_tpu_torch", *args]
+
+
+def _last_json(text: str):
+    """The last line of ``text`` that is a JSON object, or None."""
+    for ln in reversed(text.strip().splitlines()):
+        if ln.startswith("{"):
+            return json.loads(ln)
+    return None
+
+
+def _run_cli(args: list, cwd) -> tuple:
+    """``python -m gfdm_tpu_torch <args>``: (exit code, the last JSON line
+    of its stderr or None, host wall s, stderr)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(_cli_cmd(args), cwd=cwd, capture_output=True, text=True,
+                          timeout=APP_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    return proc.returncode, _last_json(proc.stderr), wall, proc.stderr
+
+
+def _send_sc16_when_bound(port: int, planar: np.ndarray, rate: float) -> tuple:
+    """Wait until a receiver is bound to udp:``port`` (a connected socket
+    sees ECONNREFUSED while nothing listens; 2-byte probes are below one
+    sc16 sample and dropped), then send ``planar`` through UdpSink at about
+    ``rate`` samples/s (the loopback socket keeps its default buffer) and
+    the empty end-of-stream datagram: (seconds sent, datagrams)."""
     import socket
 
+    from gfdm_tpu_torch.runtime.transmit_service import UdpSink
+
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.connect(("127.0.0.1", port))
+    deadline = time.monotonic() + APP_CLI_TIMEOUT_S
+    try:
+        while True:
+            try:
+                for _ in range(3):
+                    probe.send(b"\x00\x00")
+                    time.sleep(0.05)
+                break
+            except ConnectionRefusedError:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"nothing bound udp:{port} in {APP_CLI_TIMEOUT_S} s")
+                time.sleep(0.05)
+    finally:
+        probe.close()
+    sink = UdpSink(port, samples_per_datagram=APP_UDP_DATAGRAM)
+    step = APP_UDP_DATAGRAM  # one datagram, then wait for its turn
+    t0 = time.perf_counter()
+    for i in range(0, planar.shape[-1], step):
+        sink.push(planar[:, i : i + step])
+        wait = t0 + (i + step) / rate - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+    sent = time.perf_counter() - t0
+    sink.close()
+    return sent, sink.datagrams_sent
+
+
+def _app_cli(torch, cfg, dev, work, card, check, failures) -> None:
+    """Phase 13 (a) and (b): tx -> rx through files and rx over UDP, each
+    command a ``python -m gfdm_tpu_torch`` process on the card."""
+    from gfdm_tpu_torch import cli
+    from gfdm_tpu_torch.runtime.receiver import receive_stream
+
+    root = str(work.parent.parent)
+    payload = np.random.default_rng(APP_SEED).integers(0, 256, APP_PAYLOAD,
+                                                       dtype=np.uint8).tobytes()
+    pin = work / "payload.bin"
+    pin.write_bytes(payload)
+    for name, fmt, constellation, fec in (("qpsk", "cf32", "qpsk", "none"),
+                                          ("qam16+conv", "sc16", "qam16", "conv")):
+        flags = ["--constellation", constellation, "--fec", fec, "--iq-format", fmt]
+        iq, out = work / f"{name}.{fmt}", work / f"{name}.out"
+        rc_t, tx_stats, tx_wall, err_t = _run_cli(
+            ["tx", "--infile", str(pin), "--outfile", str(iq)] + flags, root)
+        rc_r, rx_stats, rx_wall, err_r = _run_cli(
+            ["rx", "--infile", str(iq), "--outfile", str(out)] + flags, root)
+        if rc_t or rc_r or rx_stats is None:
+            failures.append(f"cli {name}: tx rc {rc_t}, rx rc {rc_r}: {err_t[-400:]} "
+                            f"{err_r[-400:]}")
+            continue
+        got = out.read_bytes()
+        cap = cli.burst_capacity_bytes(cfg, cli._constellation(constellation)[1], fec)
+        bursts = -(-APP_PAYLOAD // cap)
+        equal = got[:APP_PAYLOAD] == payload and len(got) == bursts * cap
+        if not equal:
+            failures.append(f"cli {name}: the payload did not come back byte-equal")
+        # the card time of rx_file's receive_stream on the same capture
+        stream = cli._read_iq(str(iq), fmt)
+        chunk = cfg.padded_frame_len
+        s_dev = torch.from_numpy(stream[: stream.size // chunk * chunk].reshape(-1, chunk)
+                                 ).to(dev)
+        pts = cli._constellation(constellation)[0]
+        ic = cli.default_ic_iterations(constellation)
+        rs_ms = _time_ms(torch, lambda: receive_stream(cfg, s_dev, ic_iterations=ic,
+                                                       constellation=pts), iters=3)
+        print(f"[13 cli] {name} {fmt} payload={APP_PAYLOAD} B bursts={rx_stats['bursts']} "
+              f"(framed {bursts}) samples={stream.size} payload_equal={equal} "
+              + check(f"{name}:bursts-crc_ok", rx_stats["bursts"] - rx_stats["crc_ok"], 0.0)
+              + " " + check(f"{name}:bursts-framed", abs(rx_stats["bursts"] - bursts), 0.0)
+              + f" snr_db_mean={rx_stats['snr_db_mean']}; host wall tx {tx_wall:.2f} s, "
+              f"rx {rx_wall:.2f} s; card: rx_file's receive_stream {rs_ms:.3f} ms (CUDA "
+              f"events, {s_dev.shape[0]} chunks) ({card})", flush=True)
+        del s_dev, stream
+
+    # (b) rx --udp-port fed the QPSK capture as sc16 datagrams
+    stream = cli._read_iq(str(work / "qpsk.cf32"), "cf32")
+    planar = np.stack([stream.real, stream.imag]).astype(np.float32)
+    port = _free_udp_port()
+    out = work / "udp.out"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        _cli_cmd(["rx", "--udp-port", str(port), "--udp-timeout", str(APP_CLI_TIMEOUT_S),
+                  "--outfile", str(out)]),
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        sent_s, datagrams = _send_sc16_when_bound(port, planar, APP_UDP_RATE)
+        _, err = proc.communicate(timeout=APP_CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    stats = _last_json(err)
+    captured = [int(w) for ln in err.splitlines() if ln.startswith("captured ")
+                for w in ln.split()[1:2]]
+    equal = out.exists() and out.read_bytes()[:APP_PAYLOAD] == payload
+    if proc.returncode or not equal:
+        failures.append(f"cli rx --udp-port: rc {proc.returncode}, payload_equal={equal}: "
+                        f"{err[-400:]}")
+    print(f"[13 cli] rx --udp-port: {planar.shape[-1]} samples in {datagrams} sc16 "
+          f"datagrams over {sent_s:.2f} s, captured={captured} payload_equal={equal} "
+          f"rc={proc.returncode} stats={stats}; host wall {wall:.2f} s ({card})", flush=True)
+
+
+def _free_udp_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _app_phase(torch, cfg, dev, card, check, failures):
+    """Phase 13: the application layer (see the module docstring)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from gfdm_tpu_torch import blocks, cli
+    from gfdm_tpu_torch.eval import ber, coded, spectrum
+    from gfdm_tpu_torch.ops import legacy
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_app_", dir=root / "build"))
+    try:
+        _app_cli(torch, cfg, dev, work, card, check, failures)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _reset_launches()
+
+    # (c) simulate at tests/test_cli.py's settings, 4,096 bursts
+    sims = {}
+    for key, kw in (("20dB", dict(snr_db=20.0, ic_iterations=2, seed=1)),
+                    ("12dB", dict(snr_db=12.0, ic_iterations=2, seed=1)),
+                    ("4dB_conv", dict(snr_db=4.0, fec="conv", seed=3)),
+                    ("4dB", dict(snr_db=4.0, seed=3))):
+        t0 = time.perf_counter()
+        sims[key] = cli.simulate(cfg, n_bursts=APP_BURSTS, device=dev, **kw)
+        sims[key]["host_s"] = round(time.perf_counter() - t0, 3)
+    n = APP_BURSTS
+    print(f"[13 simulate] B={n} multipath {cli.SIM_TAPS.tolist()}: "
+          + check("20dB:bursts-crc_ok", n - sims["20dB"]["crc_ok"], 0.0) + " "
+          + check("20dB:payload_not_intact", float(not sims["20dB"]["payload_intact"]), 0.0)
+          + " " + check("|est_20-est_12-8|", abs(sims["20dB"]["snr_db_est"]
+                                                   - sims["12dB"]["snr_db_est"] - 8.0), 1.0)
+          + " " + check("4dB_conv:1-crc_share", 1 - sims["4dB_conv"]["crc_ok"] / n,
+                        1 - APP_CODED_CRC_MIN)
+          + " " + check("4dB_uncoded:crc_ok", sims["4dB"]["crc_ok"], n // 2 - 1)
+          + f" | {json.dumps(sims)} ({card})", flush=True)
+    if sims["4dB_conv"]["residual_bit_errors"]:
+        failures.append("simulate 4 dB conv: a CRC-clean burst carried bit errors")
+
+    # (d) ber_sweep at examples/ber_sweep.py's grids
+    sweeps = [("qpsk", np.arange(0, 22, 3, dtype=float), 2),
+              ("qam16", np.arange(6, 28, 3, dtype=float), 2),
+              ("qam64", np.arange(12, 34, 3, dtype=float), 4)]
+    for name, snrs, ic in sweeps:
+        t0 = time.perf_counter()
+        res = ber.ber_sweep(cfg, snrs, bursts_per_point=APP_BURSTS, ic_iterations=ic,
+                            constellation=name, device=dev)
+        host_s = time.perf_counter() - t0
+        ok = bool(np.all(np.isfinite(res["evm"])) and res["ber"][0] > res["ber"][-1])
+        if not ok:
+            failures.append(f"ber_sweep {name}: not finite or not falling over SNR")
+        order = {"qpsk": 2, "qam16": 4, "qam64": 6}[name]
+        n_bits = APP_BER_CMP * cfg.n_data_symbols * order
+        cmp = {k: ber.ber_sweep(cfg, snrs, bursts_per_point=APP_BER_CMP, ic_iterations=ic,
+                                constellation=name, device=d)
+               for k, d in (("card", dev), ("cpu", "cpu"))}
+        d_err = float(np.max(np.abs(cmp["card"]["ber"] - cmp["cpu"]["ber"]) * n_bits))
+        d_evm = float(np.max(np.abs(cmp["card"]["evm"] / cmp["cpu"]["evm"] - 1)))
+        print(f"[13 ber] {name} ic={ic} B={APP_BURSTS}: snr_db={res['snr_db'].tolist()} "
+              f"ber={res['ber'].tolist()} evm={res['evm'].round(5).tolist()} "
+              f"snr_est_db={res['snr_est_db'].round(2).tolist()} host {host_s:.2f} s; card "
+              f"vs CPU at B={APP_BER_CMP} ({n_bits} bits a point): "
+              + check(f"{name}:bit_errors_differing", d_err, max(2.0, 1e-4 * n_bits)) + " "
+              + check(f"{name}:evm_rel", d_evm, 1e-4) + f" ({card})", flush=True)
+    one = ber._sweep_fn(cfg, 2, "qpsk", "zf", "awgn", 8, 0.0)
+    gen = torch.Generator().manual_seed(0)
+    bits = np.random.default_rng(0).integers(0, 2, (APP_BURSTS, cfg.n_data_symbols, 2))
+    bits_dev = torch.from_numpy(bits).to(dev)
+    noise = ber._unit_normal(gen, (APP_BURSTS, 2, cfg.frame_len), dev)
+    point_ms = _time_ms(torch, lambda: one(9.0, bits_dev, noise), iters=5)
+    print(f"[13 time] ber point qpsk B={APP_BURSTS} ({APP_BURSTS * cfg.frame_len} samples): "
+          f"card {point_ms:.3f} ms (CUDA events, bits and noise on the card) ({card})",
+          flush=True)
+
+    # (e) coded_vs_uncoded at examples/coded_link.py's points
+    ebn0 = [1.0, 2.0, 3.0, 4.0, 5.0]
+    t0 = time.perf_counter()
+    cvu = coded.coded_vs_uncoded(cfg, ebn0, bursts=APP_BURSTS, seed=1, device=dev)
+    host_s = time.perf_counter() - t0
+    worse = [e for e, c, u in zip(ebn0, cvu["coded_ber"], cvu["uncoded_ber"])
+             if e >= 3.0 and c > u]
+    llrs_fn, fn, n_info, perm = coded._coded_fn(cfg, 2, "zf", "awgn", 8)
+    cb = coded.conv_encode(np.random.default_rng(1).integers(
+        0, 2, (APP_BURSTS, n_info)).astype(np.uint8))[..., perm]
+    cb_dev = torch.from_numpy(cb).to(dev)
+    llrs = llrs_fn(3.0, cb_dev, noise)
+    coded_ms = _time_ms(torch, lambda: fn(3.0, cb_dev, noise), iters=3)
+    dec_ms = _time_ms(torch, lambda: coded.viterbi_decode(llrs, n_info), iters=3)
+    print(f"[13 coded] B={APP_BURSTS} ebn0_db={ebn0} coded_ber={cvu['coded_ber'].tolist()} "
+          f"uncoded_ber={cvu['uncoded_ber'].tolist()} "
+          + check("points>=3dB_with_coded>uncoded", float(len(worse)), 0.0)
+          + f" host {host_s:.2f} s; card: a coded point {coded_ms:.3f} ms, the decoder "
+          f"{dec_ms:.3f} ms = {dec_ms / coded_ms:.1%} (CUDA events) ({card})", flush=True)
+    del llrs, cb_dev
+
+    # (f) the block flowgraph, card against CPU
+    rng = np.random.default_rng(APP_SEED)
+    sym = ((rng.integers(0, 2, (APP_BURSTS, cfg.n_data_symbols)) * 2 - 1)
+           + 1j * (rng.integers(0, 2, (APP_BURSTS, cfg.n_data_symbols)) * 2 - 1)) / 2**0.5
+    noise_c = torch.from_numpy((0.005 * (rng.standard_normal((APP_BURSTS, CHUNK_LEN))
+                                         + 1j * rng.standard_normal((APP_BURSTS, CHUNK_LEN)))
+                                ).astype(np.complex64))
+    flow = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        grid = blocks.resource_mapper_cc(cfg, device=where)(sym)
+        b = blocks.transmitter_cc(cfg, device=where)(sym)[:, 0]
+        s = b.new_zeros((APP_BURSTS, CHUNK_LEN))
+        s[:, APP_OFFSET : APP_OFFSET + cfg.frame_len] = b
+        s = s + noise_c.to(where)
+        ext = blocks.extract_burst_cc(cfg, device=where)
+        det = ext.sync(s)
+        bursts = ext(s, det)
+        chan, tags = blocks.channel_estimator_cc(cfg, device=where)(
+            bursts[:, cfg.cp_len : cfg.cp_len + 2 * cfg.subcarriers])
+        frames = bursts[:, cfg.preamble_len + cfg.cp_len :][:, : cfg.block_len]
+        syms = blocks.advanced_receiver_sb_cc(cfg, device=where)(frames, channel=chan)
+        data = blocks.resource_demapper_cc(cfg, device=where)(syms)
+        flow[key] = [t.cpu() for t in (grid, b, det["start"], data, tags["snr_lin"])]
+        flow[key].append(time.perf_counter() - t0)
+    fc, fp = flow["card"], flow["cpu"]
+    d = fc[3].numpy()
+    wrong = int(np.count_nonzero(np.sign(d.real) != np.sign(sym.real))
+                + np.count_nonzero(np.sign(d.imag) != np.sign(sym.imag)))
+    print(f"[13 blocks] flowgraph B={APP_BURSTS} card vs CPU: "
+          + check("grid", _max_abs(fc[0], fp[0]), TOL["tx"]) + " "
+          + check("tx", _max_abs(fc[1], fp[1]), TOL["tx"]) + " "
+          + check("starts_differing", float(torch.count_nonzero(fc[2] != fp[2])), 0.0) + " "
+          + check("data", _max_abs(fc[3], fp[3]), LIVE_TOL["data"]) + " "
+          + check("snr_rel", _max_rel(fc[4], fp[4]), LIVE_TOL["snr_rtol"]) + " "
+          + check("wrong_decisions", float(wrong), 0.0)
+          + f"; host card {fc[5]:.2f} s, CPU {fp[5]:.2f} s ({card})", flush=True)
+    del flow, noise_c
+
+    # (g) the legacy modulator, card against CPU
+    grid = ((rng.standard_normal((APP_BURSTS, cfg.block_len))
+             + 1j * rng.standard_normal((APP_BURSTS, cfg.block_len))) / 2**0.5
+            ).astype(np.complex64)
+    grid_dev = torch.from_numpy(grid).to(dev)
+    parts = []
+    for fft_len in (cfg.block_len, 1024):
+        got = legacy.modulate_oversampled(cfg, grid_dev, fft_len).cpu()
+        ref = legacy.modulate_oversampled(cfg, grid, fft_len, device="cpu")
+        exact = torch.from_numpy(grid.astype(np.complex128) @ legacy._legacy_operator(
+            cfg, fft_len).T)
+        scale = float(exact.abs().max())  # ~29: the legacy taps are not normalized
+        ms = _time_ms(torch, lambda: legacy.modulate_oversampled(cfg, grid_dev, fft_len))
+        parts.append(f"fft_len={fft_len} max|y|={scale:.2f} "
+                     + check("card_vs_cpu_rel", _max_abs(got, ref) / scale, TOL["tx"]) + " "
+                     + check("card_vs_f64_rel", _max_abs(got.to(exact.dtype), exact) / scale,
+                             TOL["tx"])
+                     + f" cpu_vs_f64_rel={_max_abs(ref.to(exact.dtype), exact) / scale:.3e}"
+                     f" card {ms:.3f} ms")
+    print(f"[13 legacy] B={APP_BURSTS} card vs CPU and a float64 product, relative to the "
+          f"largest output: " + " ".join(parts) + f" ({card})", flush=True)
+    del grid_dev, got
+
+    # (h) spectrum_study, card against CPU
+    t0 = time.perf_counter()
+    sp = {"card": spectrum.spectrum_study(cfg, n_bursts=APP_BURSTS, device=dev)}
+    card_s = time.perf_counter() - t0
+    sp["cpu"] = spectrum.spectrum_study(cfg, n_bursts=APP_BURSTS, device="cpu")
+    rel = max(abs(sp["card"][w][k] / sp["cpu"][w][k] - 1)
+              for w in sp["card"] for k in ("oob_attenuation_db", "papr_median_db"))
+    ccdf = max(float(np.max(np.abs(sp["card"][w]["papr_ccdf"] - sp["cpu"][w]["papr_ccdf"])))
+               for w in sp["card"])
+    oob = {w: round(v["oob_attenuation_db"], 4) for w, v in sp["card"].items()}
+    papr = {w: round(v["papr_median_db"], 4) for w, v in sp["card"].items()}
+    ordered = oob["gfdm_frame"] > oob["gfdm_core"] > oob["ofdm"]
+    if not ordered:
+        failures.append(f"spectrum_study: OOB not gfdm_frame > gfdm_core > ofdm: {oob}")
+    print(f"[13 spectrum] B={APP_BURSTS} oob_db={oob} papr_median_db={papr} "
+          f"ordered={ordered} card vs CPU: " + check("rel", rel, 1e-6) + " "
+          + check("ccdf", ccdf, 1e-6) + f"; host {card_s:.2f} s ({card})", flush=True)
+    launches = {k: v for k, v in _launches().items() if v}
+    print(f"[13 main] the port's kernels launched by (c)-(h): {launches or 'none'} (the "
+          f"complex chain and the planar torch-op link); phase 13 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _udp_ingest(native, ring, tries: int = 20):
+    """native.UdpIngest on a free loopback port (the OS picks it)."""
     for _ in range(tries):
-        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
         try:
-            return native.UdpIngest(port, ring)
+            return native.UdpIngest(_free_udp_port(), ring)
         except OSError:
             continue
     raise OSError(f"no free UDP port in {tries} tries")
@@ -2407,6 +2772,10 @@ def main() -> int:
 
     # 12. the live-ring modem over the ring and a real socket, the complex chain
     _live_phase(torch, cfg, dev, streams, card, check, failures)
+
+    # 13. the application layer: the CLI, simulate, the evaluation harnesses,
+    # the block flowgraph and the legacy modulator
+    _app_phase(torch, cfg, dev, card, check, failures)
 
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

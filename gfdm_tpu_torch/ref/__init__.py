@@ -9,11 +9,13 @@ from . import (  # noqa: F401
     cyclic_prefix,
     demodulation,
     filters,
+    legacy,
     mapping,
     modulation,
     preamble,
     symbolmapping,
     synchronization,
     utils,
+    validation,
     zadoff_chu,
 )

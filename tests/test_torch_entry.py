@@ -53,7 +53,17 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "gfdm_tpu_torch.runtime.transmitter, gfdm_tpu_torch.runtime.receiver, "
         "gfdm_tpu_torch.ops.tx, gfdm_tpu_torch.ops.estimation, gfdm_tpu_torch.ops.burst, "
         "gfdm_tpu_torch.ops._validate, gfdm_tpu_torch.ops._complex, sys; "
+        "import gfdm_tpu_torch.blocks, gfdm_tpu_torch.ops.legacy, gfdm_tpu_torch.ref.legacy, "
+        "gfdm_tpu_torch.ref.validation, gfdm_tpu_torch.eval, gfdm_tpu_torch.eval.ber, "
+        "gfdm_tpu_torch.eval.coded, gfdm_tpu_torch.eval.snr_study, "
+        "gfdm_tpu_torch.eval.spectrum, gfdm_tpu_torch.eval.plotting, "
+        "gfdm_tpu_torch.examples, gfdm_tpu_torch.examples.loopback_simulation, "
+        "gfdm_tpu_torch.examples.ota_style_link, gfdm_tpu_torch.examples.ber_sweep, "
+        "gfdm_tpu_torch.examples.coded_link, gfdm_tpu_torch.examples.spectrum_study; "
         "gfdm_tpu_torch.native.available(); "
+        "sys.argv = ['gfdm_tpu_torch', 'info']\n"
+        "try:\n    import gfdm_tpu_torch.__main__\n"
+        "except SystemExit as exc:\n    assert exc.code == 0, exc.code\n"
         "assert 'jax' not in sys.modules and 'gfdm_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'gfdm_tpu.')))"
     )

@@ -1174,3 +1174,66 @@ def test_coded_service_on_card():
     llrs = llrs.reshape(n, -1)[:, rx._fec_inv]
     np.testing.assert_array_equal(viterbi_decode(llrs.cpu(), rx.fec_info_bits).numpy(),
                                   bits)
+
+
+@pytest.mark.parametrize("fft_len", [None, 1024])
+def test_legacy_modulator_card_matches_cpu(fft_len, monkeypatch):
+    """ops.legacy.modulate_oversampled on the card against the CPU, with
+    TF32 turned on around the call: the product keeps full float32."""
+    from gfdm_tpu_torch.ops import legacy
+
+    dev = _cuda()
+    cfg = GfdmConfig()
+    rng = np.random.default_rng(31)
+    grid = ((rng.standard_normal((4096, cfg.block_len))
+             + 1j * rng.standard_normal((4096, cfg.block_len))) / 2**0.5).astype(np.complex64)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    got = legacy.modulate_oversampled(cfg, grid, fft_len)
+    assert got.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32
+    ref = legacy.modulate_oversampled(cfg, grid, fft_len, device="cpu")
+    # relative to the largest output (~29: the legacy taps are not
+    # normalized); TF32 would leave ~1e-3
+    scale = float(ref.abs().max())
+    err = float((got.cpu() - ref).abs().max()) / scale
+    print(f"legacy[fft_len={fft_len}] max_abs/max|y|={err:.3e} max|y|={scale:.2f}")
+    assert err < 2e-5
+
+
+def test_block_flowgraph_card_matches_cpu():
+    """The receive flowgraph of blocks (sync + extraction, estimator,
+    receiver, demapper) on the card against the same blocks on the CPU."""
+    from gfdm_tpu_torch import blocks
+
+    dev = _cuda()
+    cfg = GfdmConfig()
+    n = 512
+    rng = np.random.default_rng(32)
+    data = ((rng.integers(0, 2, (n, cfg.n_data_symbols)) * 2 - 1)
+            + 1j * (rng.integers(0, 2, (n, cfg.n_data_symbols)) * 2 - 1)) / 2**0.5
+    noise = 0.005 * (rng.standard_normal((n, 2048)) + 1j * rng.standard_normal((n, 2048)))
+    out = {}
+    for key, where in (("card", dev), ("cpu", "cpu")):
+        b = blocks.transmitter_cc(cfg, device=where)(
+            blocks.resource_demapper_cc(cfg, device=where)(
+                blocks.resource_mapper_cc(cfg, device=where)(data)))[:, 0]
+        s = torch.zeros((n, 2048), dtype=b.dtype, device=b.device)
+        s[:, 300 : 300 + cfg.frame_len] = b
+        s = s + torch.from_numpy(noise.astype(np.complex64)).to(b.device)
+        ext = blocks.extract_burst_cc(cfg, device=where)
+        det = ext.sync(s)
+        bursts = ext(s, det)
+        chan, tags = blocks.channel_estimator_cc(cfg, device=where)(
+            bursts[:, cfg.cp_len : cfg.cp_len + 2 * cfg.subcarriers])
+        frames = bursts[:, cfg.preamble_len + cfg.cp_len :][:, : cfg.block_len]
+        syms = blocks.advanced_receiver_sb_cc(cfg, device=where)(frames, channel=chan)
+        out[key] = (det["start"].cpu(), blocks.resource_demapper_cc(cfg, device=where)(
+            syms).cpu(), tags["snr_lin"].cpu())
+        assert out[key][1].device.type == "cpu" and syms.device.type == torch.device(
+            where).type
+    assert torch.equal(out["card"][0], out["cpu"][0])
+    err = float((out["card"][1] - out["cpu"][1]).abs().max())
+    snr = float((out["card"][2] / out["cpu"][2] - 1).abs().max())
+    print(f"block flowgraph B={n} data max_abs={err:.3e} snr_rel={snr:.3e}")
+    assert err < 5e-4 and snr < 1e-3
+    d = out["card"][1].numpy()
+    assert np.array_equal(np.sign(d.real), np.sign(data.real))
