@@ -165,8 +165,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
              byte-equal; the host wall of each command and the card time
              of rx_file's receive_stream on the capture (CUDA events). (b)
              `rx --udp-port` on a free loopback port fed the QPSK capture
-             as sc16 datagrams by UdpSink (paced), then the empty datagram:
-             the payload back byte-equal. (c) cli.simulate at 4,096 bursts
+             as sc16 datagrams by UdpSink (paced, and held while the
+             receiving socket's queue in /proc/net/udp is over 3
+             datagrams), then the empty datagram: the payload back
+             byte-equal, the socket's drop count 0. (c) cli.simulate at 4,096 bursts
              at the JAX tests' settings: 20 dB every burst clean, the
              estimate tracking the nominal SNR dB for dB (12 dB), the coded
              link at 4 dB through the multipath CRC-clean on at least 0.9 of
@@ -187,6 +189,30 @@ Phases, one line each (any failure exits non-zero and prints no result):
              gfdm_core > ofdm. With the launch counters reset before (c) and
              read after (h): the application layer runs the complex chain
              and the planar torch-op link, no kernel of the port.
+14. parallel - the parallel layer on a virtual mesh of the card. (a) the
+             friendly service stream (4,096 chunks) through
+             StreamingReceiver(engine="fused", sp_shards=2, mesh=make_mesh(
+             [card] * 2, dp=1, sp=2)) against the same service at sp = 1
+             under DETECT_IMPL "twostage", "pallas2" and "pallas", through
+             step (with the launch counters reset just before it and read
+             just after: one receiver call a step, one detection launch)
+             and serve (1,024-chunk batches): no sp = 1 burst missed, each
+             at its start_abs with the same decisions (a few samples off
+             only at a sub-chunk boundary), extra found slots under 1% of
+             the chunks; each step's time against sp = 1's (CUDA events)
+             and a StageTimer split (windows, detect, extract, refine,
+             receive); both detection kernels against their plain versions
+             on the 8,192 sub-chunk windows (1,024 + 768 samples, n_valid
+             1,024). (b) parallel.detect_bursts_sharded on eight copies of
+             the card (dp = 2, sp = 4) at tests/test_parallel.py's four
+             scenarios, complex and planar, k = 1 and 2, against the same
+             call on the CPU. (c) entry.dryrun_multichip(8) on the card.
+             (d) parallel.multihost.launch: two processes sharing the card
+             in one gloo group, 4,096 chunks, against one process (parity,
+             the metrics' all-reduce, the bursts expected). (e) the seven
+             examples of the slice on the card, each with its own check
+             (multichip_sharding in its own process, dryrun_multihost
+             spawning its workers), the kernels each should launch.
 
 Then a JSON line of per-kernel results (launches on the main paths, error
 against the plain version, kernel, plain and library ms, the bound: the
@@ -330,8 +356,27 @@ SIM_TAPS, SIM_SNR_DB = np.array([1.0, 0.25 + 0.15j, -0.1j]), 15.0
 APP_PAYLOAD, APP_SEED, APP_BURSTS, APP_BER_CMP = 1 << 20, 18, 4096, 1024
 APP_CODED_CRC_MIN, APP_OFFSET, APP_CLI_TIMEOUT_S = 0.9, 300, 120.0
 # the sender's pace: at 8e6 samples/s, eight datagrams at a time, the ingest
-# thread lost 8 of 4,640 datagrams to the socket's default buffer
+# thread lost 8 of 4,640 datagrams to the socket's default buffer; at 4e6 one
+# at a time, 4 of 4,640 once in five runs (the 212,992-byte default holds 12
+# datagrams, 12 ms). So the sender also waits while the receiving socket's
+# queue (/proc/net/udp) holds more than APP_UDP_QUEUE bytes, 3 datagrams
 APP_UDP_DATAGRAM, APP_UDP_RATE = 4096, 4e6  # samples a datagram, samples/s sent
+APP_UDP_QUEUE = 3 * 17216  # bytes the kernel counts for 3 datagrams of 4,096 sc16
+# phase 14: the sp service's shards (the card twice); the sharded detection's
+# virtual mesh and its card-vs-CPU limits (cfo on found slots, bursts relative
+# to their peak where the CFOs agree: tests/test_torch_parallel.py's); the
+# multi-process serve's processes, chunks and batch; the longest a spawned
+# process may take. The sp = 2 service against sp = 1, as a share of the
+# chunks: bursts missed or moved at a sub-chunk boundary and extra found
+# slots (the JAX package's sp service the same on the CPU: a preamble whose
+# CP straddles the boundary fails the right shard's CFAR, the left shard
+# takes the peak's shoulder, a burst's tail passes as a pick: 16-17 of the
+# 4,096 chunks on an H100). The multi-process stream's CFAR false alarms in
+# its empty chunks, as a share of the chunks (1 of 4,096, chunk 1,324, JAX
+# the same)
+SP_SHARDS, PAR_DP, PAR_SP, PAR_PROCS, PAR_CHUNKS, PAR_BATCH = 2, 2, 4, 2, 4096, 256
+PAR_TOL = {"cfo": 1e-6, "bursts": 1e-5}
+PAR_TIMEOUT_S, SP_DIFFER_SHARE, PAR_FALSE_ALARM_SHARE = 300.0, 0.01, 1e-3
 
 
 def _card_line() -> str:
@@ -435,29 +480,30 @@ def _check_traces(got, ref, names, check) -> tuple[list, float]:
     return parts, e
 
 
-def _check_front(cfg, s, label, check) -> float:
+def _check_front(cfg, s, label, check, limit: int = CHUNK_LEN, tag: str = "3") -> float:
     """Kernel A through its wrapper against its plain version."""
     from gfdm_tpu_torch.kernels import detect
 
-    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, CHUNK_LEN)
-    got = detect.detect_front_fused(cfg, s, CHUNK_LEN)
+    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, limit)
+    got = detect.detect_front_fused(cfg, s, limit)
     ref = detect._detect_front_plain(cfg, s, n_valid)
     parts, e = _check_traces(got, ref, ("gated", "ac", "energy", "ic"), check)
-    print(f"[3 check] detect_front[{label}] max_abs={e:.3e} (traces: excess over "
+    print(f"[{tag} check] detect_front[{label}] max_abs={e:.3e} (traces: excess over "
           f"atol {TOL['trace_atol']} + rtol {TOL['trace_rtol']}) " + " ".join(parts),
           flush=True)
     return e
 
 
-def _check_lean(torch, cfg, s, label, check, failures) -> float:
+def _check_lean(torch, cfg, s, label, check, failures, limit: int = CHUNK_LEN,
+                tag: str = "3") -> float:
     """Kernel B's traces and its detection dict against the plain versions."""
     from gfdm_tpu_torch.kernels import detect
 
-    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, CHUNK_LEN)
+    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, limit)
     got_tr = detect._detect_lean_cuda(cfg, s, n_valid)
     ref_tr = detect._detect_lean_plain(cfg, s, n_valid)
     parts, e = _check_traces(got_tr, ref_tr, ("gated", "ic"), check)
-    got = detect.detect_bursts_fused(cfg, s, CHUNK_LEN)
+    got = detect.detect_bursts_fused(cfg, s, limit)
     ref = detect._lean_epilogue(cfg, s, *ref_tr)
     n_diff = int((got["start"] != ref["start"]).sum())
     parts.append(check("start_mismatch", float(n_diff), 0.0))
@@ -466,7 +512,7 @@ def _check_lean(torch, cfg, s, label, check, failures) -> float:
                                             TOL["peak_rtol"]), 1.0))
     if not all(bool(torch.isfinite(v).all()) for v in got.values()):
         failures.append(f"detect_lean[{label}]: non-finite outputs")
-    print(f"[3 check] detect_lean[{label}] max_abs={e:.3e} " + " ".join(parts),
+    print(f"[{tag} check] detect_lean[{label}] max_abs={e:.3e} " + " ".join(parts),
           flush=True)
     return e
 
@@ -2212,12 +2258,30 @@ def _run_cli(args: list, cwd) -> tuple:
     return proc.returncode, _last_json(proc.stderr), wall, proc.stderr
 
 
+def _udp_socket_queue(port: int):
+    """(bytes queued, datagrams dropped) of the UDP socket bound to
+    127.0.0.1:``port``, from /proc/net/udp; None where it is not listed."""
+    local = f"0100007F:{port:04X}"
+    try:
+        with open("/proc/net/udp") as f:
+            rows = [ln.split() for ln in f.readlines()[1:]]
+    except OSError:
+        return None
+    for row in rows:
+        if row[1] == local:
+            return int(row[4].split(":")[1], 16), int(row[-1])
+    return None
+
+
 def _send_sc16_when_bound(port: int, planar: np.ndarray, rate: float) -> tuple:
     """Wait until a receiver is bound to udp:``port`` (a connected socket
     sees ECONNREFUSED while nothing listens; 2-byte probes are below one
     sc16 sample and dropped), then send ``planar`` through UdpSink at about
-    ``rate`` samples/s (the loopback socket keeps its default buffer) and
-    the empty end-of-stream datagram: (seconds sent, datagrams)."""
+    ``rate`` samples/s, each datagram held while the receiving socket's
+    queue is over APP_UDP_QUEUE bytes (the loopback socket keeps its default
+    buffer), and the empty end-of-stream datagram: (seconds sent, datagrams,
+    the socket's drop count before the end-of-stream datagram or None where
+    /proc/net/udp does not list it, seconds held)."""
     import socket
 
     from gfdm_tpu_torch.runtime.transmit_service import UdpSink
@@ -2240,15 +2304,24 @@ def _send_sc16_when_bound(port: int, planar: np.ndarray, rate: float) -> tuple:
         probe.close()
     sink = UdpSink(port, samples_per_datagram=APP_UDP_DATAGRAM)
     step = APP_UDP_DATAGRAM  # one datagram, then wait for its turn
+    held = 0.0
     t0 = time.perf_counter()
     for i in range(0, planar.shape[-1], step):
+        t_hold = time.perf_counter()
+        while (q := _udp_socket_queue(port)) is not None and q[0] > APP_UDP_QUEUE:
+            if time.perf_counter() - t_hold > LIVE_WAIT_S:
+                raise RuntimeError(f"UDP receiver stalled: {q[0]} bytes queued on "
+                                   f"udp:{port} for {LIVE_WAIT_S} s")
+            time.sleep(1e-4)
+        held += time.perf_counter() - t_hold
         sink.push(planar[:, i : i + step])
         wait = t0 + (i + step) / rate - time.perf_counter()
         if wait > 0:
             time.sleep(wait)
     sent = time.perf_counter() - t0
+    q = _udp_socket_queue(port)
     sink.close()
-    return sent, sink.datagrams_sent
+    return sent, sink.datagrams_sent, None if q is None else q[1], held
 
 
 def _app_cli(torch, cfg, dev, work, card, check, failures) -> None:
@@ -2309,7 +2382,8 @@ def _app_cli(torch, cfg, dev, work, card, check, failures) -> None:
                   "--outfile", str(out)]),
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        sent_s, datagrams = _send_sc16_when_bound(port, planar, APP_UDP_RATE)
+        sent_s, datagrams, drops, held_s = _send_sc16_when_bound(port, planar,
+                                                                 APP_UDP_RATE)
         _, err = proc.communicate(timeout=APP_CLI_TIMEOUT_S)
     finally:
         if proc.poll() is None:
@@ -2320,11 +2394,12 @@ def _app_cli(torch, cfg, dev, work, card, check, failures) -> None:
     captured = [int(w) for ln in err.splitlines() if ln.startswith("captured ")
                 for w in ln.split()[1:2]]
     equal = out.exists() and out.read_bytes()[:APP_PAYLOAD] == payload
-    if proc.returncode or not equal:
-        failures.append(f"cli rx --udp-port: rc {proc.returncode}, payload_equal={equal}: "
-                        f"{err[-400:]}")
+    if proc.returncode or not equal or drops:
+        failures.append(f"cli rx --udp-port: rc {proc.returncode}, payload_equal={equal}, "
+                        f"socket drops {drops}: {err[-400:]}")
     print(f"[13 cli] rx --udp-port: {planar.shape[-1]} samples in {datagrams} sc16 "
-          f"datagrams over {sent_s:.2f} s, captured={captured} payload_equal={equal} "
+          f"datagrams over {sent_s:.2f} s (held {held_s:.3f} s on the receiver's queue), "
+          f"socket drops={drops} captured={captured} payload_equal={equal} "
           f"rc={proc.returncode} stats={stats}; host wall {wall:.2f} s ({card})", flush=True)
 
 
@@ -2518,6 +2593,334 @@ def _app_phase(torch, cfg, dev, card, check, failures):
     print(f"[13 main] the port's kernels launched by (c)-(h): {launches or 'none'} (the "
           f"complex chain and the planar torch-op link); phase 13 "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _sp_service(torch, cfg, dev, chunks, card, check, failures) -> None:
+    """Phase 14 (a): the sp = 2 service on a virtual mesh of the card twice
+    against the sp = 1 service, under each DETECT_IMPL."""
+    from gfdm_tpu_torch.kernels import fused
+    from gfdm_tpu_torch.kernels.fused import receive_bursts_fused
+    from gfdm_tpu_torch.ops import planar_pipeline as pp
+    from gfdm_tpu_torch.parallel import make_mesh
+    from gfdm_tpu_torch.runtime.service import ServiceStats, StreamingReceiver
+    from gfdm_tpu_torch.utils.profiling import StageTimer
+
+    sub, halo = CHUNK_LEN // SP_SHARDS, cfg.frame_len + cfg.cp_len
+    mesh = make_mesh([dev] * SP_SHARDS, dp=1, sp=SP_SHARDS)
+    dev_chunks = torch.from_numpy(chunks).to(dev)
+    kernel_of = {"pallas2": "detect_lean", "pallas": "detect_front"}
+    default_impl = pp.DETECT_IMPL
+    kw = dict(chunk_len=CHUNK_LEN, batch_chunks=N_CHUNKS, engine="fused")
+    for impl in ("twostage", "pallas2", "pallas"):
+        pp.DETECT_IMPL = impl
+        one = StreamingReceiver(cfg, device=dev, **kw)
+        two = StreamingReceiver(cfg, sp_shards=SP_SHARDS, mesh=mesh, **kw)
+        two._step(dev_chunks)  # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        o2 = two.step(chunks)
+        run = _launches()
+        o1 = one.step(chunks)
+        f1, f2 = o1["found"], o2["found"].reshape(N_CHUNKS, SP_SHARDS)
+        start2 = o2["start"].reshape(N_CHUNKS, SP_SHARDS) + np.arange(SP_SHARDS) * sub
+        data2 = o2["data"].reshape((N_CHUNKS, SP_SHARDS) + o2["data"].shape[1:])
+        # each sp = 1 burst against the found sp = 2 slot nearest its start
+        dist = np.where(f2, np.abs(start2 - o1["start"][:, None]), CHUNK_LEN)
+        near = dist.argmin(axis=1)
+        rows = np.arange(N_CHUNKS)
+        matched = f1 & (dist[rows, near] <= cfg.subcarriers)
+        exact = matched & (dist[rows, near] == 0)
+        # a burst within K samples of a sub-chunk boundary: the left shard's
+        # search limit may take the peak's shoulder (the start moves)
+        boundary = (np.abs(o1["start"][:, None] - sub * np.arange(1, SP_SHARDS)[None, :])
+                    .min(axis=1) <= cfg.subcarriers)
+        d2, d1 = data2[rows, near][exact], o1["data"][exact]
+        flipped = int((np.sign(d2) != np.sign(d1)).any(axis=(1, 2)).sum())
+        d_err = float(np.abs(d2 - d1).max())
+        missed = f1 & ~matched
+        # found sp = 2 slots with no sp = 1 burst: a shard takes its window's
+        # strongest CFAR-valid pick, which a burst's tail can pass (the JAX
+        # package's sp service finds the same)
+        extra = int(f2.sum() - matched.sum())
+        differ = int(missed.sum()) + int((matched & ~exact).sum()) + extra
+        need = ["rx"] + ([kernel_of[impl]] if impl in kernel_of else [])
+        for key in need:
+            if run[key] < 1:
+                failures.append(f"kernel {key} was not launched on the sp service path ({impl})")
+        if run["rx"] != fused.rx_launches(2):
+            failures.append(f"sp service [{impl}]: {run['rx']} receiver launches a step, "
+                            f"expected {fused.rx_launches(2)} (one receiver call)")
+        if impl in kernel_of and run[kernel_of[impl]] != 1:
+            failures.append(f"sp service [{impl}]: {run[kernel_of[impl]]} detection launches")
+        ms2 = _time_ms(torch, lambda: two._step(dev_chunks))
+        ms1 = _time_ms(torch, lambda: one._step(dev_chunks))
+        print(f"[14 sp] DETECT_IMPL={impl}: sp=2 found={int(f2.sum())} sp=1 found="
+              f"{int(f1.sum())} of {N_CHUNKS} chunks; matched={int(matched.sum())} "
+              f"(start_abs equal {int(exact.sum())}, moved at a sub-chunk boundary "
+              f"{int((matched & ~exact).sum())}) missed at a boundary={int(missed.sum())} "
+              f"extra={extra} "
+              + check("missed_off_boundary", float((missed & ~boundary).sum()), 0.0) + " "
+              + check("moved_off_boundary", float((matched & ~exact & ~boundary).sum()), 0.0)
+              + " " + check("decisions_differing", float(flipped), 0.0) + " "
+              + check("differing_share", differ / N_CHUNKS, SP_DIFFER_SHARE) + " "
+              + check("data_vs_sp1", d_err, TOL["data"])
+              + f" | step sp=2 {ms2:.3f} ms vs sp=1 {ms1:.3f} ms ({N_CHUNKS * SP_SHARDS} "
+              f"windows of {sub + halo} vs {N_CHUNKS} chunks of {CHUNK_LEN + halo}) launches="
+              f"{{rx: {run['rx']}, detect_front: {run['detect_front']}, detect_lean: "
+              f"{run['detect_lean']}}} ({card})", flush=True)
+
+        # the step's stages on the card (CUDA events), three steps
+        timer = StageTimer()
+        for _ in range(3):
+            with timer.stage("windows") as st:
+                st.value = w = dev_chunks.unfold(-1, sub + halo, sub).transpose(1, 2).reshape(
+                    -1, 2, sub + halo)
+            with timer.stage("detect") as st:
+                st.value = det = pp.detect_bursts_planar(cfg, w, search_limit=sub,
+                                                         dtype_name=two.dtype_name)
+            with timer.stage("extract") as st:
+                st.value = b = pp.extract_bursts_planar(cfg, w, det, dtype_name=two.dtype_name)
+            with timer.stage("refine") as st:
+                st.value = b = pp.refine_cfo_planar(cfg, b)[0]
+            with timer.stage("receive") as st:
+                st.value = receive_bursts_fused(cfg, b.contiguous(), ic_iterations=2)
+        rep = timer.report(samples_per_call={k: N_CHUNKS * CHUNK_LEN for k in timer.times})
+        print(f"[14 stages] DETECT_IMPL={impl} sp=2 step ({card}):\n    "
+              + rep.replace("\n", "\n    "), flush=True)
+        del o1, o2, data2, d1, d2
+
+        if impl == default_impl:  # serve(): super-batches through the same mesh
+            srv = StreamingReceiver(cfg, chunk_len=CHUNK_LEN, batch_chunks=1024,
+                                    engine="fused", sp_shards=SP_SHARDS, mesh=mesh)
+            it = iter(range(0, N_CHUNKS, 1024))
+            srv.serve(lambda: None if (i := next(it, None)) is None else
+                      (chunks[i : i + 1024], i * CHUNK_LEN), lambda o: None, max_batches=1)
+            srv.stats = ServiceStats()
+            got = []
+            it = iter(range(0, N_CHUNKS, 1024))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.serve(lambda: None if (i := next(it, None)) is None else
+                      (chunks[i : i + 1024], i * CHUNK_LEN), got.append)
+            dt = time.perf_counter() - t0
+            s_found = np.concatenate([g["found"] for g in got])
+            s_abs = np.concatenate([g["start_abs"] for g in got])
+            ref_abs = two._slot_offsets(N_CHUNKS) + two.step(chunks)["start"]
+            print(f"[14 serve] sp=2 batches={srv.stats.batches} chunks={srv.stats.chunks} "
+                  f"found={srv.stats.bursts_found} host loop {dt * 1e3:.1f} ms = "
+                  f"{N_CHUNKS * CHUNK_LEN / dt:.4e} samples/s "
+                  + check("start_abs_vs_step", float((s_abs[s_found] != ref_abs[s_found]).sum()),
+                          0.0)
+                  + f" ({card})", flush=True)
+    pp.DETECT_IMPL = default_impl
+
+    # rows 12-13 against their plain versions at the sub-chunk windows
+    windows = dev_chunks.unfold(-1, sub + halo, sub).transpose(1, 2).reshape(-1, 2, sub + halo)
+    label = f"B={windows.shape[0]},T={sub + halo},n_valid={sub}"
+    _check_front(cfg, windows, label, check, limit=sub, tag="14")
+    _check_lean(torch, cfg, windows, label, check, failures, limit=sub, tag="14")
+
+
+def _par_scenarios(cfg) -> dict:
+    """tests/test_parallel.py's four streams (2 rows, 4 chunks), complex64."""
+    from gfdm_tpu_torch.ops.tx import transmit
+    from gfdm_tpu_torch.ref import utils
+
+    def bursts(seed):
+        data = np.stack([utils.random_qpsk(cfg.n_data_symbols, seed=seed + i)
+                         for i in range(2)]).astype(np.complex64)
+        return transmit(cfg, data, device="cpu")[:, 0].numpy()
+
+    def noise(shape, seeds):
+        return (0.01 * (np.random.default_rng(seeds[0]).standard_normal(shape)
+                        + 1j * np.random.default_rng(seeds[1]).standard_normal(shape))
+                ).astype(np.complex64)
+
+    fl = cfg.frame_len
+    straddle = np.zeros((2, 4 * 2048), np.complex64)
+    straddle[:, 2 * 2048 - fl // 2 : 2 * 2048 - fl // 2 + fl] = bursts(7)
+    owner = np.zeros((2, 4 * 2048), np.complex64)
+    owner[:, 100 : 100 + fl] = bursts(11)
+    dual = noise((2, 4 * 2048), (3, 4))
+    dual[:, 2 * 2048 + 150 : 2 * 2048 + 150 + fl] += bursts(31)
+    dense = noise((2, 4 * 4096), (5, 6))
+    for off, seed in ((4096 + 100, 41), (4096 + 100 + fl + 400, 43)):
+        dense[:, off : off + fl] += bursts(seed)
+    return {"straddle": straddle, "owner": owner, "dual": dual, "dense": dense}
+
+
+def _sharded_detection(torch, cfg, dev, card, check) -> None:
+    """Phase 14 (b): detect_bursts_sharded on a virtual card mesh against
+    the same call on the CPU."""
+    from gfdm_tpu_torch.parallel import detect_bursts_sharded, make_mesh
+
+    meshes = {"card": make_mesh([dev] * (PAR_DP * PAR_SP), dp=PAR_DP, sp=PAR_SP),
+              "cpu": make_mesh(["cpu"] * (PAR_DP * PAR_SP), dp=PAR_DP, sp=PAR_SP)}
+    worst = {"start_owned_found_differ": 0.0, "found_cfo_apart": 0.0, "cfo_found": 0.0,
+             "bursts_rel": 0.0}
+    for name, stream in _par_scenarios(cfg).items():
+        for planar in (False, True):
+            x = np.stack([stream.real, stream.imag], 1).astype(np.float32) if planar else stream
+            for k in (1, 2):
+                runs = {where: detect_bursts_sharded(
+                    cfg, mesh, torch.from_numpy(x).to(mesh.devices[0, 0]),
+                    halo=cfg.frame_len + 64, planar=planar, max_bursts_per_chunk=k)
+                    for where, mesh in meshes.items()}
+                (dc, bc), (dr, br) = runs["card"], runs["cpu"]
+                dc = {key: v.cpu().numpy() for key, v in dc.items()}
+                dr = {key: v.numpy() for key, v in dr.items()}
+                f = dr["found"]
+                same = np.abs(dc["cfo"] - dr["cfo"]) <= PAR_TOL["cfo"]
+                worst["start_owned_found_differ"] += sum(
+                    int((dc[key] != dr[key]).sum()) for key in ("start", "owned", "found"))
+                worst["found_cfo_apart"] += float((f & ~same).sum())
+                if f.any():
+                    worst["cfo_found"] = max(worst["cfo_found"],
+                                             float(np.abs(dc["cfo"] - dr["cfo"])[f].max()))
+                worst["bursts_rel"] = max(worst["bursts_rel"], float(
+                    np.abs(bc.cpu().numpy()[same] - br.numpy()[same]).max()
+                    / np.abs(br.numpy()).max()))
+    limits = {"start_owned_found_differ": 0.0, "found_cfo_apart": 0.0,
+              "cfo_found": PAR_TOL["cfo"], "bursts_rel": PAR_TOL["bursts"]}
+    print(f"[14 sharded] detect_bursts_sharded on {PAR_DP}x{PAR_SP} copies of the card vs "
+          f"the CPU, 4 scenarios x complex/planar x k=1,2 (sums and maxima): "
+          + " ".join(check(key, v, limits[key]) for key, v in worst.items())
+          + f" ({card})", flush=True)
+
+
+def _parallel_examples(torch, cfg, dev, root, card, check, failures) -> None:
+    """Phase 14 (e): the seven examples of the parallel slice on the card."""
+    import shutil
+
+    from gfdm_tpu_torch.entry import dryrun_multihost
+    from gfdm_tpu_torch.examples import (cdd_two_antenna, coded_service, full_duplex_udp,
+                                         large_k_link, stream_receiver, streaming_service)
+
+    runs = (
+        ("cdd_two_antenna", lambda: cdd_two_antenna.main(device=dev), ()),
+        ("coded_service", lambda: coded_service.main(device=dev), ("rx",)),
+        ("full_duplex_udp", lambda: full_duplex_udp.main(port=_free_udp_port(), device=dev),
+         ("tx",)),
+        ("large_k_link", lambda: large_k_link.main(device=dev),
+         ("tx_factored", "rx_factored_chan")),
+        ("stream_receiver", lambda: stream_receiver.main(device=dev), ()),
+        ("streaming_service", lambda: streaming_service.main(device=dev), ()),
+    )
+    res = {}
+    for name, fn, kernels in runs:
+        _reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res[name] = fn()
+        except RuntimeError as exc:  # the example's own check
+            failures.append(f"example {name}: {exc}")
+            continue
+        wall = time.perf_counter() - t0
+        run = _launches()
+        for key in kernels:
+            if run[key] < 1:
+                failures.append(f"kernel {key} was not launched by example {name}")
+        print(f"[14 example] {name}: {json.dumps(res[name], default=str)} launches="
+              f"{ {k: run[k] for k in kernels} } host {wall:.2f} s ({card})", flush=True)
+    parts = []
+    if "cdd_two_antenna" in res:
+        got = res["cdd_two_antenna"]
+        parts.append(check("cdd:symbol_error_share", got["symbol_errors"] / got["symbols"],
+                           cdd_two_antenna.SYMBOL_ERROR_FLOOR))
+    if "coded_service" in res:
+        got = res["coded_service"]
+        parts += [check("coded:not_crc_clean", float(got["bursts"] - got["crc_clean"]), 0.0),
+                  check("coded:payload_damaged", float(not got["intact"]), 0.0)]
+    if "full_duplex_udp" in res:
+        got = res["full_duplex_udp"]
+        parts += [check("udp:missed", float(got["bursts"] - got["found"]), 0.0),
+                  check("udp:decision_evm", got["evm"], 0.0)]
+    if "large_k_link" in res:
+        parts.append(check("large_k:evm", res["large_k_link"]["evm"], 1e-5))
+    if "stream_receiver" in res:
+        got = res["stream_receiver"]
+        parts += [check("stream:missed", float(got["pulled"] - got["found"]), 0.0),
+                  check("stream:evm", got["evm"], 1e-5)]
+    if "streaming_service" in res:
+        got = res["streaming_service"]
+        parts += [check("service:symbol_errors", float(got["symbol_errors"]), 0.0),
+                  check("service:starts_differ", float(got["starts"] != got["expected_starts"]),
+                        0.0),
+                  check("service:missed", float(got["bursts"] - got["found"]), 0.0)]
+    print("[14 example] checks " + " ".join(parts), flush=True)
+
+    # the dry runs that spawn their own processes
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gfdm_tpu_torch.examples.multichip_sharding",
+                           "--device", dev.type], cwd=root, capture_output=True, text=True,
+                          timeout=PAR_TIMEOUT_S)
+    line = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or "sp_serve_found=4" not in line:
+        failures.append(f"multichip_sharding rc={proc.returncode}: {line} "
+                        f"{proc.stderr[-800:]}")
+    print(f"[14 example] multichip_sharding (own process, {time.perf_counter() - t0:.1f} s): "
+          f"{line} ({card})", flush=True)
+    _reset_launches()
+    t0 = time.perf_counter()
+    r = dryrun_multihost(PAR_PROCS, device=dev)
+    shutil.rmtree(r.pop("out_dir"), ignore_errors=True)
+    print(f"[14 example] dryrun_multihost ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(r)} (one card shared by {PAR_PROCS} processes, {card})", flush=True)
+
+
+def _parallel_phase(torch, cfg, dev, streams, card, check, failures) -> None:
+    """Phase 14: the parallel layer (see the module docstring)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from gfdm_tpu_torch.entry import dryrun_multichip
+    from gfdm_tpu_torch.parallel.multihost import build_stream_chunks, launch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    # (a) the sp service at full width
+    _sp_service(torch, cfg, dev, streams["friendly"][0], card, check, failures)
+    # (b) the sharded detection on a virtual card mesh vs the CPU
+    _sharded_detection(torch, cfg, dev, card, check)
+    # (c) the eight-device dry run on the card
+    _reset_launches()
+    res = dryrun_multichip(PAR_DP * PAR_SP, device=dev)
+    run = _launches()
+    if run["rx"] < 1:
+        failures.append("dryrun_multichip launched no receiver kernel")
+    print(f"[14 dryrun] multichip {res} launches={{rx: {run['rx']}}} "
+          + check("evm", res["evm"], TOL["evm_max"]) + " "
+          + check("sp_serve_found!=dp", float(res["sp_serve_found"] != res["dp"]), 0.0)
+          + f" ({card})", flush=True)
+    # (d) two processes on the one card, one gloo group
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_par_", dir=root / "build"))
+    try:
+        t0 = time.perf_counter()
+        r = launch(PAR_PROCS, n_chunks=PAR_CHUNKS, out_dir=str(work), timeout=PAR_TIMEOUT_S,
+                   device=dev.type, batch_chunks=PAR_BATCH)
+        wall = time.perf_counter() - t0
+        found = np.concatenate([np.load(work / f"n{PAR_PROCS}" / f"proc{i}.npz")["found"]
+                                for i in range(PAR_PROCS)])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    expect = build_stream_chunks(cfg, PAR_CHUNKS, device=dev)[2]
+    print(f"[14 multihost] {PAR_PROCS} processes x {PAR_CHUNKS // PAR_PROCS} chunks (batch "
+          f"{PAR_BATCH}, xla engine): bursts={r['bursts_found']} (sent {int(expect.sum())}; "
+          f"false alarms in empty chunks at {np.flatnonzero(found & ~expect).tolist()}) "
+          + check("parity", float(not r["parity"]), 0.0) + " "
+          + check("psum", float(not r["psum_ok"]), 0.0) + " "
+          + check("missed", float((expect & ~found).sum()), 0.0) + " "
+          + check("false_alarm_share", float((found & ~expect).mean()), PAR_FALSE_ALARM_SHARE)
+          + f" serve {r['serve_seconds_multi_max'] * 1e3:.1f} ms/process vs "
+          f"{r['serve_seconds_single'] * 1e3:.1f} ms one process, efficiency "
+          f"{r['efficiency']:.3f} (one card shared: contention, not scaling); launch wall "
+          f"{wall:.1f} s ({card})", flush=True)
+    # (e) the seven examples
+    _parallel_examples(torch, cfg, dev, root, card, check, failures)
+    print(f"[14 wall] phase 14 {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
 def _udp_ingest(native, ring, tries: int = 20):
@@ -2776,6 +3179,10 @@ def main() -> int:
     # 13. the application layer: the CLI, simulate, the evaluation harnesses,
     # the block flowgraph and the legacy modulator
     _app_phase(torch, cfg, dev, card, check, failures)
+
+    # 14. the parallel layer: the sp service, the sharded detection, the dry
+    # runs, the multi-process serve and the last seven examples
+    _parallel_phase(torch, cfg, dev, streams, card, check, failures)
 
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -16,8 +16,12 @@ counterpart of the same name:
   kernels, the two detection front-end kernels and the link's GEMM chain
   (f32, bf16, int8), written in CUDA C++ for Hopper (``csrc/``), each with
   its plain torch version;
-- :mod:`.runtime` - chunked streams, the streaming receive service (with
-  the coded modem, ``fec="conv"``), the streaming transmit service on the
+- :mod:`.parallel` - the device mesh (a device may repeat), the halo
+  exchange, sample-axis-sharded detection, the metrics' sum, and the
+  multi-process serve over a gloo group;
+- :mod:`.runtime` - chunked streams, the streaming receive service over a
+  mesh (sample-axis sharded with ``sp_shards > 1``; the coded modem,
+  ``fec="conv"``), the streaming transmit service on the
   Tx kernel with its UDP sink, the burst scheduler, the complex-dtype
   transmitter / receiver chain and the channel simulation;
 - :mod:`.native` - the host runtime over ``csrc/gfdm_host.cpp`` (built with
@@ -26,11 +30,13 @@ counterpart of the same name:
 - :mod:`.coding`, :mod:`.ops.softbits`, :mod:`.cli`, :mod:`.utils.framing`
   - the rate-1/2 K=7 code with its Viterbi decoder (torch ops), max-log
   soft bits, and the CRC-32 payload framing; :mod:`.utils.converter` - sc16
-  <-> complex in NumPy;
+  <-> complex in NumPy; :mod:`.utils.profiling` - the stage timer (CUDA
+  events) and profiler traces;
 - :mod:`.eval` - the coded service's sensitivity sweep;
 - :mod:`.device` - where an entry point runs: the card unless the caller
   passes ``device="cpu"``;
-- :mod:`.entry` - the main-path step and the service's synthetic stream,
+- :mod:`.entry` - the main-path step, the service's synthetic stream and
+  the multi-chip / multi-process dry runs,
   :mod:`.convert` - constants carried over from the JAX package;
 - :mod:`.benchmarks` - the benchmarks run on the card
   (``python -m gfdm_tpu_torch.benchmarks.int8_gauss``).

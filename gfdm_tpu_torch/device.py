@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_tensor", "device_const"]
+__all__ = ["resolve_device", "as_tensor", "move", "device_const"]
 
 
 def resolve_device(device, who: str) -> torch.device:
@@ -29,6 +29,12 @@ def as_tensor(x, device, who: str) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
     return torch.as_tensor(np.asarray(x), device=resolve_device(device, who))
+
+
+def move(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``; a copy to a card does not wait for the host (a
+    copy to the host does: its data is read next)."""
+    return x if x.device == device else x.to(device, non_blocking=device.type == "cuda")
 
 
 _CONSTS: dict = {}

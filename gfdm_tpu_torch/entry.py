@@ -8,6 +8,9 @@ accelerator. ``service_stream`` is the counterpart of
 receive service is measured on. ``large_k_config`` is the configuration of
 ``benchmarks/largek_crossover.py``, the large-K factored link's.
 ``cdd_link`` is the two-antenna link of ``examples/cdd_two_antenna.py``.
+``dryrun_multichip`` and ``dryrun_multihost`` are the counterparts of
+``__graft_entry__``'s: one sharded step on a (virtual) device mesh, and a
+serve split over processes.
 """
 from __future__ import annotations
 
@@ -15,11 +18,13 @@ import numpy as np
 import torch
 
 from .config import GfdmConfig
+from .device import resolve_device
 from .kernels.fused import link_single_fused, receive_bursts_fused, tx_cdd_fused
 from .ops.planar_pipeline import prepare, transmit_planar
 from .ops.rx import constellation_points
 
-__all__ = ["cdd_channel", "cdd_link", "entry", "large_k_config", "planar_payload", "service_stream"]
+__all__ = ["cdd_channel", "cdd_link", "dryrun_multichip", "dryrun_multihost", "entry",
+           "large_k_config", "planar_payload", "service_stream"]
 
 # examples/cdd_two_antenna.py's per-antenna multipath taps
 CDD_TAPS = (np.array([1.0, 0.2 + 0.1j]), np.array([0.8 - 0.2j, 0.0, 0.15]))
@@ -193,3 +198,118 @@ def cdd_link(cfg: GfdmConfig, data: torch.Tensor, snr_db: float, seed: int,
     the payload's device."""
     rx = cdd_channel(tx_cdd_fused(cfg, data), snr_db, seed)
     return receive_bursts_fused(cfg, rx, ic_iterations=ic_iterations)["data"]
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """Run ONE sharded end-to-end step on a virtual mesh of ``n_devices``
+    copies of ``device`` (the card unless ``device="cpu"``).
+
+    Shardings exercised, each shard group on a device as one batched call:
+      - 'dp': bursts split over the mesh's rows (the throughput axis): the
+        Tx, and the receiver with the EVM;
+      - 'sp': the IQ stream's sample axis split over a row's columns, with
+        the halo exchange, so bursts straddling chunk boundaries are found
+        (``parallel.detect_bursts_sharded``), then the owner pick;
+      - one step of the sp-sharded StreamingReceiver on the same mesh, whose
+        boundary-straddling bursts must all be owned by shard 0.
+    Prints __graft_entry__.dryrun_multichip's line; returns its figures.
+    """
+    from .parallel import detect_bursts_sharded, dp_map, make_mesh
+    from .ops.planar_pipeline import receive_bursts_planar
+    from .runtime.service import StreamingReceiver
+
+    dev = resolve_device(device, "dryrun_multichip")
+    sp = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
+    dp = n_devices // sp
+    mesh = make_mesh([dev] * n_devices, dp=dp, sp=sp)
+    cfg = GfdmConfig()
+    prepare(cfg, device=dev)
+
+    batch = 2 * dp
+    chunk_len = 1024
+    data = torch.from_numpy(planar_payload(cfg, batch, seed=1)).to(dev)
+    offset = chunk_len - cfg.frame_len // 2 if sp > 1 else 64
+
+    def tx_step(d):
+        # dp-sharded Tx: one burst per payload, placed in an sp-shardable stream
+        bursts = transmit_planar(cfg, d)[:, 0]  # (B, 2, frame_len)
+        stream = torch.zeros((d.shape[0], 2, sp * chunk_len), dtype=bursts.dtype,
+                             device=d.device)
+        stream[..., offset : offset + cfg.frame_len] = bursts
+        return stream
+
+    stream = dp_map(mesh, tx_step, data)
+    # sp-sharded sync + extraction with the halo exchange
+    det, bursts = detect_bursts_sharded(cfg, mesh, stream, halo=cfg.frame_len + 64,
+                                        planar=True)
+    # pick the owning chunk's burst (strongest FOUND = owned + CFAR-valid
+    # detection) per stream: the left neighbour also sees the burst inside
+    # its halo, but that detection has start >= chunk_len and found=False
+    best = torch.argmax(det["strength"] * det["found"], dim=1)
+    chosen = bursts[torch.arange(batch, device=bursts.device), best]
+
+    def rx_step(b):
+        return receive_bursts_planar(cfg, b, ic_iterations=2)["data"]
+
+    d_hat = dp_map(mesh, rx_step, chosen)
+    evm = float(torch.sqrt(((d_hat - data) ** 2).sum()
+                           / torch.clamp_min((data**2).sum(), 1e-30)))
+    if not np.isfinite(evm):
+        raise RuntimeError("dry run produced a non-finite EVM")
+
+    # the serve()-path form of the same shardings: one step of the
+    # sp-sharded StreamingReceiver over the mesh
+    sp_found = -1
+    if sp > 1:
+        svc_chunk = sp * chunk_len
+        halo = cfg.frame_len + cfg.cp_len
+        rx = StreamingReceiver(cfg, chunk_len=svc_chunk, batch_chunks=dp,
+                               engine="fused", sp_shards=sp, mesh=mesh)
+        ext_chunks = np.zeros((dp, 2, svc_chunk + halo), np.float32)
+        ext_chunks[:, :, :svc_chunk] = stream[:dp].cpu().numpy()
+        # light noise so the CFAR has a real noise floor (a silent stream
+        # degenerates the threshold toward zero and every shard fires)
+        rng = np.random.default_rng(2)
+        ext_chunks += (0.02 * np.abs(ext_chunks).max()) * rng.standard_normal(
+            ext_chunks.shape).astype(np.float32)
+        out = rx.step(ext_chunks)
+        # slots are (chunk, shard): the burst straddles the sub-chunk
+        # boundary and is owned by shard 0 through the halo; shard 1 stays
+        # quiet
+        slot_found = out["found"].reshape(dp, sp)
+        if not (slot_found[:, 0].all() and not slot_found[:, 1:].any()):
+            raise RuntimeError(f"sp-sharded serve ownership wrong: {slot_found.tolist()}")
+        sp_found = int(slot_found.sum())
+    print(
+        f"dryrun_multichip: mesh dp={dp} sp={sp}, batch={batch}, "
+        f"chunk_len={chunk_len}, EVM={evm:.4f}, sp_serve_found={sp_found}"
+    )
+    return {"dp": dp, "sp": sp, "batch": batch, "chunk_len": chunk_len, "evm": evm,
+            "sp_serve_found": sp_found}
+
+
+def dryrun_multihost(n_processes: int = 2, device=None) -> dict:
+    """Serve one burst stream split over ``n_processes`` OS processes in one
+    torch.distributed (gloo) group, on the card unless ``device="cpu"``
+    (processes may share the card), plus a one-process baseline
+    (``parallel.multihost.launch``). Raises unless the payloads equal the
+    baseline's and the metrics' sum agrees in every process; prints
+    __graft_entry__.dryrun_multihost's line (on one shared card the
+    efficiency measures contention, not scaling) and returns launch's dict.
+    """
+    from .parallel.multihost import launch
+
+    dev = resolve_device(device, "dryrun_multihost")
+    r = launch(num_processes=n_processes, n_chunks=16, timeout=540, device=dev.type)
+    if not r["parity"]:
+        raise RuntimeError("multi-process payloads diverged from the one-process run")
+    if not r["psum_ok"]:
+        raise RuntimeError("the cross-process metrics' sum disagreed")
+    print(
+        f"dryrun_multihost: {n_processes} processes, {r['n_chunks']} chunks, "
+        f"{r['bursts_found']} bursts, parity OK, psum OK, "
+        f"serve {r['serve_seconds_multi_max']*1e3:.1f} ms/host vs "
+        f"{r['serve_seconds_single']*1e3:.1f} ms single, "
+        f"efficiency {r['efficiency']:.2f}"
+    )
+    return r

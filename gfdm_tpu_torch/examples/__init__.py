@@ -5,6 +5,13 @@
     python -m gfdm_tpu_torch.examples.ber_sweep [--device cpu]
     python -m gfdm_tpu_torch.examples.coded_link [--device cpu]
     python -m gfdm_tpu_torch.examples.spectrum_study [--device cpu]
+    python -m gfdm_tpu_torch.examples.cdd_two_antenna [--device cpu]
+    python -m gfdm_tpu_torch.examples.coded_service [--device cpu]
+    python -m gfdm_tpu_torch.examples.full_duplex_udp [--device cpu]
+    python -m gfdm_tpu_torch.examples.large_k_link [--device cpu]
+    python -m gfdm_tpu_torch.examples.stream_receiver [--device cpu]
+    python -m gfdm_tpu_torch.examples.streaming_service [--device cpu]
+    python -m gfdm_tpu_torch.examples.multichip_sharding [--device cpu]
 
 Each keeps its counterpart's defaults and printout (examples/*.py of the
 JAX package) and runs on the card unless given ``--device cpu``; each

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import GfdmConfig
+from ..device import resolve_device
 from . import operators
 from .planar import (
     bf16_operator, host_dtype, pabs2, pdiv, pmatmul, pmul, real_operator, to_planar,
@@ -132,13 +133,14 @@ def _est_consts(cfg: GfdmConfig, dtype_name: str):
 _DEVICE_CACHE: dict = {}
 
 
-def fast_consts(cfg: GfdmConfig, dtype_name: str = "float32", device="cpu") -> dict:
-    """:func:`_fft_consts` and :func:`_est_consts` as tensors on ``device``,
-    uploaded once per (config, dtype, device); index arrays as int32. Both
+def fast_consts(cfg: GfdmConfig, dtype_name: str = "float32", device=None) -> dict:
+    """:func:`_fft_consts` and :func:`_est_consts` as tensors on ``device``
+    (the card unless ``device="cpu"``), uploaded once per (config, dtype,
+    device); index arrays as int32. Both
     sets hold the same ``FK_W``. With ``dtype_name="bfloat16"`` every table
     of :func:`_fft_consts` (and so ``FK_W``) is bf16, the estimator's other
     tables float32, as in the JAX package."""
-    device = torch.device(device)
+    device = resolve_device(device, "fast_consts")
     key = (cfg, dtype_name, str(device))
     hit = _DEVICE_CACHE.get(key)
     if hit is None:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import GfdmConfig
+from ..device import resolve_device
 from ..ref.demodulation import ic_filter_taps as _ic_taps_ref
 from . import operators
 from .planar import (
@@ -206,10 +207,11 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def prepare(cfg: GfdmConfig, dtype_name: str = "float32", device="cpu", *,
+def prepare(cfg: GfdmConfig, dtype_name: str = "float32", device=None, *,
             method: str = "dense") -> None:
-    """Eagerly build and upload all operators of ``method`` for ``device``."""
-    _device_mats(cfg, dtype_name, device, method)
+    """Eagerly build and upload all operators of ``method`` for ``device``
+    (the card unless ``device="cpu"``)."""
+    _device_mats(cfg, dtype_name, resolve_device(device, "prepare"), method)
 
 
 def _dtype_name(x: torch.Tensor) -> str:

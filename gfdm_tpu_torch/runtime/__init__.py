@@ -1,1 +1,1 @@
-"""Streaming receive: chunked streams and the receive service on one device."""
+"""Streaming receive: chunked streams and the receive service over a device mesh."""

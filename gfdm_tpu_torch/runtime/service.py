@@ -1,12 +1,24 @@
-"""Streaming receive service: a persistent receive loop on one device.
+"""Streaming receive service: a persistent receive loop over a device mesh.
 
-The port of ``gfdm_tpu.runtime.service`` for one card. Radio front-ends or
-file readers feed a ring of halo-extended chunks (the framework-free native
+The port of ``gfdm_tpu.runtime.service``. Radio front-ends or file readers
+feed a ring of halo-extended chunks (the framework-free native
 ``StreamBuffer`` of the port's ``native`` fits: anything with ``.pull(n)``);
-the service copies each batch to the device, runs detection, extraction,
-two-stage CFO and the receiver, and hands payloads and metrics to a sink.
-The GNU Radio analogue is the running flowgraph's scheduler loop
+the service copies each batch to the devices of its ('dp', 'sp') mesh
+(``parallel.mesh``), runs detection, extraction, two-stage CFO and the
+receiver, and hands payloads and metrics to a sink. The GNU Radio analogue
+is the running flowgraph's scheduler loop
 (gr-gfdm/examples/hier_gfdm_receiver_tagged.grc).
+
+Mesh: the batch splits over the 'dp' rows; with ``sp_shards > 1`` each
+chunk's owned region splits into sp sub-chunks over a row's columns, each
+extended by the next sub-chunk's head and the last by the chunk's lookahead
+tail. Shards that share a device run as one step, so on one card (a
+"virtual" mesh of ``cuda:0`` repeated) a batch is one step at full width.
+
+Multi-process: chunk batches are assigned to processes in contiguous time
+ranges (``host_chunk_range``), so steady-state reception needs no
+collective; ``init_distributed`` joins a ``torch.distributed`` group for the
+metrics' sum (``parallel.multihost``).
 
 Host-device protocol: a batch goes host -> device through pinned memory
 with ``non_blocking=True`` on the device's current stream; the step only
@@ -14,11 +26,9 @@ enqueues work (no ``.item()``, no Python branch on a tensor), so with
 ``pipeline_depth=2`` the next batch is copied and enqueued while the card
 still runs the previous one. Only ``_fetch`` waits for the card.
 
-``fec="conv"`` also soft-decodes every slot on the service's device (max-log
-LLRs, deinterleave, radix Viterbi: ``_build_fec``) and returns its info
-bits. The JAX package's device mesh, ``shard_map`` and VMEM block picker
-have no counterpart on one card; ``sp_shards > 1`` waits for ROADMAP.md
-Queue 1 item 10.
+``fec="conv"`` also soft-decodes every slot on its device (max-log LLRs,
+deinterleave, radix Viterbi: ``_build_fec``) and returns its info bits. The
+JAX package's VMEM block picker has no counterpart here.
 """
 from __future__ import annotations
 
@@ -29,10 +39,42 @@ import numpy as np
 import torch
 
 from ..config import GfdmConfig
-from ..device import resolve_device
+from ..device import move, resolve_device
+from ..parallel.mesh import device_runs, make_mesh
 from .stream import _flatten_slots, _found_mask, receive_chunks_planar
 
-__all__ = ["host_chunk_range", "ServiceStats", "StreamingReceiver"]
+__all__ = ["init_distributed", "host_chunk_range", "ServiceStats", "StreamingReceiver"]
+
+
+def init_distributed(coordinator_address: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None) -> bool:
+    """Join a ``torch.distributed`` group for a multi-process deployment.
+
+    Arguments fall back to torch's standard environment: ``MASTER_ADDR`` /
+    ``MASTER_PORT`` (the coordinator ``host:port``), ``WORLD_SIZE`` and
+    ``RANK``. Without an address it is a no-op returning whether a group of
+    more than one process is active; an initialized group is left alone.
+    The backend is gloo: the values summed across processes are host
+    counts, and NCCL refuses two ranks on one card.
+    """
+    import os
+
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        if coordinator_address is None and "MASTER_ADDR" in os.environ:
+            coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
+                                   f"{os.environ.get('MASTER_PORT', '29500')}")
+        if coordinator_address is None:
+            return False
+        if num_processes is None:
+            num_processes = int(os.environ["WORLD_SIZE"])
+        if process_id is None:
+            process_id = int(os.environ["RANK"])
+        dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
+                                world_size=num_processes, rank=process_id)
+    return dist.get_world_size() > 1
 
 
 def host_chunk_range(total_chunks: int, n_hosts: int, host: int) -> range:
@@ -64,17 +106,20 @@ class ServiceStats:
 
 @dataclass
 class StreamingReceiver:
-    """Persistent receive loop over halo-extended chunk batches on one device.
+    """Persistent receive loop over halo-extended chunk batches on a mesh.
 
-    One step receives ``batch_chunks`` chunks at a time; detection,
-    extraction and demodulation are chunk-local. Feed it from a ring with
+    One step receives ``batch_chunks`` chunks at a time, the chunk axis
+    split over the mesh's 'dp' rows; detection, extraction and
+    demodulation are chunk-local. Feed it from a ring with
     ``.pull(n)`` (the native StreamBuffer/StreamBank), a file, or any
     callable source. ``engine="fused"`` runs the CUDA receiver kernel
     (kernels/fused.receive_bursts_fused) after detection; ``"xla"`` keeps
     the whole step as torch ops (runtime/stream.receive_chunks_planar).
-    ``device`` defaults to the current CUDA device; without one the
-    constructor raises. Pass ``device="cpu"`` to run on the CPU, where the
-    kernels' wrappers run their plain versions.
+    ``mesh`` (``parallel.make_mesh``) defaults to one over ``device``, or
+    over every visible card when ``device`` is None, reshaped (-1, sp);
+    ``device`` defaults to the mesh's first device, else the current CUDA
+    device; without one the constructor raises. Pass ``device="cpu"`` to run
+    on the CPU, where the kernels' wrappers run their plain versions.
     """
 
     cfg: GfdmConfig
@@ -111,7 +156,14 @@ class StreamingReceiver:
     # priced budget, tests/test_detection.py::test_bf16_cfo_budget_is_priced)
     dtype_name: str = "bfloat16"
     engine: str = "xla"  # "xla" | "fused" (CUDA receiver kernel)
-    sp_shards: int = 1  # > 1 is ROADMAP.md Queue 1 item 10
+    # sample-axis sharding: each chunk's owned region is split into
+    # sp_shards sub-chunks laid over the mesh's 'sp' axis; each sub-chunk is
+    # extended by the next one's head (a device-to-device copy where the
+    # next shard lives on another device) and the last by the chunk's
+    # lookahead tail. Requires the fused engine, one burst per sub-chunk,
+    # chunk_len % sp_shards == 0 and sub-chunks no shorter than the halo.
+    sp_shards: int = 1
+    mesh: object = None
     # serve() keeps up to this many dispatched batches in flight before
     # fetching: 2 (double buffering) overlaps the host copy and the next
     # batch's enqueue with the card's compute; 1 is the single-deep loop
@@ -126,32 +178,56 @@ class StreamingReceiver:
             self.max_batch_chunks < self.batch_chunks
         ):
             raise ValueError("max_batch_chunks must be >= batch_chunks")
-        if int(self.sp_shards) > 1:
-            raise NotImplementedError(
-                f"sp_shards={self.sp_shards}: the sample-axis-sharded service "
-                "is ROADMAP.md Queue 1 item 10"
-            )
+        sp = int(self.sp_shards)
+        if self.mesh is None:  # the given device, else every visible card
+            dev = resolve_device(self.device, "StreamingReceiver")
+            devices = ([dev] if self.device is not None
+                       else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+            if len(devices) % sp:
+                raise ValueError(f"{len(devices)} devices not divisible by sp_shards={sp}")
+            self.mesh = make_mesh(devices, sp=sp)
+        self.halo = self.cfg.frame_len + self.cfg.cp_len
+        self.ext = self.chunk_len + self.halo
+        if sp > 1:
+            if self.engine != "fused":
+                raise ValueError("sp_shards > 1 requires engine='fused'")
+            if self.max_bursts_per_chunk > 1:
+                raise ValueError("sp_shards > 1 supports one burst per sub-chunk")
+            if self.mesh.shape["sp"] != sp:
+                raise ValueError("mesh 'sp' axis must match sp_shards")
+            if self.chunk_len % sp:
+                raise ValueError("chunk_len must divide evenly into sp_shards")
+            if self.chunk_len // sp < self.halo:
+                raise ValueError(
+                    f"sub-chunks ({self.chunk_len // sp}) shorter than the "
+                    f"halo ({self.halo}); lower sp_shards or raise chunk_len"
+                )
         if self.fec not in ("none", "conv"):
             raise ValueError(f"unknown fec {self.fec!r}")
         if self.engine not in ("xla", "fused"):
             raise ValueError(f"unknown engine {self.engine!r}")
-        self.device = resolve_device(self.device, "StreamingReceiver")
+        self.device = torch.device(self.device if self.device is not None
+                                   else self.mesh.devices[0, 0])
         if self.fec == "conv":
             self._build_fec()
-        self.halo = self.cfg.frame_len + self.cfg.cp_len
-        self.ext = self.chunk_len + self.halo
-        self._spc = max(1, self.max_bursts_per_chunk)  # slots per chunk
+        self._sub = self.chunk_len // sp  # owned samples a shard
+        # slots per chunk: sp sub-chunks x k detection picks
+        self._spc = sp * max(1, self.max_bursts_per_chunk)
+        self._plans: dict = {}
+        from ..kernels.fused import _kernel_consts, _rx_options
+        from ..ops.planar_pipeline import prepare
+
         if self.engine == "fused":
-            from ..kernels.fused import _kernel_consts, _rx_options
-
             _rx_options(constellation=self.constellation, equalizer=self.equalizer)
-            _kernel_consts(self.cfg, self.device)
-            self._step = self._fused_step
+        for dev in self.mesh.distinct_devices():
+            if self.engine == "fused":
+                _kernel_consts(self.cfg, dev)
+            else:
+                prepare(self.cfg, "float32", dev, method=self.method)
+        if sp > 1:
+            self._step = self._sp_step
         else:
-            from ..ops.planar_pipeline import prepare
-
-            prepare(self.cfg, "float32", self.device, method=self.method)
-            self._step = self._xla_step
+            self._step = self._fused_step if self.engine == "fused" else self._xla_step
 
     def _build_fec(self):
         """Device-side soft decoder matching the CLI's conv framing.
@@ -184,7 +260,8 @@ class StreamingReceiver:
 
         nv = 1.0 / torch.clamp_min(snr_lin, 1e-6)
         llrs = maxlog_llrs_planar(data_pl, self._fec_points, nv[..., None])
-        llrs = llrs.reshape(llrs.shape[0], -1).index_select(1, self._fec_inv)
+        llrs = llrs.reshape(llrs.shape[0], -1).index_select(
+            1, move(self._fec_inv, llrs.device))
         return viterbi_decode(llrs, self.fec_info_bits)
 
     def _xla_step(self, chunks: torch.Tensor) -> dict:
@@ -205,13 +282,16 @@ class StreamingReceiver:
             out["bits"] = self._fec_decode(out["data"], out["snr_lin"])
         return out
 
-    def _fused_step(self, chunks: torch.Tensor) -> dict:
+    def _fused_step(self, chunks: torch.Tensor, owned: int | None = None) -> dict:
         """Detection, extraction and two-stage CFO as torch ops (or the
-        detection kernels, by DETECT_IMPL), then the CUDA receiver kernel."""
+        detection kernels, by DETECT_IMPL), then the CUDA receiver kernel.
+        ``owned``: the samples each chunk owns (the detection's search limit
+        and the found mask's ownership), chunk_len by default."""
         from ..kernels import fused as fk
         from ..ops import planar_pipeline as pp
 
-        cfg, chunk_len, k = self.cfg, self.chunk_len, self._spc
+        cfg, k = self.cfg, max(1, self.max_bursts_per_chunk)
+        chunk_len = self.chunk_len if owned is None else owned
         if k <= 1:
             det = pp.detect_bursts_planar(cfg, chunks, search_limit=chunk_len,
                                           dtype_name=self.dtype_name)
@@ -242,12 +322,27 @@ class StreamingReceiver:
             out["bits"] = self._fec_decode(out["data"], out["snr_lin"])
         return out
 
+    def _sp_step(self, chunks: torch.Tensor) -> dict:
+        """Sample-axis-sharded step over shards j0..j1 - 1 of a chunk batch on
+        one device: ``chunks`` holds their owned samples and the next sub-
+        chunk's head, or the chunk's lookahead tail after the last shard,
+        (n, 2, (j1 - j0) * sub + halo). Each sub-chunk's window is itself
+        plus that head or tail, so the windows are ``chunks.unfold``: one
+        detection, extraction and receiver call over n * (j1 - j0) windows,
+        chunk-major. On one device (j0 = 0, j1 = sp) ``chunks`` is the whole
+        halo-extended chunk."""
+        sub, halo = self._sub, self.halo
+        win = chunks.unfold(-1, sub + halo, sub)  # (n, 2, shards, sub + halo)
+        return self._fused_step(win.transpose(1, 2).reshape(-1, 2, sub + halo), sub)
+
     def _slot_offsets(self, n: int) -> np.ndarray:
-        """Per-slot sample offset of each slot's chunk in the recording."""
-        return np.repeat(np.arange(n) * self.chunk_len, self._spc)
+        """Per-slot sample offset of each slot's sub-chunk in the recording."""
+        k = max(1, self.max_bursts_per_chunk)
+        pat = np.repeat(np.arange(self.sp_shards) * self._sub, k)
+        return np.repeat(np.arange(n) * self.chunk_len, self._spc) + np.tile(pat, n)
 
     def _padded_batch(self, n: int) -> int:
-        """Pad a batch size up the geometric shape ladder.
+        """Pad a batch size up the geometric shape ladder (x dp alignment).
 
         Bounds the set of batch shapes (and so of cached allocations) to
         the ladder's length while wasting < 2x compute on partial batches.
@@ -255,41 +350,78 @@ class StreamingReceiver:
         size = self.batch_chunks
         while size < n:
             size *= 2
-        return size
+        dp = self.mesh.shape["dp"]
+        return ((size + dp - 1) // dp) * dp
+
+    def _plan(self, size: int) -> list:
+        """The steps of a ``size``-chunk batch: [(c0, c1, runs)], chunks
+        c0..c1 - 1 (consecutive 'dp' rows with the same device layout) and
+        ``runs`` [(device, j0, j1)]: shards j0..j1 - 1 of those chunks run
+        as one step on ``device``."""
+        plan = self._plans.get(size)
+        if plan is None:
+            b = size // self.mesh.shape["dp"]
+            plan = []
+            for r, row in enumerate(self.mesh.devices):
+                runs = device_runs(row)
+                if plan and plan[-1][2] == runs:
+                    plan[-1] = (plan[-1][0], (r + 1) * b, runs)
+                else:
+                    plan.append((r * b, (r + 1) * b, runs))
+            plan = self._plans[size] = plan
+        return plan
 
     def _dispatch(self, chunks: np.ndarray):
-        """Copy one batch to the device and enqueue its step; returns
-        (device outputs, n). Makes no host sync."""
+        """Copy one batch to the mesh and enqueue its steps; returns
+        ([(c0, c1, j0, j1, device outputs)], n). Makes no host sync.
+
+        Each block of rows is copied once, to the device of its first
+        shard; a run of shards on another device takes its samples (with
+        the next sub-chunk's head or the lookahead tail) from there with a
+        device-to-device copy."""
         n = chunks.shape[0]
         size = self._padded_batch(n)
-        cuda = self.device.type == "cuda"
+        cuda = any(d.type == "cuda" for d in self.mesh.distinct_devices())
         host = torch.empty((size,) + tuple(chunks.shape[1:]), dtype=torch.float32,
                            pin_memory=cuda)
         host_np = host.numpy()
         host_np[:n] = chunks
         host_np[n:] = 0.0
-        t = host.to(self.device, non_blocking=True) if cuda else host
-        return self._step(t), n
+        outs = []
+        for c0, c1, runs in self._plan(size):
+            staged = move(host[c0:c1], runs[0][0])
+            for dev, j0, j1 in runs:
+                part = staged[..., j0 * self._sub : j1 * self._sub + self.halo]
+                outs.append((c0, c1, j0, j1, self._step(move(part, dev))))
+        return outs, n
 
-    def _fetch(self, out: dict, n: int, fetch: tuple = ()):
+    def _fetch(self, outs: list, n: int, fetch: tuple = ()):
         """Fetch one dispatched batch to the host and account stats."""
         # slots are chunk-major; padded chunks land at the end and are trimmed
         slots = n * self._spc
+        keys = ("data", "snr_lin", "found", "start", "cfo") + (
+            ("bits",) if "bits" in outs[0][-1] else ()) + tuple(fetch)
 
-        def host(t):
-            return t.cpu().numpy()[:slots]
+        def host(out, key):
+            t = out["detection"][key].reshape(-1) if key in ("start", "cfo") else out[key]
+            return t.cpu().numpy()
 
-        got = {
-            "data": host(out["data"]),
-            "snr_lin": host(out["snr_lin"]),
-            "found": host(out["found"]),
-            "start": host(out["detection"]["start"].reshape(-1)),
-            "cfo": host(out["detection"]["cfo"].reshape(-1)),
-        }
-        if "bits" in out:  # fec="conv": the device-decoded info bits a slot
-            got["bits"] = host(out["bits"])
-        for key in fetch:
-            got[key] = host(out[key])
+        if len(outs) == 1:
+            got = {key: host(outs[0][-1], key)[:slots] for key in keys}
+        else:  # place each step's slots at chunk * spc + shard * k + pick
+            k = max(1, self.max_bursts_per_chunk)
+            got = {}
+            for c0, c1, j0, j1, out in outs:
+                idx = ((np.arange(c0, c1)[:, None, None] * self.sp_shards
+                        + np.arange(j0, j1)[None, :, None]) * k
+                       + np.arange(k)[None, None, :]).reshape(-1)
+                for key in keys:
+                    part = host(out, key)
+                    if key not in got:
+                        got[key] = np.empty((max(o[1] for o in outs) * self._spc,)
+                                            + part.shape[1:], part.dtype)
+                    got[key][idx] = part
+            got = {key: v[:slots] for key, v in got.items()}
         self.stats.batches += 1
         self.stats.chunks += n
         self.stats.samples += n * self.chunk_len

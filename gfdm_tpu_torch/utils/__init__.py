@@ -1,2 +1,2 @@
-"""Host helpers: payload framing (bit packing and CRC-32) and sc16 IQ
-format conversion."""
+"""Host helpers: payload framing (bit packing and CRC-32), sc16 IQ format
+conversion, and stage timing (``profiling``)."""

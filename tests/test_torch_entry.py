@@ -39,38 +39,64 @@ def test_entry_example_args():
 
 
 def test_port_imports_neither_jax_nor_the_reference_package():
+    """Every module of the package (walked, so a new one cannot slip past),
+    the CLI's info command and chip_smoke.py import neither JAX nor
+    gfdm_tpu."""
     code = (
-        "import gfdm_tpu_torch, gfdm_tpu_torch.kernels.fused, gfdm_tpu_torch.entry, "
-        "gfdm_tpu_torch.convert, gfdm_tpu_torch.kernels.detect, gfdm_tpu_torch.ref, "
-        "gfdm_tpu_torch.ops.sync, gfdm_tpu_torch.ops.rx, gfdm_tpu_torch.ops.planar_fast, "
-        "gfdm_tpu_torch.kernels.cuda_lib, gfdm_tpu_torch.kernels.chain, "
-        "gfdm_tpu_torch.benchmarks.int8_gauss, "
-        "gfdm_tpu_torch.runtime.stream, gfdm_tpu_torch.runtime.service, "
-        "gfdm_tpu_torch.device, gfdm_tpu_torch.utils.framing, gfdm_tpu_torch.coding, "
-        "gfdm_tpu_torch.ops.softbits, gfdm_tpu_torch.cli, gfdm_tpu_torch.runtime.timing, "
-        "gfdm_tpu_torch.runtime.transmit_service, gfdm_tpu_torch.eval.sensitivity, "
-        "gfdm_tpu_torch.native, gfdm_tpu_torch.utils.converter, gfdm_tpu_torch.runtime.channel, "
-        "gfdm_tpu_torch.runtime.transmitter, gfdm_tpu_torch.runtime.receiver, "
-        "gfdm_tpu_torch.ops.tx, gfdm_tpu_torch.ops.estimation, gfdm_tpu_torch.ops.burst, "
-        "gfdm_tpu_torch.ops._validate, gfdm_tpu_torch.ops._complex, sys; "
-        "import gfdm_tpu_torch.blocks, gfdm_tpu_torch.ops.legacy, gfdm_tpu_torch.ref.legacy, "
-        "gfdm_tpu_torch.ref.validation, gfdm_tpu_torch.eval, gfdm_tpu_torch.eval.ber, "
-        "gfdm_tpu_torch.eval.coded, gfdm_tpu_torch.eval.snr_study, "
-        "gfdm_tpu_torch.eval.spectrum, gfdm_tpu_torch.eval.plotting, "
-        "gfdm_tpu_torch.examples, gfdm_tpu_torch.examples.loopback_simulation, "
-        "gfdm_tpu_torch.examples.ota_style_link, gfdm_tpu_torch.examples.ber_sweep, "
-        "gfdm_tpu_torch.examples.coded_link, gfdm_tpu_torch.examples.spectrum_study; "
-        "gfdm_tpu_torch.native.available(); "
+        "import importlib, pkgutil, sys\n"
+        "import gfdm_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(gfdm_tpu_torch.__path__, "
+        "'gfdm_tpu_torch.') if m.name.rsplit('.', 1)[-1] != '__main__']\n"
+        "for name in names:\n    importlib.import_module(name)\n"
+        "for name in ('gfdm_tpu_torch.parallel.mesh', 'gfdm_tpu_torch.parallel.multihost', "
+        "'gfdm_tpu_torch.utils.profiling', 'gfdm_tpu_torch.examples.multichip_sharding', "
+        "'gfdm_tpu_torch.kernels.fused', 'gfdm_tpu_torch.runtime.service'):\n"
+        "    assert name in names, name\n"
+        "import chip_smoke\n"
+        "gfdm_tpu_torch.native.available()\n"
         "sys.argv = ['gfdm_tpu_torch', 'info']\n"
         "try:\n    import gfdm_tpu_torch.__main__\n"
         "except SystemExit as exc:\n    assert exc.code == 0, exc.code\n"
         "assert 'jax' not in sys.modules and 'gfdm_tpu' not in sys.modules, "
-        "sorted(m for m in sys.modules if m.startswith(('jax', 'gfdm_tpu.')))"
+        "sorted(m for m in sys.modules if m.startswith(('jax', 'gfdm_tpu.')))\n"
+        "print(len(names))"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 84  # every module of the package
+
+
+def test_dryrun_multichip_matches_jax_on_cpu(capsys):
+    """The eight-device dry run on a virtual CPU mesh: the JAX dry run's
+    EVM and shard ownership."""
+    from gfdm_tpu_torch.entry import dryrun_multichip
+
+    __graft_entry__.dryrun_multichip(8)
+    ref = capsys.readouterr().out.strip().splitlines()[-1]
+    res = dryrun_multichip(8, device="cpu")
+    got = capsys.readouterr().out.strip().splitlines()[-1]
+    assert got == ref
+    assert (res["dp"], res["sp"], res["sp_serve_found"]) == (4, 2, 4)
+    assert 0.017 < res["evm"] < 0.019
+
+
+def test_prepare_and_dry_runs_without_a_card_raise(monkeypatch):
+    """Entry points that once defaulted to the CPU (prepare, fast_consts)
+    and the dry runs take the card by default: without one they raise,
+    naming device='cpu'."""
+    from gfdm_tpu_torch.entry import dryrun_multichip, dryrun_multihost
+    from gfdm_tpu_torch.ops.planar_fast import fast_consts
+    from gfdm_tpu_torch.ops.planar_pipeline import prepare
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GfdmConfig()
+    for call in (lambda: prepare(cfg), lambda: prepare(cfg, "float32", method="fast"),
+                 lambda: fast_consts(cfg), lambda: dryrun_multichip(8),
+                 lambda: dryrun_multihost(2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_live_chain_without_a_device_never_falls_back_to_the_cpu(monkeypatch):

@@ -10,6 +10,9 @@ import torch
 
 from gfdm_tpu_torch.examples import ber_sweep, coded_link, loopback_simulation
 from gfdm_tpu_torch.examples import ota_style_link, parse_device, spectrum_study
+from gfdm_tpu_torch.examples import cdd_two_antenna, coded_service, full_duplex_udp
+from gfdm_tpu_torch.examples import large_k_link, multichip_sharding, stream_receiver
+from gfdm_tpu_torch.examples import streaming_service
 
 torch.set_num_threads(1)
 
@@ -71,3 +74,64 @@ def test_example_command_line(monkeypatch):
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "CRC-verified bursts: 8/8" in proc.stdout
+
+
+def _free_udp_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_cdd_two_antenna(capsys):
+    res = cdd_two_antenna.main(**CPU)
+    assert res["symbols"] == 8 * 468
+    assert res["symbol_errors"] <= cdd_two_antenna.SYMBOL_ERROR_FLOOR * res["symbols"]
+    assert res["evm"] < 0.1 and res["snr_est_db"] > 28.0
+    out = capsys.readouterr().out
+    assert "combined 2-antenna link @ 28 dB" in out and "OK: effective CDD channel" in out
+
+
+def test_coded_service(capsys):
+    res = coded_service.main(n_bursts=3, **CPU)
+    assert res == {"found": 3, "crc_clean": 3, "bursts": 3, "intact": True}
+    out = capsys.readouterr().out
+    assert "CRC-clean: 3/3 at 10 dB SNR" in out and "payload intact: True" in out
+
+
+def test_full_duplex_udp(capsys):
+    res = full_duplex_udp.main(n_bursts=4, port=_free_udp_port(), **CPU)
+    assert res["found"] == 4 and res["evm"] == 0.0
+    assert res["ingested"] == res["sent"] + 768  # the halo flush
+    assert "rx: 4/4 bursts recovered" in capsys.readouterr().out
+
+
+def test_large_k_link(capsys):
+    res = large_k_link.main(batch=2, **CPU)
+    assert res["evm"] < 1e-5 and res["symbol_error_share"] == 0.0
+    assert "K=256 M=9 frame_len=3008" in capsys.readouterr().out
+
+
+def test_stream_receiver(capsys):
+    res = stream_receiver.main(n_bursts=4, **CPU)
+    assert res["pulled"] == 3 and res["found"] == 3 and res["base"] == 0
+    assert res["evm"] < 1e-5
+    np.testing.assert_array_equal(res["start"], [200 + 37 * i + 16 for i in range(3)])
+    assert "bursts found: 3/3 pulled chunks" in capsys.readouterr().out
+
+
+def test_streaming_service(capsys):
+    res = streaming_service.main(n_chunks=8, n_bursts=3, **CPU)
+    assert res["dp"] == 1 and res["found"] == 3 and res["symbol_errors"] == 0
+    assert res["starts"] == res["expected_starts"]
+    out = capsys.readouterr().out
+    assert "mesh: dp=1 devices, chunk=2048, halo=768" in out
+    assert "symbol errors across 3 bursts: 0" in out
+
+
+def test_multichip_sharding(capsys):
+    res = multichip_sharding.main(**CPU)
+    assert (res["dp"], res["sp"], res["sp_serve_found"]) == (4, 2, 4)
+    assert np.isfinite(res["evm"]) and res["evm"] < 0.05
+    assert "dryrun_multichip: mesh dp=4 sp=2, batch=8" in capsys.readouterr().out

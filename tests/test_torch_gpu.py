@@ -1237,3 +1237,113 @@ def test_block_flowgraph_card_matches_cpu():
     assert err < 5e-4 and snr < 1e-3
     d = out["card"][1].numpy()
     assert np.array_equal(np.sign(d.real), np.sign(data.real))
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer: the virtual card mesh, the sp service, the stage timer
+# ---------------------------------------------------------------------------
+def test_stage_timer_matches_cuda_events():
+    """StageTimer.stage and timeit time card work with CUDA events on the
+    current stream: within 5% of events recorded around the same work."""
+    from gfdm_tpu_torch.utils.profiling import StageTimer
+
+    dev = _cuda()
+    a = torch.randn(4096, 4096, device=dev)
+
+    def work():
+        x = a
+        for _ in range(8):
+            x = x @ a / 64.0
+        return x
+
+    work()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        timer = StageTimer()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with timer.stage("mm") as s:
+            s.value = work()
+        stop.record()
+        stop.synchronize()
+        events = start.elapsed_time(stop) / 1e3
+        assert "mm" not in timer.unfenced
+        assert abs(timer.times["mm"] - events) <= 0.05 * events
+    per = timer.timeit("mm_timeit", work, iters=5)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        work()
+    stop.record()
+    stop.synchronize()
+    ref = start.elapsed_time(stop) / 1e3 / 5
+    print(f"StageTimer {per * 1e3:.3f} ms a call, CUDA events {ref * 1e3:.3f} ms")
+    assert abs(per - ref) <= 0.05 * ref
+
+
+@pytest.mark.parametrize("impl", ["twostage", "pallas2"])
+def test_sp_service_on_the_card_matches_the_cpu(impl, monkeypatch):
+    """StreamingReceiver(sp_shards=2) on a virtual mesh of the card twice
+    against the same service on the CPU: found and starts equal, data of
+    found slots within the receiver's tolerance; one receiver call a step."""
+    from gfdm_tpu_torch.entry import service_stream
+    from gfdm_tpu_torch.ops import planar_pipeline as pp
+    from gfdm_tpu_torch.parallel import make_mesh
+    from gfdm_tpu_torch.runtime.service import StreamingReceiver
+
+    dev = _cuda()
+    monkeypatch.setattr(pp, "DETECT_IMPL", impl)
+    cfg = GfdmConfig()
+    chunks, _counts, _ = service_stream(cfg, 256, 2048, 20.0, False, np.random.default_rng(3))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        rx = StreamingReceiver(cfg, batch_chunks=256, engine="fused", sp_shards=2,
+                               mesh=make_mesh([where] * 2, dp=1, sp=2))
+        before = fused.LAUNCHES["rx"]
+        out[where.type] = rx.step(chunks)
+        launched = fused.LAUNCHES["rx"] - before
+        assert launched == (fused.rx_launches(2) if where.type == "cuda" else 0)
+    card, cpu = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(card["found"], cpu["found"])
+    np.testing.assert_array_equal(card["start"], cpu["start"])
+    f = cpu["found"]
+    # every burst found but one whose preamble CP straddles the sub-chunk
+    # boundary (the JAX package's sp service misses it too)
+    starts = card["start"].reshape(-1, 2) + np.array([0, 1024])
+    lost = ~f.reshape(-1, 2).any(axis=1)
+    assert lost.sum() <= 2
+    assert (np.abs(starts[lost] - 1024) <= cfg.subcarriers).all()
+    np.testing.assert_allclose(card["data"][f], cpu["data"][f], atol=1e-4)
+
+
+@pytest.mark.parametrize("planar", [False, True], ids=["complex", "planar"])
+def test_sharded_detection_across_the_card_and_the_host(planar):
+    """detect_bursts_sharded on a mesh alternating the card and the CPU (a
+    head crossing between them at every shard) against the all-CPU mesh."""
+    from gfdm_tpu_torch.ops.tx import transmit
+    from gfdm_tpu_torch.parallel import detect_bursts_sharded, make_mesh
+    from gfdm_tpu_torch.ref import utils
+
+    dev = _cuda()
+    cfg = GfdmConfig()
+    data = np.stack([utils.random_qpsk(cfg.n_data_symbols, seed=31 + i)
+                     for i in range(2)]).astype(np.complex64)
+    rng = np.random.default_rng(4)
+    stream = (0.01 * (rng.standard_normal((2, 8192)) + 1j * rng.standard_normal((2, 8192)))
+              ).astype(np.complex64)
+    stream[:, 4096 + 150 : 4096 + 150 + cfg.frame_len] += transmit(
+        cfg, data, device="cpu")[:, 0].numpy()
+    if planar:
+        stream = np.stack([stream.real, stream.imag], 1).astype(np.float32)
+    x = torch.from_numpy(stream)
+    mixed = make_mesh([dev, "cpu"] * 4, dp=2, sp=4)
+    host = make_mesh(["cpu"] * 8, dp=2, sp=4)
+    det_m, b_m = detect_bursts_sharded(cfg, mixed, x, halo=cfg.frame_len + 64, planar=planar)
+    det_h, b_h = detect_bursts_sharded(cfg, host, x, halo=cfg.frame_len + 64, planar=planar)
+    assert b_m.device.type == "cpu"
+    for key in ("start", "owned", "found"):
+        assert torch.equal(det_m[key], det_h[key]), key
+    assert det_h["found"].sum() == 2  # the owner of each row
+    f = det_h["found"]
+    assert float((det_m["cfo"] - det_h["cfo"])[f].abs().max()) <= 1e-6
+    assert float((b_m - b_h)[f].abs().max()) <= 1e-5 * float(b_h.abs().max())

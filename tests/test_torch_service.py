@@ -221,7 +221,9 @@ def test_batch_ladder_and_host_ranges_match_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
+    # sp_shards > 1 needs a mesh whose devices divide into it (one device
+    # does not), as in the JAX package
+    with pytest.raises(ValueError, match="1 devices not divisible by sp_shards=2"):
         service.StreamingReceiver(TC, sp_shards=2, engine="fused", device="cpu")
     # fec="conv" builds since the coded modem was ported
     assert service.StreamingReceiver(TC, fec="conv", device="cpu").fec_info_bits == 462
