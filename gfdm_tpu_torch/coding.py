@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .device import as_tensor, device_const
+from .utils.profiling import span
 
 __all__ = [
     "CONV_RATE",
@@ -193,9 +194,11 @@ def _decode_radix(lp: torch.Tensor, n_info: int, k: int) -> torch.Tensor:
     S = T // k
     lt = lp.reshape(B, S, 2 * k).transpose(0, 1)
     idx = device_const(("pattern", k), lp.device, lambda: _pattern_index(k))
-    _, decs = _forward(_pattern_sums(lt), idx, k, _initial_metrics(B, lp.device))
-    state = torch.zeros(B, dtype=torch.int64, device=lp.device)
-    return _traceback(decs, state, k)[:, :n_info]
+    with span("gfdm.fec.acs"):
+        _, decs = _forward(_pattern_sums(lt), idx, k, _initial_metrics(B, lp.device))
+    with span("gfdm.fec.traceback"):
+        state = torch.zeros(B, dtype=torch.int64, device=lp.device)
+        return _traceback(decs, state, k)[:, :n_info]
 
 
 @lru_cache(maxsize=8)
@@ -228,19 +231,21 @@ def _decode_windowed(lp: torch.Tensor, n_info: int, body: int, overlap: int):
     metrics, windows ending at T from the zero-terminated state 0."""
     B, T = lp.shape[:2]
     plan = _window_plan(T, body, overlap)
-    span, W, dev = plan["span"], plan["W"], lp.device
+    width, W, dev = plan["span"], plan["W"], lp.device
 
     def const(name):
         return device_const(("window", T, body, overlap, name), dev, lambda: plan[name])
 
     wl = lp[:, const("time_idx")]  # (B, W, span, 2)
-    lt = wl.reshape(B * W, span, 2).transpose(0, 1)
+    lt = wl.reshape(B * W, width, 2).transpose(0, 1)
     pm0 = const("pm0").expand(B, W, _NSTATES).reshape(B * W, _NSTATES)
     idx = device_const(("pattern", 1), dev, lambda: _pattern_index(1))
-    pm, decs = _forward(_pattern_sums(lt), idx, 1, pm0)
-    start = pm.view(B, W, _NSTATES).argmax(dim=-1)
-    state = torch.where(const("terminal"), 0, start).reshape(B * W)
-    bits = _traceback(decs, state, 1).view(B, W, span)
+    with span("gfdm.fec.acs"):
+        pm, decs = _forward(_pattern_sums(lt), idx, 1, pm0)
+    with span("gfdm.fec.traceback"):
+        start = pm.view(B, W, _NSTATES).argmax(dim=-1)
+        state = torch.where(const("terminal"), 0, start).reshape(B * W)
+        bits = _traceback(decs, state, 1).view(B, W, width)
     return bits[:, const("w_of_t"), const("pos_of_t")][:, :n_info]
 
 

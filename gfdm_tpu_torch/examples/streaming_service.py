@@ -74,6 +74,10 @@ def main(n_chunks=16, n_bursts=6, device=None):
 
     print(f"ingested {samples} samples; served {stats.batches} batches / "
           f"{stats.chunks} chunks; bursts found: {stats.bursts_found}")
+    # the host's split of the loop: each phase's span, ms a batch
+    split = ", ".join(f"{name.removeprefix('gfdm.service.')} {s * 1e3 / stats.batches:.2f}"
+                      for name, s in sorted(stats.host_s.items(), key=lambda kv: -kv[1]))
+    print(f"host ms a batch: {split}")
     recovered.sort(key=lambda sr: sr[0])
     errs = 0
     for (start, row), off, ref in zip(recovered, offsets, payloads):
@@ -87,7 +91,7 @@ def main(n_chunks=16, n_bursts=6, device=None):
     return {"found": stats.bursts_found, "bursts": n_bursts, "symbol_errors": errs,
             "starts": [s for s, _ in recovered], "expected_starts":
             [off + cfg.cp_len for off in offsets], "dp": rx.mesh.shape["dp"],
-            "ingested": samples}
+            "ingested": samples, "host_s": dict(stats.host_s)}
 
 
 if __name__ == "__main__":

@@ -46,7 +46,10 @@ over (bursts x channel columns) tiles, then the receiver of
 
 Dispatch: a wrapper runs the plain version only for a tensor on the CPU; for
 a CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts the
-kernel launches of each wrapper.
+kernel launches of each wrapper. The two link steps (``link_single_fused``,
+``link_step_factored``) are each a ``gfdm.link.step`` span
+(``utils.profiling.span``): the host's time to enqueue a step, a range on
+the card's timeline under ``torch.profiler``.
 
 Layouts match the JAX package: payload (B, 2, n_data), bursts
 (B, 2, frame_len), kernel rows planar-flat ``[re | im]``.
@@ -66,6 +69,7 @@ from ..ops.planar import bf16_operator, pabs2, pconj, pmatmul, pmul, real_operat
 from ..ops.planar_pipeline import (
     _gauss_operators, _np_gauss_stacks, _small_consts, _to_tensor, evm,
 )
+from ..utils.profiling import span
 
 __all__ = [
     "LAUNCHES",
@@ -1046,18 +1050,19 @@ def link_single_fused(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int = 
     dense operators exceed 256 MiB a stack (K = 1024 at M = 9) raises
     ValueError: it takes link_step_factored.
     """
-    opts = _rx_options(ic_iterations, ic_mode, constellation, qpsk_amp=qpsk_amp)
-    _choice("dtype_name", dtype_name, _DTYPES)
-    _check_dense_size(cfg, "link_single_fused", "link_step_factored")
-    cuda = _on_cuda(data, cfg.n_data_symbols, "link_single_fused")
-    flat = data.reshape(data.shape[0], -1)
-    if cuda:
-        out, met = _link_single_cuda(cfg, flat, opts, dtype_name)
-    else:
-        out, met = _link_single_plain(cfg, flat, opts.ic_iterations, ic_mode,
-                                      constellation, opts.amp, dtype_name)
-    d_hat = out.reshape(data.shape)
-    return d_hat, met[:, 0], evm(d_hat, data)
+    with span("gfdm.link.step"):
+        opts = _rx_options(ic_iterations, ic_mode, constellation, qpsk_amp=qpsk_amp)
+        _choice("dtype_name", dtype_name, _DTYPES)
+        _check_dense_size(cfg, "link_single_fused", "link_step_factored")
+        cuda = _on_cuda(data, cfg.n_data_symbols, "link_single_fused")
+        flat = data.reshape(data.shape[0], -1)
+        if cuda:
+            out, met = _link_single_cuda(cfg, flat, opts, dtype_name)
+        else:
+            out, met = _link_single_plain(cfg, flat, opts.ic_iterations, ic_mode,
+                                          constellation, opts.amp, dtype_name)
+        d_hat = out.reshape(data.shape)
+        return d_hat, met[:, 0], evm(d_hat, data)
 
 
 def _rx_variant(key: str, cfg: GfdmConfig, x: torch.Tensor, chan, ic_iterations: int,
@@ -1403,8 +1408,9 @@ def link_step_factored(cfg: GfdmConfig, data: torch.Tensor, ic_iterations: int =
     """Large-K link: payload -> factored Tx kernel -> factored receiver ->
     demap. Returns (data_hat (B, 2, n_data), evm); with estimator="fast" the
     link of ``benchmarks/largek_crossover.py``'s link mode."""
-    bursts = tx_frame_factored(cfg, data)
-    _chan, sym = rx_receiver_factored(cfg, bursts, ic_iterations=ic_iterations,
-                                      estimator=estimator)
-    d_hat = sym[..., _factored_consts(cfg, data.device)["demap_idx"]]
-    return d_hat, evm(d_hat, data)
+    with span("gfdm.link.step"):
+        bursts = tx_frame_factored(cfg, data)
+        _chan, sym = rx_receiver_factored(cfg, bursts, ic_iterations=ic_iterations,
+                                          estimator=estimator)
+        d_hat = sym[..., _factored_consts(cfg, data.device)["demap_idx"]]
+        return d_hat, evm(d_hat, data)

@@ -24,7 +24,18 @@ Host-device protocol: a batch goes host -> device through pinned memory
 with ``non_blocking=True`` on the device's current stream; the step only
 enqueues work (no ``.item()``, no Python branch on a tensor), so with
 ``pipeline_depth=2`` the next batch is copied and enqueued while the card
-still runs the previous one. Only ``_fetch`` waits for the card.
+still runs the previous one. Only ``_fetch`` waits for the card: on an
+event recorded on the stream at its start, which covers every batch
+enqueued before it. Each phase of the loop is a span
+(``utils.profiling.span``) whose host seconds add up in ``stats.host_s``:
+``gfdm.service.pull`` (the source call), ``.stage`` (the pinned buffer and
+the NumPy copy into it), ``.h2d`` (enqueueing the copy to the card),
+``.step`` (the step's enqueue, with ``.detect``, ``.extract``,
+``.refine_cfo``, ``.receive`` and ``.decode`` inside it; the decoder's
+``gfdm.fec.acs`` and ``gfdm.fec.traceback`` inside that),
+``.fetch.wait``, ``.fetch.copy`` (the outputs' pageable copies),
+``.account`` (the stats) and ``.sink``. Under ``torch.profiler``
+(``utils.profiling.trace_to``) they are ranges on the card's timeline.
 
 ``fec="conv"`` also soft-decodes every slot on its device (max-log LLRs,
 deinterleave, radix Viterbi: ``_build_fec``) and returns its info bits. The
@@ -41,7 +52,8 @@ import torch
 from ..config import GfdmConfig
 from ..device import move, resolve_device
 from ..parallel.mesh import device_runs, make_mesh
-from .stream import _flatten_slots, _found_mask, receive_chunks_planar
+from ..utils.profiling import span
+from .stream import _flatten_slots, _found_mask
 
 __all__ = ["init_distributed", "host_chunk_range", "ServiceStats", "StreamingReceiver"]
 
@@ -98,6 +110,9 @@ class ServiceStats:
     samples: int = 0
     dropped_ring: int = 0
     snr_db_sum: float = 0.0
+    # host seconds of each ``gfdm.service.*`` span of the loop, summed; a
+    # timing, so two runs' stats compare equal without it
+    host_s: dict = field(default_factory=dict, compare=False)
 
     @property
     def mean_snr_db(self) -> float:
@@ -114,7 +129,7 @@ class StreamingReceiver:
     ``.pull(n)`` (the native StreamBuffer/StreamBank), a file, or any
     callable source. ``engine="fused"`` runs the CUDA receiver kernel
     (kernels/fused.receive_bursts_fused) after detection; ``"xla"`` keeps
-    the whole step as torch ops (runtime/stream.receive_chunks_planar).
+    the whole step as torch ops (ops/planar_pipeline.receive_bursts_planar).
     ``mesh`` (``parallel.make_mesh``) defaults to one over ``device``, or
     over every visible card when ``device`` is None, reshaped (-1, sp);
     ``device`` defaults to the mesh's first device, else the current CUDA
@@ -224,10 +239,7 @@ class StreamingReceiver:
                 _kernel_consts(self.cfg, dev)
             else:
                 prepare(self.cfg, "float32", dev, method=self.method)
-        if sp > 1:
-            self._step = self._sp_step
-        else:
-            self._step = self._fused_step if self.engine == "fused" else self._xla_step
+        self._step = self._sp_step if sp > 1 else self._chunk_step
 
     def _build_fec(self):
         """Device-side soft decoder matching the CLI's conv framing.
@@ -264,62 +276,56 @@ class StreamingReceiver:
             1, move(self._fec_inv, llrs.device))
         return viterbi_decode(llrs, self.fec_info_bits)
 
-    def _xla_step(self, chunks: torch.Tensor) -> dict:
-        out = receive_chunks_planar(
-            self.cfg, chunks, self.chunk_len,
-            ic_iterations=self.ic_iterations,
-            min_strength=self.min_strength,
-            max_bursts_per_chunk=self.max_bursts_per_chunk,
-            dtype_name="float32",
-            detect_dtype_name=self.dtype_name,
-            method=self.method,
-            equalizer=self.equalizer,
-            false_alarm_prob=self.false_alarm_prob,
-            constellation=self.constellation,
-            refine_cfo=self.refine_cfo,
-        )
-        if self.fec == "conv":
-            out["bits"] = self._fec_decode(out["data"], out["snr_lin"])
-        return out
-
-    def _fused_step(self, chunks: torch.Tensor, owned: int | None = None) -> dict:
+    def _chunk_step(self, chunks: torch.Tensor, owned: int | None = None) -> dict:
         """Detection, extraction and two-stage CFO as torch ops (or the
-        detection kernels, by DETECT_IMPL), then the CUDA receiver kernel.
-        ``owned``: the samples each chunk owns (the detection's search limit
-        and the found mask's ownership), chunk_len by default."""
+        detection kernels, by DETECT_IMPL), then the receiver: the CUDA
+        receiver kernel (``engine="fused"``) or torch ops (``"xla"``), and
+        with ``fec`` the decoder. ``owned``: the samples each chunk owns
+        (the detection's search limit and the found mask's ownership),
+        chunk_len by default."""
         from ..kernels import fused as fk
         from ..ops import planar_pipeline as pp
+        from ..ops.rx import constellation_points
 
         cfg, k = self.cfg, max(1, self.max_bursts_per_chunk)
         chunk_len = self.chunk_len if owned is None else owned
-        if k <= 1:
-            det = pp.detect_bursts_planar(cfg, chunks, search_limit=chunk_len,
-                                          dtype_name=self.dtype_name)
-            det = {kk: v for kk, v in det.items() if kk != "ac_metric"}
-            bursts = pp.extract_bursts_planar(cfg, chunks, det,
+        host_s = self.stats.host_s
+        with span("gfdm.service.detect", host_s):
+            if k <= 1:
+                det = pp.detect_bursts_planar(cfg, chunks, search_limit=chunk_len,
                                               dtype_name=self.dtype_name)
-        else:
-            det_k = pp.detect_bursts_topk_planar(
-                cfg, chunks, max_bursts=k, search_limit=chunk_len,
-                dtype_name=self.dtype_name,
-            )
-            rep = chunks[:, None].expand((chunks.shape[0], k) + chunks.shape[1:])
-            det = _flatten_slots(det_k)
-            bursts = pp.extract_bursts_planar(
-                cfg, rep.reshape((-1,) + chunks.shape[1:]), det,
-                dtype_name=self.dtype_name,
-            )
+                det = {kk: v for kk, v in det.items() if kk != "ac_metric"}
+                windows = chunks
+            else:
+                det = _flatten_slots(pp.detect_bursts_topk_planar(
+                    cfg, chunks, max_bursts=k, search_limit=chunk_len,
+                    dtype_name=self.dtype_name,
+                ))
+                rep = chunks[:, None].expand((chunks.shape[0], k) + chunks.shape[1:])
+                windows = rep.reshape((-1,) + chunks.shape[1:])
+            found = _found_mask(det, chunk_len, self.min_strength, self.false_alarm_prob)
+        with span("gfdm.service.extract", host_s):
+            bursts = pp.extract_bursts_planar(cfg, windows, det, dtype_name=self.dtype_name)
         if self.refine_cfo:
-            bursts, _ = pp.refine_cfo_planar(cfg, bursts)
-        out = fk.receive_bursts_fused(
-            cfg, bursts.contiguous(), ic_iterations=self.ic_iterations,
-            equalizer=self.equalizer, constellation=self.constellation,
-        )
+            with span("gfdm.service.refine_cfo", host_s):
+                bursts, _ = pp.refine_cfo_planar(cfg, bursts)
+        with span("gfdm.service.receive", host_s):
+            if self.engine == "fused":
+                out = fk.receive_bursts_fused(
+                    cfg, bursts.contiguous(), ic_iterations=self.ic_iterations,
+                    equalizer=self.equalizer, constellation=self.constellation,
+                )
+            else:
+                out = pp.receive_bursts_planar(
+                    cfg, bursts, ic_iterations=self.ic_iterations, equalizer=self.equalizer,
+                    constellation=constellation_points(self.constellation),
+                    method=self.method, dtype_name="float32",
+                )
         out["detection"] = det
-        out["found"] = _found_mask(det, chunk_len, self.min_strength,
-                                   self.false_alarm_prob)
+        out["found"] = found
         if self.fec == "conv":
-            out["bits"] = self._fec_decode(out["data"], out["snr_lin"])
+            with span("gfdm.service.decode", host_s):
+                out["bits"] = self._fec_decode(out["data"], out["snr_lin"])
         return out
 
     def _sp_step(self, chunks: torch.Tensor) -> dict:
@@ -333,7 +339,7 @@ class StreamingReceiver:
         halo-extended chunk."""
         sub, halo = self._sub, self.halo
         win = chunks.unfold(-1, sub + halo, sub)  # (n, 2, shards, sub + halo)
-        return self._fused_step(win.transpose(1, 2).reshape(-1, 2, sub + halo), sub)
+        return self._chunk_step(win.transpose(1, 2).reshape(-1, 2, sub + halo), sub)
 
     def _slot_offsets(self, n: int) -> np.ndarray:
         """Per-slot sample offset of each slot's sub-chunk in the recording."""
@@ -382,21 +388,52 @@ class StreamingReceiver:
         n = chunks.shape[0]
         size = self._padded_batch(n)
         cuda = any(d.type == "cuda" for d in self.mesh.distinct_devices())
-        host = torch.empty((size,) + tuple(chunks.shape[1:]), dtype=torch.float32,
-                           pin_memory=cuda)
-        host_np = host.numpy()
-        host_np[:n] = chunks
-        host_np[n:] = 0.0
+        host_s = self.stats.host_s
+        with span("gfdm.service.stage", host_s):
+            host = torch.empty((size,) + tuple(chunks.shape[1:]), dtype=torch.float32,
+                               pin_memory=cuda)
+            host_np = host.numpy()
+            host_np[:n] = chunks
+            host_np[n:] = 0.0
         outs = []
         for c0, c1, runs in self._plan(size):
-            staged = move(host[c0:c1], runs[0][0])
-            for dev, j0, j1 in runs:
-                part = staged[..., j0 * self._sub : j1 * self._sub + self.halo]
-                outs.append((c0, c1, j0, j1, self._step(move(part, dev))))
+            with span("gfdm.service.h2d", host_s):
+                staged = move(host[c0:c1], runs[0][0])
+                parts = [move(staged[..., j0 * self._sub : j1 * self._sub + self.halo], dev)
+                         for dev, j0, j1 in runs]
+            for (_dev, j0, j1), part in zip(runs, parts):
+                with span("gfdm.service.step", host_s):
+                    outs.append((c0, c1, j0, j1, self._step(part)))
         return outs, n
 
     def _fetch(self, outs: list, n: int, fetch: tuple = ()):
-        """Fetch one dispatched batch to the host and account stats."""
+        """Wait for the card, fetch one dispatched batch to the host and
+        account stats."""
+        host_s = self.stats.host_s
+        with span("gfdm.service.fetch.wait", host_s):
+            # the wait the first copy would make, made explicit: every batch
+            # enqueued on the stream so far, this one included
+            for dev in {o[-1]["data"].device for o in outs}:
+                if dev.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(dev))
+                    done.synchronize()
+        with span("gfdm.service.fetch.copy", host_s):
+            got = self._host_outputs(outs, n, fetch)
+        with span("gfdm.service.account", host_s):
+            self.stats.batches += 1
+            self.stats.chunks += n
+            self.stats.samples += n * self.chunk_len
+            nf = int(got["found"].sum())
+            self.stats.bursts_found += nf
+            if nf:
+                snr = np.maximum(got["snr_lin"][got["found"]], 1e-9)
+                self.stats.snr_db_sum += float(np.sum(10.0 * np.log10(snr)))
+        return got
+
+    def _host_outputs(self, outs: list, n: int, fetch: tuple) -> dict:
+        """The dispatched batch's outputs as host arrays, slots trimmed to
+        ``n`` chunks."""
         # slots are chunk-major; padded chunks land at the end and are trimmed
         slots = n * self._spc
         keys = ("data", "snr_lin", "found", "start", "cfo") + (
@@ -407,30 +444,21 @@ class StreamingReceiver:
             return t.cpu().numpy()
 
         if len(outs) == 1:
-            got = {key: host(outs[0][-1], key)[:slots] for key in keys}
-        else:  # place each step's slots at chunk * spc + shard * k + pick
-            k = max(1, self.max_bursts_per_chunk)
-            got = {}
-            for c0, c1, j0, j1, out in outs:
-                idx = ((np.arange(c0, c1)[:, None, None] * self.sp_shards
-                        + np.arange(j0, j1)[None, :, None]) * k
-                       + np.arange(k)[None, None, :]).reshape(-1)
-                for key in keys:
-                    part = host(out, key)
-                    if key not in got:
-                        got[key] = np.empty((max(o[1] for o in outs) * self._spc,)
-                                            + part.shape[1:], part.dtype)
-                    got[key][idx] = part
-            got = {key: v[:slots] for key, v in got.items()}
-        self.stats.batches += 1
-        self.stats.chunks += n
-        self.stats.samples += n * self.chunk_len
-        nf = int(got["found"].sum())
-        self.stats.bursts_found += nf
-        if nf:
-            snr = np.maximum(got["snr_lin"][got["found"]], 1e-9)
-            self.stats.snr_db_sum += float(np.sum(10.0 * np.log10(snr)))
-        return got
+            return {key: host(outs[0][-1], key)[:slots] for key in keys}
+        # place each step's slots at chunk * spc + shard * k + pick
+        k = max(1, self.max_bursts_per_chunk)
+        got = {}
+        for c0, c1, j0, j1, out in outs:
+            idx = ((np.arange(c0, c1)[:, None, None] * self.sp_shards
+                    + np.arange(j0, j1)[None, :, None]) * k
+                   + np.arange(k)[None, None, :]).reshape(-1)
+            for key in keys:
+                part = host(out, key)
+                if key not in got:
+                    got[key] = np.empty((max(o[1] for o in outs) * self._spc,)
+                                        + part.shape[1:], part.dtype)
+                got[key][idx] = part
+        return {key: v[:slots] for key, v in got.items()}
 
     def step(self, chunks: np.ndarray, fetch: tuple = ()):
         """Receive one (n_chunks, 2, chunk_len + halo) batch -> host dict.
@@ -492,13 +520,15 @@ class StreamingReceiver:
             out["base_offset"] = base
             # absolute sample index of each slot's detection in the recording
             out["start_abs"] = out["start"] + base + self._slot_offsets(n)
-            sink(out)
+            with span("gfdm.service.sink", self.stats.host_s):
+                sink(out)
 
         depth = max(1, int(self.pipeline_depth))
         pending: deque = deque()
         dispatched = 0
         while max_batches is None or dispatched < max_batches:
-            got = pull()
+            with span("gfdm.service.pull", self.stats.host_s):
+                got = pull()
             if got is None:
                 break
             chunks, base = got

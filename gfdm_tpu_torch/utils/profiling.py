@@ -7,6 +7,12 @@ its device's current stream around the stage (the device's time from the
 stage's first enqueued work to its last); one whose result lives on the
 host is timed with ``time.perf_counter``. CUDA calls return before the card
 finishes, so a host clock without a synchronize would time the enqueue.
+
+``span`` is the other kind: a host-only range for a hot path. It never
+synchronizes, so it times what the host spent in the block (enqueueing,
+copying, waiting), and while a ``torch.profiler`` records (``trace_to``)
+it also opens a ``record_function`` range of the same name, which lies on
+the profiler's clock beside the device's kernels and copies.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-__all__ = ["StageTimer", "force", "trace_to"]
+__all__ = ["StageTimer", "force", "profiled_spans", "span", "trace_to"]
 
 
 def _leaves(tree):
@@ -143,11 +149,47 @@ class StageTimer:
         return "\n".join(lines)
 
 
+_PROFILED: dict = {}  # span name -> host seconds while a profiler recorded
+
+
+@contextlib.contextmanager
+def span(name: str, into: dict | None = None):
+    """Time the block on the host clock (``time.perf_counter_ns``) and add
+    its seconds to ``into[name]`` when ``into`` is given. While a
+    ``torch.profiler`` records the process the block is also a
+    ``record_function(name)`` range, and its seconds go to
+    ``profiled_spans()``. Makes no synchronize and touches no tensor: on a
+    card it times the host's enqueue, not the device's work. The program's
+    spans are named ``gfdm.<layer>.<phase>``."""
+    profiled = torch.autograd._profiler_enabled()
+    t0 = time.perf_counter_ns()
+    try:
+        if profiled:
+            with torch.profiler.record_function(name):
+                yield
+        else:
+            yield
+    finally:
+        dt = (time.perf_counter_ns() - t0) * 1e-9
+        if into is not None:
+            into[name] = into.get(name, 0.0) + dt
+        if profiled:
+            _PROFILED[name] = _PROFILED.get(name, 0.0) + dt
+
+
+def profiled_spans() -> dict:
+    """{span name: host seconds} of every ``span`` that ran while a
+    ``torch.profiler`` recorded this process, summed since it started: the
+    host split of exactly the profiled stretches."""
+    return dict(_PROFILED)
+
+
 @contextlib.contextmanager
 def trace_to(logdir: str):
     """``torch.profiler`` trace of the block (host, and the cards when
     there are any), written as a Chrome trace to ``logdir/trace.json``
-    (chrome://tracing, Perfetto)."""
+    (chrome://tracing, Perfetto). The program's ``span`` ranges appear in
+    it as user annotations named ``gfdm.*``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -128,6 +128,9 @@ def test_streaming_service(capsys):
     out = capsys.readouterr().out
     assert "mesh: dp=1 devices, chunk=2048, halo=768" in out
     assert "symbol errors across 3 bursts: 0" in out
+    assert "host ms a batch: " in out and "stage" in out
+    assert {"gfdm.service.stage", "gfdm.service.step", "gfdm.service.fetch.wait",
+            "gfdm.service.fetch.copy", "gfdm.service.sink"} <= set(res["host_s"])
 
 
 def test_multichip_sharding(capsys):

@@ -1,13 +1,15 @@
 """The port's stage timer (gfdm_tpu_torch.utils.profiling) on CPU tensors:
-tests/test_profiling.py's five cases, and the profiler trace. The timer
-against CUDA events on a card is in tests/test_torch_gpu.py."""
+tests/test_profiling.py's five cases, and the profiler trace; the host
+spans (``span``): their sums, their profiler ranges and no synchronize.
+The timer against CUDA events on a card is in tests/test_torch_gpu.py."""
 import json
 import time
 
 import numpy as np
+import pytest
 import torch
 
-from gfdm_tpu_torch.utils.profiling import StageTimer, force, trace_to
+from gfdm_tpu_torch.utils.profiling import StageTimer, force, profiled_spans, span, trace_to
 
 torch.set_num_threads(1)
 
@@ -71,3 +73,87 @@ def test_trace_to_writes_a_chrome_trace(tmp_path):
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert any("mm" in ev.get("name", "") for ev in trace["traceEvents"])
+
+
+def _annotations(path):
+    """(name, ts, dur) of every gfdm.* user annotation of a Chrome trace."""
+    events = json.loads(path.read_text())["traceEvents"]
+    return [(e["name"], e["ts"], e["dur"]) for e in events
+            if e.get("cat") == "user_annotation" and e.get("name", "").startswith("gfdm.")]
+
+
+def test_span_adds_its_seconds_into_and_nests():
+    into = {}
+    with span("gfdm.outer", into):
+        with span("gfdm.inner", into):
+            time.sleep(0.01)
+        with span("gfdm.inner", into):
+            pass
+    assert set(into) == {"gfdm.outer", "gfdm.inner"}
+    assert into["gfdm.inner"] >= 0.01
+    assert into["gfdm.outer"] >= into["gfdm.inner"]
+    with span("gfdm.bare"):  # no into: timed for the profiler alone
+        pass
+    assert "gfdm.bare" not in into
+
+
+def test_span_counts_a_block_that_raises():
+    into = {}
+    try:
+        with span("gfdm.raises", into):
+            raise KeyError("x")
+    except KeyError:
+        pass
+    assert into["gfdm.raises"] >= 0.0
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_span_opens_a_profiler_range_only_while_one_records(profiled, monkeypatch):
+    opened = []
+    real = torch.profiler.record_function
+
+    def counting(name):
+        opened.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    before = profiled_spans().get("gfdm.maybe", 0.0)
+    if profiled:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with span("gfdm.maybe"):
+                pass
+    else:
+        with span("gfdm.maybe"):
+            pass
+    assert opened == (["gfdm.maybe"] if profiled else [])
+    grew = profiled_spans().get("gfdm.maybe", 0.0) > before
+    assert grew == profiled
+
+
+def test_span_makes_no_synchronize(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("span synchronized")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", refuse)
+    into = {}
+    with span("gfdm.quiet", into):
+        torch.ones(8) + 1
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with span("gfdm.quiet", into):
+            torch.ones(8) + 1
+    assert into["gfdm.quiet"] > 0
+
+
+def test_trace_to_shows_spans_as_user_annotations(tmp_path):
+    with trace_to(str(tmp_path / "trace")):
+        with span("gfdm.outer"):
+            for _ in range(3):
+                with span("gfdm.inner"):
+                    (torch.ones(16, 16) @ torch.ones(16, 16)).sum()
+    got = _annotations(tmp_path / "trace" / "trace.json")
+    names = [g[0] for g in got]
+    assert names.count("gfdm.outer") == 1 and names.count("gfdm.inner") == 3
+    (_, o_ts, o_dur), = [g for g in got if g[0] == "gfdm.outer"]
+    for _, ts, dur in (g for g in got if g[0] == "gfdm.inner"):
+        assert o_ts <= ts and ts + dur <= o_ts + o_dur

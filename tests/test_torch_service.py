@@ -4,8 +4,11 @@ Same numpy-seeded float32 chunk streams into both packages' stream helpers
 and StreamingReceiver; on the CPU the port's fused engine runs its
 kernels' plain versions (the JAX package's Pallas receiver runs in
 interpret mode). Found slots must agree exactly; payloads within the
-receiver tolerance of tests/test_torch_fused.py.
+receiver tolerance of tests/test_torch_fused.py. The loop's host spans
+(``ServiceStats.host_s``, the profiler's ``gfdm.service.*`` ranges) last.
 """
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -275,3 +278,54 @@ def test_defaults_match_jax():
         assert (getattr(service.StreamingReceiver, name)
                 == getattr(jax_service.StreamingReceiver, name)), name
     assert service.StreamingReceiver.dtype_name == "bfloat16"
+
+
+SPAN_PHASES = ("stage", "h2d", "step", "detect", "extract", "refine_cfo", "receive",
+               "fetch.wait", "fetch.copy", "account", "sink")
+STEP_CHILDREN = ("detect", "extract", "refine_cfo", "receive", "decode")
+
+
+@pytest.mark.parametrize("case", ["fused", "xla", "conv", "sp"])
+def test_serve_spans_every_phase_once_a_batch(case, tmp_path):
+    """serve() over N batches: host_s holds every phase of the loop, the
+    profiler's trace holds N ranges of each (N + 1 pulls: the last finds
+    the source dry), and the step's stages lie inside the step's range."""
+    from gfdm_tpu_torch.parallel.mesh import make_mesh
+    from gfdm_tpu_torch.utils.profiling import trace_to
+
+    n_batches = 3
+    chunks, _ = _bench_stream(2 * n_batches, impaired=False, seed=6)
+    kw = dict(chunk_len=CHUNK, batch_chunks=2, engine="xla" if case == "xla" else "fused")
+    if case == "conv":
+        kw["fec"] = "conv"
+    if case == "sp":
+        kw.update(sp_shards=2, mesh=make_mesh(["cpu"] * 2, dp=1, sp=2))
+    else:
+        kw["device"] = "cpu"
+    rx = service.StreamingReceiver(TC, **kw)
+    batches = iter(np.split(chunks, n_batches))
+    with trace_to(str(tmp_path / "trace")):
+        stats = rx.serve(lambda: next(batches, None), lambda out: None)
+    phases = SPAN_PHASES + (("decode",) if case == "conv" else ())
+    assert set(stats.host_s) == {f"gfdm.service.{p}" for p in phases + ("pull",)}
+    assert all(v >= 0.0 for v in stats.host_s.values())
+
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("gfdm."):
+            ranges.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    for p in phases:
+        assert len(ranges[f"gfdm.service.{p}"]) == n_batches, p
+    assert len(ranges["gfdm.service.pull"]) == n_batches + 1
+    if case == "conv":  # the decoder's ACS and traceback inside its span
+        children = {"gfdm.fec.acs": "gfdm.service.decode",
+                    "gfdm.fec.traceback": "gfdm.service.decode"}
+    else:
+        children = {}
+    children.update({f"gfdm.service.{c}": "gfdm.service.step" for c in STEP_CHILDREN
+                     if c in phases})
+    for child, parent in children.items():
+        assert len(ranges[child]) == n_batches
+        for a, b in ranges[child]:
+            assert any(pa <= a and b <= pb for pa, pb in ranges[parent]), child

@@ -116,8 +116,8 @@ def test_sp_windows_are_one_step_on_one_device(jax_run):
                                    sp_shards=SP, mesh=make_mesh(["cpu"] * 8, dp=4, sp=SP))
     assert rx._plan(N) == [(0, N, [(torch.device("cpu"), 0, SP)])]
     calls = []
-    step = rx._fused_step
-    rx._fused_step = lambda w, owned=None: (calls.append((tuple(w.shape), owned)),
+    step = rx._chunk_step
+    rx._chunk_step = lambda w, owned=None: (calls.append((tuple(w.shape), owned)),
                                             step(w, owned))[1]
     rx.step(chunks)
     assert calls == [((N * SP, 2, CHUNK // SP + rx.halo), CHUNK // SP)]
