@@ -22,14 +22,21 @@ metrics' sum (``parallel.multihost``).
 
 Host-device protocol: a batch goes host -> device through pinned memory
 with ``non_blocking=True`` on the device's current stream; the step only
-enqueues work (no ``.item()``, no Python branch on a tensor), so with
-``pipeline_depth=2`` the next batch is copied and enqueued while the card
-still runs the previous one. Only ``_fetch`` waits for the card: on an
-event recorded on the stream at its start, which covers every batch
-enqueued before it. Each phase of the loop is a span
+enqueues work (no ``.item()``, no Python branch on a tensor). ``serve()``
+stages one batch ahead on a thread of its own: the pinned buffer and the
+NumPy copy into it (``_stage``, host memory alone) of batch b + 1 run while
+the loop's thread enqueues batch b and fetches the oldest batch in flight,
+so the card computes under the next batch's copy. Every CUDA call stays on
+the loop's thread and its current stream. Only ``_fetch`` waits for the
+card: on an event recorded on the stream at its start, which covers every
+batch enqueued before it, so each fetch drains the one stream and
+``pipeline_depth=2`` overlaps no card work with the outputs' copy to the
+host or the loop's own enqueue. Each phase of the loop is a span
 (``utils.profiling.span``) whose host seconds add up in ``stats.host_s``:
 ``gfdm.service.pull`` (the source call), ``.stage`` (the pinned buffer and
-the NumPy copy into it), ``.h2d`` (enqueueing the copy to the card),
+the NumPy copy into it; on the stager's thread in ``serve()``),
+``.stage.wait`` (the loop's thread waiting for a staged batch),
+``.h2d`` (enqueueing the copy to the card),
 ``.step`` (the step's enqueue, with ``.detect``, ``.extract``,
 ``.refine_cfo``, ``.receive`` and ``.decode`` inside it; the decoder's
 ``gfdm.fec.acs`` and ``gfdm.fec.traceback`` inside that),
@@ -44,6 +51,7 @@ JAX package's VMEM block picker has no counterpart here.
 from __future__ import annotations
 
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -113,6 +121,9 @@ class ServiceStats:
     # host seconds of each ``gfdm.service.*`` span of the loop, summed; a
     # timing, so two runs' stats compare equal without it
     host_s: dict = field(default_factory=dict, compare=False)
+    # served batches whose staging had finished when the loop asked for
+    # them; timing-dependent too
+    staged_ahead: int = field(default=0, compare=False)
 
     @property
     def mean_snr_db(self) -> float:
@@ -180,8 +191,9 @@ class StreamingReceiver:
     sp_shards: int = 1
     mesh: object = None
     # serve() keeps up to this many dispatched batches in flight before
-    # fetching: 2 (double buffering) overlaps the host copy and the next
-    # batch's enqueue with the card's compute; 1 is the single-deep loop
+    # fetching the oldest; 1 is the single-deep loop. A fetch waits for
+    # every batch enqueued before it, so what the card's work overlaps is
+    # the next batch's staging, one batch ahead at any depth
     pipeline_depth: int = 2
     device: object = None
     stats: ServiceStats = field(default_factory=ServiceStats)
@@ -377,26 +389,37 @@ class StreamingReceiver:
             plan = self._plans[size] = plan
         return plan
 
-    def _dispatch(self, chunks: np.ndarray):
-        """Copy one batch to the mesh and enqueue its steps; returns
+    def _stage(self, chunks: np.ndarray, profiled: bool | None = None):
+        """Copy one (n, 2, ext) batch into a new host buffer, zero-padded up
+        the shape ladder and pinned when the mesh has a card; returns
+        (buffer, n). Touches host memory alone, so ``serve()`` runs it on
+        its stager thread, passing the loop thread's profiler state as
+        ``profiled`` (``utils.profiling.span``). A buffer is never reused
+        here: torch's pinned allocator hands a block out again only once
+        the copy enqueued from it has run."""
+        if chunks.ndim != 3 or chunks.shape[1:] != (2, self.ext):
+            raise ValueError(f"a batch is (n, 2, {self.ext}) samples, got {chunks.shape}")
+        n = chunks.shape[0]
+        cuda = any(d.type == "cuda" for d in self.mesh.distinct_devices())
+        with span("gfdm.service.stage", self.stats.host_s, profiled):
+            host = torch.empty((self._padded_batch(n), 2, self.ext), dtype=torch.float32,
+                               pin_memory=cuda)
+            host_np = host.numpy()
+            host_np[:n] = chunks
+            host_np[n:] = 0.0
+        return host, n
+
+    def _enqueue(self, host: torch.Tensor, n: int):
+        """Copy a staged batch to the mesh and enqueue its steps; returns
         ([(c0, c1, j0, j1, device outputs)], n). Makes no host sync.
 
         Each block of rows is copied once, to the device of its first
         shard; a run of shards on another device takes its samples (with
         the next sub-chunk's head or the lookahead tail) from there with a
         device-to-device copy."""
-        n = chunks.shape[0]
-        size = self._padded_batch(n)
-        cuda = any(d.type == "cuda" for d in self.mesh.distinct_devices())
         host_s = self.stats.host_s
-        with span("gfdm.service.stage", host_s):
-            host = torch.empty((size,) + tuple(chunks.shape[1:]), dtype=torch.float32,
-                               pin_memory=cuda)
-            host_np = host.numpy()
-            host_np[:n] = chunks
-            host_np[n:] = 0.0
         outs = []
-        for c0, c1, runs in self._plan(size):
+        for c0, c1, runs in self._plan(host.shape[0]):
             with span("gfdm.service.h2d", host_s):
                 staged = move(host[c0:c1], runs[0][0])
                 parts = [move(staged[..., j0 * self._sub : j1 * self._sub + self.halo], dev)
@@ -405,6 +428,11 @@ class StreamingReceiver:
                 with span("gfdm.service.step", host_s):
                     outs.append((c0, c1, j0, j1, self._step(part)))
         return outs, n
+
+    def _dispatch(self, chunks: np.ndarray):
+        """Stage one batch and enqueue its steps in turn (``_stage``,
+        ``_enqueue``)."""
+        return self._enqueue(*self._stage(chunks))
 
     def _fetch(self, outs: list, n: int, fetch: tuple = ()):
         """Wait for the card, fetch one dispatched batch to the host and
@@ -481,11 +509,17 @@ class StreamingReceiver:
         each step's host-side outputs (payload symbols, found mask,
         detection metadata, base sample offset, absolute starts).
 
-        ``max_batches`` bounds the dispatches made by this call. The loop is
-        software-pipelined ``pipeline_depth`` batches deep: up to that many
-        batches are enqueued on the card before the oldest one is fetched.
-        Ring overflow is accounted per call: if the source exposes a
-        cumulative ``dropped`` counter, its growth since the last
+        ``max_batches`` bounds the pulls, and so the dispatches, made by
+        this call. The loop is software-pipelined: a stager thread, which
+        lives as long as the call, copies batch b + 1 into its host buffer
+        while the loop's thread enqueues batch b on the card and fetches;
+        up to ``pipeline_depth`` batches are enqueued before the oldest one
+        is fetched. Every pulled batch is dispatched and delivered, the
+        last one staged included; an exception on the stager is raised
+        here. The stager finishes copying a batch before the loop pulls
+        the next one, so a source may hand out one array that it refills
+        on every call. Ring overflow is accounted per call: if the source
+        exposes a cumulative ``dropped`` counter, its growth since the last
         observation is added to ``stats.dropped_ring``.
         """
         pull_chunks = max(self.batch_chunks, self.max_batch_chunks or 0)
@@ -523,22 +557,44 @@ class StreamingReceiver:
             with span("gfdm.service.sink", self.stats.host_s):
                 sink(out)
 
-        depth = max(1, int(self.pipeline_depth))
-        pending: deque = deque()
-        dispatched = 0
-        while max_batches is None or dispatched < max_batches:
-            with span("gfdm.service.pull", self.stats.host_s):
+        host_s = self.stats.host_s
+        stager = ThreadPoolExecutor(max_workers=1, thread_name_prefix="gfdm-stage")
+        pulled = 0
+
+        def pull_and_stage():
+            """The next batch handed to the stager: (future, base), or None
+            once the source is dry or ``max_batches`` are pulled."""
+            nonlocal pulled
+            if max_batches is not None and pulled >= max_batches:
+                return None
+            with span("gfdm.service.pull", host_s):
                 got = pull()
             if got is None:
-                break
+                return None
+            pulled += 1
             chunks, base = got
-            out_dev, n = self._dispatch(np.asarray(chunks))
-            dispatched += 1
-            pending.append((out_dev, n, base))
-            if len(pending) > depth:
+            return stager.submit(self._stage, np.asarray(chunks),
+                                 torch.autograd._profiler_enabled()), base
+
+        depth = max(1, int(self.pipeline_depth))
+        pending: deque = deque()
+        try:
+            ahead = pull_and_stage()
+            while ahead is not None:
+                staged, base = ahead
+                self.stats.staged_ahead += staged.done()
+                with span("gfdm.service.stage.wait", host_s):
+                    host, n = staged.result()
+                # batch b's copy is done: pull b + 1 and stage it while b is
+                # enqueued and the oldest batch fetched
+                ahead = pull_and_stage()
+                pending.append(self._enqueue(host, n) + (base,))
+                if len(pending) > depth:
+                    emit(pending.popleft())
+            while pending:
                 emit(pending.popleft())
-        while pending:
-            emit(pending.popleft())
+        finally:
+            stager.shutdown(cancel_futures=True)
         # drops that land after the final pull still belong to this call
         account_drops()
         return self.stats

@@ -153,18 +153,27 @@ _PROFILED: dict = {}  # span name -> host seconds while a profiler recorded
 
 
 @contextlib.contextmanager
-def span(name: str, into: dict | None = None):
+def span(name: str, into: dict | None = None, profiled: bool | None = None):
     """Time the block on the host clock (``time.perf_counter_ns``) and add
     its seconds to ``into[name]`` when ``into`` is given. While a
-    ``torch.profiler`` records the process the block is also a
+    ``torch.profiler`` records the calling thread the block is also a
     ``record_function(name)`` range, and its seconds go to
     ``profiled_spans()``. Makes no synchronize and touches no tensor: on a
     card it times the host's enqueue, not the device's work. The program's
-    spans are named ``gfdm.<layer>.<phase>``."""
-    profiled = torch.autograd._profiler_enabled()
+    spans are named ``gfdm.<layer>.<phase>``.
+
+    A profiler records only the thread that started it. A block that runs
+    on a worker thread on behalf of another passes that thread's
+    ``torch.autograd._profiler_enabled()``, read when the work was handed
+    over, as ``profiled``: its seconds then go to ``profiled_spans()``
+    while that thread's profiler records, though no range reaches the
+    trace."""
+    ranged = torch.autograd._profiler_enabled()
+    if profiled is None:
+        profiled = ranged
     t0 = time.perf_counter_ns()
     try:
-        if profiled:
+        if ranged:
             with torch.profiler.record_function(name):
                 yield
         else:

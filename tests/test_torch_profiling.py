@@ -157,3 +157,26 @@ def test_trace_to_shows_spans_as_user_annotations(tmp_path):
     (_, o_ts, o_dur), = [g for g in got if g[0] == "gfdm.outer"]
     for _, ts, dur in (g for g in got if g[0] == "gfdm.inner"):
         assert o_ts <= ts and ts + dur <= o_ts + o_dur
+
+
+def test_a_worker_span_counts_with_the_callers_profiler_state():
+    """A span on a worker thread, handed the recording thread's profiler
+    state, counts in profiled_spans(); the same span without it does not
+    (the profiler records only the thread that started it)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def on_worker(name, profiled):
+        with span(name, profiled=profiled):
+            time.sleep(0.001)
+        return torch.autograd._profiler_enabled()
+
+    before = profiled_spans()
+    with ThreadPoolExecutor(max_workers=1) as worker:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            state = torch.autograd._profiler_enabled()
+            worker_state = worker.submit(on_worker, "gfdm.worker.handed", state).result()
+            worker.submit(on_worker, "gfdm.worker.alone", None).result()
+    assert state and not worker_state
+    after = profiled_spans()
+    assert after["gfdm.worker.handed"] >= before.get("gfdm.worker.handed", 0.0) + 1e-3
+    assert after.get("gfdm.worker.alone") == before.get("gfdm.worker.alone")

@@ -8,6 +8,9 @@ receiver tolerance of tests/test_torch_fused.py. The loop's host spans
 (``ServiceStats.host_s``, the profiler's ``gfdm.service.*`` ranges) last.
 """
 import json
+import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -280,7 +283,7 @@ def test_defaults_match_jax():
     assert service.StreamingReceiver.dtype_name == "bfloat16"
 
 
-SPAN_PHASES = ("stage", "h2d", "step", "detect", "extract", "refine_cfo", "receive",
+SPAN_PHASES = ("stage", "stage.wait", "h2d", "step", "detect", "extract", "refine_cfo", "receive",
                "fetch.wait", "fetch.copy", "account", "sink")
 STEP_CHILDREN = ("detect", "extract", "refine_cfo", "receive", "decode")
 
@@ -289,9 +292,11 @@ STEP_CHILDREN = ("detect", "extract", "refine_cfo", "receive", "decode")
 def test_serve_spans_every_phase_once_a_batch(case, tmp_path):
     """serve() over N batches: host_s holds every phase of the loop, the
     profiler's trace holds N ranges of each (N + 1 pulls: the last finds
-    the source dry), and the step's stages lie inside the step's range."""
+    the source dry), and the step's stages lie inside the step's range.
+    The stage runs on serve()'s stager thread, which the profiler does not
+    record: its seconds reach profiled_spans(), and no range the trace."""
     from gfdm_tpu_torch.parallel.mesh import make_mesh
-    from gfdm_tpu_torch.utils.profiling import trace_to
+    from gfdm_tpu_torch.utils.profiling import profiled_spans, trace_to
 
     n_batches = 3
     chunks, _ = _bench_stream(2 * n_batches, impaired=False, seed=6)
@@ -304,19 +309,23 @@ def test_serve_spans_every_phase_once_a_batch(case, tmp_path):
         kw["device"] = "cpu"
     rx = service.StreamingReceiver(TC, **kw)
     batches = iter(np.split(chunks, n_batches))
+    before = profiled_spans().get("gfdm.service.stage", 0.0)
     with trace_to(str(tmp_path / "trace")):
         stats = rx.serve(lambda: next(batches, None), lambda out: None)
     phases = SPAN_PHASES + (("decode",) if case == "conv" else ())
     assert set(stats.host_s) == {f"gfdm.service.{p}" for p in phases + ("pull",)}
     assert all(v >= 0.0 for v in stats.host_s.values())
+    assert profiled_spans()["gfdm.service.stage"] > before
 
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
     ranges = {}
     for e in events:
         if e.get("cat") == "user_annotation" and e["name"].startswith("gfdm."):
             ranges.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    assert "gfdm.service.stage" not in ranges
     for p in phases:
-        assert len(ranges[f"gfdm.service.{p}"]) == n_batches, p
+        if p != "stage":
+            assert len(ranges[f"gfdm.service.{p}"]) == n_batches, p
     assert len(ranges["gfdm.service.pull"]) == n_batches + 1
     if case == "conv":  # the decoder's ACS and traceback inside its span
         children = {"gfdm.fec.acs": "gfdm.service.decode",
@@ -329,3 +338,95 @@ def test_serve_spans_every_phase_once_a_batch(case, tmp_path):
         assert len(ranges[child]) == n_batches
         for a, b in ranges[child]:
             assert any(pa <= a and b <= pb for pa, pb in ranges[parent]), child
+
+
+def _stager_threads():
+    return [t for t in threading.enumerate() if t.name.startswith("gfdm-stage")]
+
+
+def test_serve_over_one_reused_array_matches_step(monkeypatch):
+    """A source that refills one array on every call: serve() delivers what
+    step() gives on copies of the batches, since the stager finishes a
+    batch before the next pull. The stage is slowed and the interpreter
+    switches threads often, so a pull made during a stage would show."""
+    chunks, _ = _bench_stream(8, impaired=False, seed=7)
+    batches = np.split(chunks, 4)
+    kw = dict(chunk_len=CHUNK, batch_chunks=2, engine="fused", device="cpu")
+    direct = service.StreamingReceiver(TC, **kw)
+    want = [direct.step(b.copy()) for b in batches]
+
+    rx = service.StreamingReceiver(TC, **kw)
+    stage = rx._stage
+
+    def slow_stage(*a):
+        time.sleep(0.02)
+        return stage(*a)
+
+    monkeypatch.setattr(rx, "_stage", slow_stage)
+    shared = np.empty_like(batches[0])
+    it = iter(batches)
+
+    def source():
+        b = next(it, None)
+        if b is None:
+            return None
+        shared[...] = b
+        return shared
+
+    outs = []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        stats = rx.serve(source, outs.append)
+    finally:
+        sys.setswitchinterval(interval)
+    assert stats.batches == len(batches) == len(outs)
+    for got, ref in zip(outs, want):
+        for key in ref:
+            np.testing.assert_array_equal(got[key], ref[key])
+
+
+@pytest.mark.parametrize("max_batches", [0, 1, 3])
+def test_serve_pulls_exactly_max_batches(max_batches):
+    """With max_batches = m the source is called m times (pulling ahead
+    never pulls an m + 1st batch), and every pulled batch is delivered."""
+    chunks, _ = _bench_stream(10, impaired=False, seed=5)
+    calls = []
+
+    def source():
+        calls.append(1)
+        return chunks[2 * (len(calls) - 1) : 2 * len(calls)]
+
+    rx = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=2, device="cpu")
+    outs = []
+    stats = rx.serve(source, outs.append, max_batches=max_batches)
+    assert len(calls) == stats.batches == len(outs) == max_batches
+    assert stats.chunks == 2 * max_batches
+
+
+def test_a_stager_exception_is_raised_from_serve():
+    """A wrong-shaped batch fails on the stager; serve() raises it and
+    leaves no stager thread running."""
+    chunks, _ = _bench_stream(4, impaired=False, seed=5)
+    it = iter([chunks[:2], chunks[2:, :, :-1]])
+    rx = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=2, device="cpu")
+    outs = []
+    with pytest.raises(ValueError, match=f"a batch is \\(n, 2, {CHUNK + HALO}\\)"):
+        rx.serve(lambda: next(it, None), outs.append)
+    assert outs == [] and not _stager_threads()
+    # the receiver serves again afterwards
+    assert rx.serve(lambda: chunks[:2], outs.append, max_batches=1).batches == 1
+    assert len(outs) == 1 and not _stager_threads()
+
+
+def test_serve_times_the_stage_and_its_wait():
+    """host_s holds the stage (timed on the stager) and the loop's wait for
+    it; staged_ahead counts at most every batch."""
+    chunks, _ = _bench_stream(6, impaired=False, seed=6)
+    batches = iter(np.split(chunks, 3))
+    rx = service.StreamingReceiver(TC, chunk_len=CHUNK, batch_chunks=2, device="cpu")
+    stats = rx.serve(lambda: next(batches, None), lambda out: None)
+    assert stats.batches == 3
+    assert stats.host_s["gfdm.service.stage"] > 0.0
+    assert stats.host_s["gfdm.service.stage.wait"] >= 0.0
+    assert 0 <= stats.staged_ahead <= stats.batches
