@@ -272,8 +272,10 @@ def default_ic_iterations(constellation: str) -> int:
 
     The GFDM self-interference scales with symbol energy, so the denser the
     grid the more passes until residual < half the decision distance: 2
-    suffices for qpsk/qam16, 64-QAM needs 4 (cf. the reference QA's ic=64
-    choice in gr-gfdm/python/qa_advanced_receiver_sb_cc.py:82-119)."""
+    suffices for qpsk/qam16, 64-QAM needs 4 (measured on the canonical
+    config). The reference QA's ic=64 in
+    gr-gfdm/python/qa_advanced_receiver_sb_cc.py:82-119 is 64 IC passes on
+    QPSK symbols, not a 64-QAM setting."""
     return 4 if constellation == "qam64" else 2
 
 

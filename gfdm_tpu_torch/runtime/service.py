@@ -39,14 +39,16 @@ the NumPy copy into it; on the stager's thread in ``serve()``),
 ``.h2d`` (enqueueing the copy to the card),
 ``.step`` (the step's enqueue, with ``.detect``, ``.extract``,
 ``.refine_cfo``, ``.receive`` and ``.decode`` inside it; the decoder's
-``gfdm.fec.acs`` and ``gfdm.fec.traceback`` inside that),
+``gfdm.fec.llr`` (the max-log LLRs and the deinterleave), ``gfdm.fec.acs``
+and ``gfdm.fec.traceback`` inside that),
 ``.fetch.wait``, ``.fetch.copy`` (the outputs' pageable copies),
 ``.account`` (the stats) and ``.sink``. Under ``torch.profiler``
 (``utils.profiling.trace_to``) they are ranges on the card's timeline.
 
 ``fec="conv"`` also soft-decodes every slot on its device (max-log LLRs,
-deinterleave, radix Viterbi: ``_build_fec``) and returns its info bits. The
-JAX package's VMEM block picker has no counterpart here.
+deinterleave, radix Viterbi: ``_build_fec``) and returns its info bits; the
+coded bits it decodes add up in ``stats.coded_bits``. The JAX package's
+VMEM block picker has no counterpart here.
 """
 from __future__ import annotations
 
@@ -124,6 +126,9 @@ class ServiceStats:
     # served batches whose staging had finished when the loop asked for
     # them; timing-dependent too
     staged_ahead: int = field(default=0, compare=False)
+    # coded bits soft-decoded (fec="conv"): slots x coded bits a slot of
+    # every enqueued step, padded slots included
+    coded_bits: int = 0
 
     @property
     def mean_snr_db(self) -> float:
@@ -282,10 +287,12 @@ class StreamingReceiver:
         from ..coding import viterbi_decode
         from ..ops.softbits import maxlog_llrs_planar
 
-        nv = 1.0 / torch.clamp_min(snr_lin, 1e-6)
-        llrs = maxlog_llrs_planar(data_pl, self._fec_points, nv[..., None])
-        llrs = llrs.reshape(llrs.shape[0], -1).index_select(
-            1, move(self._fec_inv, llrs.device))
+        with span("gfdm.fec.llr", self.stats.host_s):
+            nv = 1.0 / torch.clamp_min(snr_lin, 1e-6)
+            llrs = maxlog_llrs_planar(data_pl, self._fec_points, nv[..., None])
+            llrs = llrs.reshape(llrs.shape[0], -1).index_select(
+                1, move(self._fec_inv, llrs.device))
+        self.stats.coded_bits += llrs.shape[0] * llrs.shape[1]
         return viterbi_decode(llrs, self.fec_info_bits)
 
     def _chunk_step(self, chunks: torch.Tensor, owned: int | None = None) -> dict:

@@ -313,7 +313,8 @@ def test_serve_spans_every_phase_once_a_batch(case, tmp_path):
     with trace_to(str(tmp_path / "trace")):
         stats = rx.serve(lambda: next(batches, None), lambda out: None)
     phases = SPAN_PHASES + (("decode",) if case == "conv" else ())
-    assert set(stats.host_s) == {f"gfdm.service.{p}" for p in phases + ("pull",)}
+    llr = {"gfdm.fec.llr"} if case == "conv" else set()
+    assert set(stats.host_s) == {f"gfdm.service.{p}" for p in phases + ("pull",)} | llr
     assert all(v >= 0.0 for v in stats.host_s.values())
     assert profiled_spans()["gfdm.service.stage"] > before
 
@@ -327,8 +328,9 @@ def test_serve_spans_every_phase_once_a_batch(case, tmp_path):
         if p != "stage":
             assert len(ranges[f"gfdm.service.{p}"]) == n_batches, p
     assert len(ranges["gfdm.service.pull"]) == n_batches + 1
-    if case == "conv":  # the decoder's ACS and traceback inside its span
-        children = {"gfdm.fec.acs": "gfdm.service.decode",
+    if case == "conv":  # the decoder's LLRs, ACS and traceback inside its span
+        children = {"gfdm.fec.llr": "gfdm.service.decode",
+                    "gfdm.fec.acs": "gfdm.service.decode",
                     "gfdm.fec.traceback": "gfdm.service.decode"}
     else:
         children = {}
