@@ -126,7 +126,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
              4,096).serve, under the default DETECT_IMPL, "pallas2" and
              "pallas", each with the launch counters reset just before and
              read just after: found >= 0.999, CRC-clean share >= 0.99, the
-             clean payloads equal to those sent. Then
+             clean payloads equal to those sent; and once more as coded
+             64-QAM (constellation="qam64", 4 IC passes, 25 dB; T = 1,404)
+             under the default DETECT_IMPL. The kernels JSON's Viterbi rows
+             take their launches from these runs at the default
+             DETECT_IMPL (T = 468 and 1,404). Then
              eval.sensitivity.modem_sensitivity at 4,096 bursts a point (4
              and 10 dB: found >= 0.999, CRC >= 0.9 / 0.95, not lower at 10
              dB); the Viterbi decoder card against CPU in every mode on
@@ -135,7 +139,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
              CPU (1e-5 relative); the coded and the uncoded service step
              (CUDA events, friendly stream, default DETECT_IMPL), the
              decoder alone and its share, their launches (torch.profiler),
-             and StreamingTransmitter.step at 4,096 bursts.
+             the decoder's parts (the Viterbi kernel beside its plain
+             version's on the card) and StreamingTransmitter.step at 4,096
+             bursts. Last, the Viterbi kernel alone at 4,096 codewords of T
+             = 468 and 1,404 (radix 16) on noisy LLRs: no row differing from
+             the plain version on the CPU, kernel and plain times (the
+             torch-op decoder on the card) in turns.
 12. live   - the live-ring modem at the canonical config: 4,096 seeded QPSK
              bursts, one a 2,048-sample cycle. (a) StreamingTransmitter(
              batch_bursts=256).serve into a native StreamBuffer holding the
@@ -290,13 +299,17 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 FMA (no TF32), HBM3
 # H100 SXM dense tensor cores (NVIDIA's data sheet; FP64 tensor cores 67 TFLOP/s)
 PEAK_TF32, PEAK_BF16, PEAK_FP64_TC = 495e12, 989e12, 67e12
 # the chain modes' operations run at their own dense peaks (H100 SXM)
-PEAK_OPS = {"chain_bf16": PEAK_BF16, "chain_int8": 1979e12}
+# the Viterbi kernel's adds and compares: one a fp32 lane a clock, half the FMA peak
+PEAK_OPS = {"chain_bf16": PEAK_BF16, "chain_int8": 1979e12,
+            "viterbi_t468": PEAK_FLOPS / 2, "viterbi_t1404": PEAK_FLOPS / 2}
 N_RAGGED_LINK = 4099  # phase 3: not a multiple of the stages' 128-burst tile
 LINK_K = (128, 256, 512)  # phase 7: the dense receiver and link at larger K, B = B_LARGE_K
 N_CHUNKS = 4096  # service batch: 8.4 M owned samples a step
 CHUNK_LEN = 2048
 N_RAGGED, RAGGED_TRIM = 37, 5  # chunks of T - 5 samples: not 128-aligned
 CODED_SNR_DB = 10.0  # phase 11's services link
+QAM64_SNR_DB = 25.0  # phase 11's coded 64-QAM services link (4 IC passes)
+VITERBI_T = (468, 1404)  # phase 11: the coded QPSK and 64-QAM trellis lengths
 SOURCES = {
     "tx": ("tx_frame_fused", "gfdm_tpu_torch/csrc/tx.cu",
            "gfdm_tpu/kernels/fused.py:1662"),
@@ -331,6 +344,9 @@ SOURCES = {
                   "gfdm_tpu/kernels/fused.py:1074"),
     **{f"chain_{v}": (f"gemm_chain({v})", "gfdm_tpu_torch/csrc/chain.cu",
                       "benchmarks/int8_gauss.py:85") for v in ("f32", "bf16", "int8")},
+    # no TPU kernel: the JAX decoder is lax.scan
+    **{f"viterbi_t{T}": (f"viterbi_decode (kernels.viterbi.decode, T={T})",
+                         "gfdm_tpu_torch/csrc/viterbi.cu", None) for T in VITERBI_T},
 }
 B_CHAIN = 65536  # phase 10: the link's batch
 CHAIN_TOL = {"f32": 1e-5, "bf16": 1e-2}  # int8: bit for bit
@@ -455,17 +471,17 @@ def _noisy(torch, bursts, seed: int, snr_db: float = 20.0):
 
 
 def _reset_launches() -> None:
-    from gfdm_tpu_torch.kernels import chain, detect, fused
+    from gfdm_tpu_torch.kernels import chain, detect, fused, viterbi
 
-    for counts in (fused.LAUNCHES, detect.LAUNCHES, chain.LAUNCHES):
+    for counts in (fused.LAUNCHES, detect.LAUNCHES, chain.LAUNCHES, viterbi.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def _launches() -> dict:
-    from gfdm_tpu_torch.kernels import chain, detect, fused
+    from gfdm_tpu_torch.kernels import chain, detect, fused, viterbi
 
-    return {**fused.LAUNCHES, **detect.LAUNCHES, **chain.LAUNCHES}
+    return {**fused.LAUNCHES, **detect.LAUNCHES, **chain.LAUNCHES, **viterbi.LAUNCHES}
 
 
 def _check_traces(got, ref, names, check) -> tuple[list, float]:
@@ -1084,6 +1100,12 @@ def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
     position a thread would."""
     from gfdm_tpu_torch.kernels import chain, fused
 
+    if key.startswith("viterbi_"):  # radix 16 (k = 4), T trellis steps a codeword
+        # a collapsed step: 2^(2k+1) - 2 pattern-sum adds, 64 x 2^k candidate
+        # adds and 64 x (2^k - 1) compares; the LLRs in, the bits out, once
+        k = 4
+        return (batch * (T // k) * ((1 << (2 * k + 1)) - 2 + 64 * ((2 << k) - 1)),
+                batch * (8.0 * T + T))
     if key.startswith("chain_"):  # x in, out, the weights once (4, 2 or 1 B)
         wbytes = {"chain_f32": 4, "chain_bf16": 2, "chain_int8": 1}[key]
         shapes = chain.CHAIN_SHAPES
@@ -1715,8 +1737,10 @@ def _span_ms(torch, fn, iters: int = 3) -> tuple[float, float]:
 def _decoder_stages(torch, rx, data, snr, card) -> None:
     """[11 stages]: the decoder's parts at the service's slots, each timed
     alone (host enqueue and event span): the LLRs and deinterleave, the
-    branch pattern sums, the forward ACS steps and the traceback."""
+    Viterbi kernel, and beside it its plain version's parts on the card
+    (the branch pattern sums, the forward ACS steps, the traceback)."""
     from gfdm_tpu_torch import coding
+    from gfdm_tpu_torch.kernels import viterbi
     from gfdm_tpu_torch.ops import softbits
 
     n, T = data.shape[0], rx.fec_info_bits + coding.CONV_TAIL_BITS
@@ -1727,13 +1751,15 @@ def _decoder_stages(torch, rx, data, snr, card) -> None:
         return softbits.maxlog_llrs_planar(data, rx._fec_points, nv[:, None]).reshape(
             n, -1).index_select(1, rx._fec_inv)
 
-    lt = llr().reshape(n, T // k, 2 * k).transpose(0, 1)
+    lp = llr().reshape(n, T, 2).contiguous()
+    lt = lp.reshape(n, T // k, 2 * k).transpose(0, 1)
     pat = coding._pattern_sums(lt)
     idx = coding.device_const(("pattern", k), data.device, lambda: coding._pattern_index(k))
     pm0 = coding._initial_metrics(n, data.device)
     decs = coding._forward(pat, idx, k, pm0)[1]
     state = torch.zeros(n, dtype=torch.int64, device=data.device)
-    parts = (("llrs+deinterleave", llr), ("pattern sums", lambda: coding._pattern_sums(lt)),
+    parts = (("llrs+deinterleave", llr), ("viterbi kernel", lambda: viterbi.decode(lp, k)),
+             ("plain: pattern sums", lambda: coding._pattern_sums(lt)),
              (f"forward ({T // k} steps)", lambda: coding._forward(pat, idx, k, pm0)),
              (f"traceback ({T // k - 1} steps)", lambda: coding._traceback(decs, state, k)))
     line = []
@@ -1744,14 +1770,52 @@ def _decoder_stages(torch, rx, data, snr, card) -> None:
           + f" ({card})", flush=True)
 
 
-def _coded_link(torch, cfg, dev, impl, payload, noise, delay):
+def _viterbi_llrs(batch: int, T: int, seed: int, snr_db: float = 1.0) -> np.ndarray:
+    """(batch, T, 2) float32 LLRs of random zero-terminated codewords in
+    AWGN at ``snr_db`` Es/N0 (4 / variance times the received value)."""
+    from gfdm_tpu_torch.coding import CONV_TAIL_BITS, conv_encode
+
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (batch, T - CONV_TAIL_BITS)).astype(np.uint8)
+    var = 10 ** (-snr_db / 10)
+    y = 1.0 - 2.0 * conv_encode(bits) + np.sqrt(var / 2) * rng.standard_normal((batch, 2 * T))
+    return (2.0 * y / (var / 2)).astype(np.float32).reshape(batch, T, 2)
+
+
+def _viterbi_times(torch, dev, card, check):
+    """[11 time] the Viterbi kernel alone at N_CHUNKS codewords of each
+    VITERBI_T (radix 16) on noisy LLRs, its rows differing from the plain
+    version's on the CPU, and kernel and plain (the torch-op decoder on the
+    card) times in turns. Returns (rows differing, times) by key."""
+    from gfdm_tpu_torch.kernels import viterbi
+
+    err, times = {}, {}
+    for T in VITERBI_T:
+        key = f"viterbi_t{T}"
+        cpu = torch.from_numpy(_viterbi_llrs(N_CHUNKS, T, seed=T))
+        lp = cpu.to(dev)
+        got = viterbi.decode(lp, 4).cpu()
+        err[key] = float((got != viterbi._decode_plain(cpu, 4)).any(dim=1).sum())
+        k_ms, p_ms, ks, ps = _timed(torch, lambda: viterbi.decode(lp, 4),
+                                    lambda: viterbi._decode_plain(lp, 4))
+        times[key] = (k_ms, p_ms)
+        print(f"[11 time] viterbi B={N_CHUNKS} T={T} radix 16: kernel {ks} ms, plain (torch "
+              f"ops on the card) {ps} ms "
+              + check(f"viterbi[T={T}]:rows_differing_vs_cpu", err[key], 0.0)
+              + f" ({card})", flush=True)
+    return err, times
+
+
+def _coded_link(torch, cfg, dev, impl, payload, noise, delay, constellation="qpsk"):
     """The services link of phase 11 once, with the launch counters reset
     just before it and read just after: the coded payload framed by
-    cli.payload_to_symbols(fec="conv"), StreamingTransmitter(cycle_samples =
-    CHUNK_LEN).serve (one burst a cycle, the Tx kernel), the stream delayed by
-    ``delay`` samples plus ``noise`` (AWGN), chunk_with_lookahead, then
-    StreamingReceiver(engine="fused", fec="conv", batch_chunks=N_CHUNKS).serve
-    under DETECT_IMPL ``impl``. Returns (sink outputs, launches, bursts sent)."""
+    cli.payload_to_symbols(constellation, fec="conv"), StreamingTransmitter(
+    cycle_samples = CHUNK_LEN).serve (one burst a cycle, the Tx kernel), the
+    stream delayed by ``delay`` samples plus ``noise`` (AWGN),
+    chunk_with_lookahead, then StreamingReceiver(engine="fused", fec="conv",
+    constellation, batch_chunks=N_CHUNKS).serve under DETECT_IMPL ``impl``,
+    with 4 IC passes at 64-QAM (the qam64 cell's). Returns (sink outputs,
+    launches, bursts sent)."""
     from gfdm_tpu_torch.cli import payload_to_symbols
     from gfdm_tpu_torch.ops import planar_pipeline as pp
     from gfdm_tpu_torch.runtime.service import StreamingReceiver
@@ -1761,12 +1825,13 @@ def _coded_link(torch, cfg, dev, impl, payload, noise, delay):
     default_impl = pp.DETECT_IMPL
     pp.DETECT_IMPL = impl
     tx = StreamingTransmitter(cfg, cycle_samples=CHUNK_LEN, device=dev)
+    opts = {"constellation": "qam64", "ic_iterations": 4} if constellation == "qam64" else {}
     rx = StreamingReceiver(cfg, chunk_len=CHUNK_LEN, batch_chunks=N_CHUNKS,
-                           engine="fused", fec="conv", device=dev)
+                           engine="fused", fec="conv", device=dev, **opts)
     halo = cfg.frame_len + cfg.cp_len
     _reset_launches()
     torch.cuda.synchronize()
-    syms, n_bursts = payload_to_symbols(cfg, payload, fec="conv")
+    syms, n_bursts = payload_to_symbols(cfg, payload, constellation, fec="conv")
     planar = np.stack([syms.real, syms.imag], axis=1).astype(np.float32)
     parts = []
     batches = iter([planar])
@@ -1789,7 +1854,7 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
     """Phase 11: the coded modem through both services (see the module
     docstring)."""
     from gfdm_tpu_torch.cli import burst_capacity_bytes, payload_to_symbols
-    from gfdm_tpu_torch.coding import conv_encode, viterbi_decode
+    from gfdm_tpu_torch.coding import CONV_TAIL_BITS, conv_encode, viterbi_decode
     from gfdm_tpu_torch.eval.sensitivity import modem_sensitivity
     from gfdm_tpu_torch.kernels import fused
     from gfdm_tpu_torch.ops import planar_pipeline as pp
@@ -1810,11 +1875,21 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
     sigma = (float(np.mean(np.sum(b0**2, axis=1))) * 10 ** (-CODED_SNR_DB / 10) / 2) ** 0.5
     noise = (sigma * np.random.default_rng(15).standard_normal(
         (2, N_CHUNKS * CHUNK_LEN))).astype(np.float32)
+    # one coded 64-QAM run at QAM64_SNR_DB (unit-energy maps: the same power)
+    cap64 = burst_capacity_bytes(cfg, 6, "conv")
+    links = {"qpsk": (cap, payload, noise, CODED_SNR_DB),
+             "qam64": (cap64, bytes(rng.integers(0, 256, N_CHUNKS * cap64, dtype=np.uint8)),
+                       noise * np.float32(10 ** ((CODED_SNR_DB - QAM64_SNR_DB) / 20)),
+                       QAM64_SNR_DB)}
     kernel_of = {"pallas2": "detect_lean", "pallas": "detect_front"}
-    results = {}
-    for impl in (pp.DETECT_IMPL, "pallas2", "pallas"):
-        outs, run, n_bursts = _coded_link(torch, cfg, dev, impl, payload, noise, delay)
+    results, viterbi_launches = {}, {}
+    for impl, qam in ((pp.DETECT_IMPL, "qpsk"), ("pallas2", "qpsk"), ("pallas", "qpsk"),
+                      (pp.DETECT_IMPL, "qam64")):
+        lcap, lpay, lnoise, snr_db = links[qam]
+        outs, run, n_bursts = _coded_link(torch, cfg, dev, impl, lpay, lnoise, delay, qam)
         out = outs[0]
+        name = impl if qam == "qpsk" else f"{impl},{qam}"
+        ic = 4 if qam == "qam64" else 2
         found, bits = out["found"], out["bits"]
         n_info = bits.shape[1]
         ok = np.zeros(n_bursts, bool)
@@ -1822,31 +1897,35 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
         for i in range(n_bursts):
             if not found[i]:
                 continue
-            good, part = check_crc32(pack_bits(bits[i][: (cap + 4) * 8]))
+            good, part = check_crc32(pack_bits(bits[i][: (lcap + 4) * 8]))
             ok[i] = good
-            if good and part != payload[i * cap : (i + 1) * cap]:
+            if good and part != lpay[i * lcap : (i + 1) * lcap]:
                 same = False
         lag = out["start_abs"][found] - (delay + CHUNK_LEN * np.arange(n_bursts)[found])
-        need = ["tx", "rx"] + ([kernel_of[impl]] if impl in kernel_of else [])
+        need = ["tx", "rx", "viterbi"] + ([kernel_of[impl]] if impl in kernel_of else [])
         for key in need:
             if run[key] < 1:
-                failures.append(f"kernel {key} was not launched on the coded path ({impl})")
-        if run["tx"] != 1 or run["rx"] != fused.rx_launches(2):
-            failures.append(f"coded path ({impl}): launches {run}, expected tx 1 and rx "
-                            f"{fused.rx_launches(2)}")
+                failures.append(f"kernel {key} was not launched on the coded path ({name})")
+        if run["tx"] != 1 or run["rx"] != fused.rx_launches(ic):
+            failures.append(f"coded path ({name}): launches {run}, expected tx 1 and rx "
+                            f"{fused.rx_launches(ic)}")
         if not same:
-            failures.append(f"coded path ({impl}): a CRC-clean payload differs from the sent one")
+            failures.append(f"coded path ({name}): a CRC-clean payload differs from the sent one")
         if len(set(lag.tolist())) > 1:
-            failures.append(f"coded path ({impl}): detections off the cycle grid {set(lag)}")
-        results[impl] = out
+            failures.append(f"coded path ({name}): detections off the cycle grid {set(lag)}")
+        if impl == pp.DETECT_IMPL:  # the main path's decoder launches, by trellis length
+            viterbi_launches[f"viterbi_t{n_info + CONV_TAIL_BITS}"] = run["viterbi"]
+        if qam == "qpsk":
+            results[impl] = out
         print(f"[11 main] services link DETECT_IMPL={impl}: StreamingTransmitter.serve "
-              f"({n_bursts} coded QPSK bursts, cycle {CHUNK_LEN}) -> delay {delay} + AWGN "
-              f"{CODED_SNR_DB} dB -> StreamingReceiver(fused, fec=conv).serve: found="
+              f"({n_bursts} coded {qam} bursts, cycle {CHUNK_LEN}) -> delay {delay} + AWGN "
+              f"{snr_db} dB -> StreamingReceiver(fused, fec=conv, {qam}).serve: found="
               f"{int(found.sum())}/{n_bursts} crc_clean={int(ok.sum())}/{n_bursts} "
               f"payloads_equal={same} launches={{tx: {run['tx']}, rx: {run['rx']}, "
-              f"detect_front: {run['detect_front']}, detect_lean: {run['detect_lean']}}} "
-              + check(f"{impl}:1-found", 1.0 - float(found.mean()), 1.0 - TOL["found_min"])
-              + " " + check(f"{impl}:1-crc", 1.0 - float(ok.mean()), 1.0 - TOL["crc_min"])
+              f"detect_front: {run['detect_front']}, detect_lean: {run['detect_lean']}, "
+              f"viterbi: {run['viterbi']}}} "
+              + check(f"{name}:1-found", 1.0 - float(found.mean()), 1.0 - TOL["found_min"])
+              + " " + check(f"{name}:1-crc", 1.0 - float(ok.mean()), 1.0 - TOL["crc_min"])
               + f" ({card})", flush=True)
 
     # 2. sensitivity at full width
@@ -1865,7 +1944,9 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
               check("crc@4-crc@10", float(cr[0] - cr[1]), 0.0),
           ]) + f" ({card})", flush=True)
 
-    # 3. the decoder and the soft bits on the card against the CPU
+    # 3. the decoder and the soft bits on the card against the CPU, at the
+    # QPSK links' codeword (T = 468)
+    n_info = results[pp.DETECT_IMPL]["bits"].shape[1]
     drng = np.random.default_rng(16)
     info = drng.integers(0, 2, (N_CHUNKS, n_info)).astype(np.uint8)
     sym = 1.0 - 2.0 * conv_encode(info).astype(np.float64)
@@ -1963,6 +2044,14 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
     print(f"[11 time] StreamingTransmitter.step B={N_CHUNKS}: host {host_ms:.3f} ms (copies "
           f"in and out), device {dev_ms:.3f} ms (the Tx kernel and the scale), "
           + check("vs plain", e, TOL["tx"]) + f" bit_equal={e == 0.0} ({card})", flush=True)
+
+    # the Viterbi kernel alone at the coded services' trellis lengths; the
+    # launches are the main path's (the QPSK and 64-QAM services links above)
+    err, times = _viterbi_times(torch, dev, card, check)
+    missing = sorted(set(times) - set(viterbi_launches))
+    if missing:
+        failures.append(f"no services link ran the decoder at {missing}")
+    return viterbi_launches, err, times
 
 
 class _Timed:
@@ -2591,7 +2680,7 @@ def _app_phase(torch, cfg, dev, card, check, failures):
           + check("ccdf", ccdf, 1e-6) + f"; host {card_s:.2f} s ({card})", flush=True)
     launches = {k: v for k, v in _launches().items() if v}
     print(f"[13 main] the port's kernels launched by (c)-(h): {launches or 'none'} (the "
-          f"complex chain and the planar torch-op link); phase 13 "
+          f"complex chain and the planar torch-op link; the coded BER's decoder); phase 13 "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -3170,8 +3259,13 @@ def main() -> int:
     err.update(ch_err)
     times.update(ch_times)
 
-    # 11. the coded modem through the transmit and receive services
-    _coded_phase(torch, cfg, dev, streams, card, check, failures)
+    # 11. the coded modem through the transmit and receive services; the
+    # Viterbi kernel alone
+    vit_launches, vit_err, vit_times = _coded_phase(torch, cfg, dev, streams, card, check,
+                                                    failures)
+    launches.update(vit_launches)
+    err.update(vit_err)
+    times.update(vit_times)
 
     # 12. the live-ring modem over the ring and a real socket, the complex chain
     _live_phase(torch, cfg, dev, streams, card, check, failures)
@@ -3203,6 +3297,7 @@ def main() -> int:
         "rx_core": (cfg, B, {}), "rx_ic": (cfg, B, {}), "rx_full": (cfg, B, {}),
         "rx_hybrid": (cfg, B, {}),
         **{f"chain_{v}": (None, B_CHAIN, {}) for v in ("f32", "bf16", "int8")},
+        **{f"viterbi_t{T}": (None, N_CHUNKS, {"T": T}) for T in VITERBI_T},
     }
     kernels = []
     for key, (name, source, replaces) in SOURCES.items():

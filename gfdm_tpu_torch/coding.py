@@ -4,10 +4,12 @@ The port of ``gfdm_tpu.coding``. The encoder, the interleaver and the
 trellis tables are NumPy copies of the reference's; the interleaver is
 arithmetic, not a PRNG stream, so a transmitter and a receiver on either
 package derive the same permutation bit for bit. The soft-decision decoder
-runs as torch ops on the LLRs' device: the add-compare-select recursion is
-a loop over (collapsed) trellis steps carrying the 64 path metrics of every
-codeword of the batch as one (B, 64) tensor, the decisions stored as a
-uint8 (steps, B, 64) tensor, then a ``torch.gather`` traceback. The
+hands every mode's trellis to ``kernels.viterbi.decode``: on a card one
+CUDA kernel runs the add-compare-select recursion and the traceback; on
+the CPU its plain version runs the torch ops here, a loop over (collapsed)
+trellis steps carrying the 64 path metrics of every codeword of the batch
+as one (B, 64) tensor, the decisions stored as a uint8 (steps, B, 64)
+tensor, then a ``torch.gather`` traceback. Both give the same bits. The
 reference's TPU workarounds (G-step unrolled scan groups, the one-hot
 gather-free traceback) are not ported; the decisions are the same.
 
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from .device import as_tensor, device_const
-from .utils.profiling import span
+from .kernels import viterbi as _kernel
 
 __all__ = [
     "CONV_RATE",
@@ -187,20 +189,6 @@ def _initial_metrics(B: int, device) -> torch.Tensor:
     return pm
 
 
-def _decode_radix(lp: torch.Tensor, n_info: int, k: int) -> torch.Tensor:
-    """(B, T, 2) float32 LLRs -> (B, n_info) bits, k trellis steps a step;
-    k = 1 is the one-step-per-iteration decoder ("full")."""
-    B, T = lp.shape[:2]
-    S = T // k
-    lt = lp.reshape(B, S, 2 * k).transpose(0, 1)
-    idx = device_const(("pattern", k), lp.device, lambda: _pattern_index(k))
-    with span("gfdm.fec.acs"):
-        _, decs = _forward(_pattern_sums(lt), idx, k, _initial_metrics(B, lp.device))
-    with span("gfdm.fec.traceback"):
-        state = torch.zeros(B, dtype=torch.int64, device=lp.device)
-        return _traceback(decs, state, k)[:, :n_info]
-
-
 @lru_cache(maxsize=8)
 def _window_plan(T: int, body: int, overlap: int) -> dict:
     """The windowed decoder's index tables (the reference's, as NumPy)."""
@@ -219,7 +207,9 @@ def _window_plan(T: int, body: int, overlap: int) -> dict:
         # pinned windows concentrate on state 0; interior ones start uniform
         "pm0": np.where(pinned[:, None] & (np.arange(_NSTATES) != 0)[None, :],
                         np.float32(_NEG), np.float32(0.0)).astype(np.float32),
-        "terminal": starts + span == T,  # exact state-0 end (zero-terminated)
+        # windows ending before T trace back from their best state; those
+        # ending at T from the zero-terminated state 0
+        "interior": starts + span != T,
     }
 
 
@@ -236,16 +226,10 @@ def _decode_windowed(lp: torch.Tensor, n_info: int, body: int, overlap: int):
     def const(name):
         return device_const(("window", T, body, overlap, name), dev, lambda: plan[name])
 
-    wl = lp[:, const("time_idx")]  # (B, W, span, 2)
-    lt = wl.reshape(B * W, width, 2).transpose(0, 1)
+    wl = lp[:, const("time_idx")].reshape(B * W, width, 2)  # windows folded into the batch
     pm0 = const("pm0").expand(B, W, _NSTATES).reshape(B * W, _NSTATES)
-    idx = device_const(("pattern", 1), dev, lambda: _pattern_index(1))
-    with span("gfdm.fec.acs"):
-        pm, decs = _forward(_pattern_sums(lt), idx, 1, pm0)
-    with span("gfdm.fec.traceback"):
-        start = pm.view(B, W, _NSTATES).argmax(dim=-1)
-        state = torch.where(const("terminal"), 0, start).reshape(B * W)
-        bits = _traceback(decs, state, 1).view(B, W, width)
+    from_argmax = const("interior").expand(B, W).reshape(B * W)
+    bits = _kernel.decode(wl, 1, pm0, from_argmax).view(B, W, width)
     return bits[:, const("w_of_t"), const("pos_of_t")][:, :n_info]
 
 
@@ -288,11 +272,11 @@ def viterbi_decode(llrs, n_info: int, mode: str = "auto", device=None):
         raise ValueError(
             f"viterbi_decode: {x.shape[-1]} LLRs a codeword, expected 2*(n_info+6) = {2 * T}"
         )
-    lp = x.to(torch.float32).reshape(-1, T, 2)
+    lp = x.to(torch.float32).reshape(-1, T, 2).contiguous()
     if mode == "windowed":
         bits = _decode_windowed(lp, n_info, WINDOW_BODY, WINDOW_OVERLAP)
     else:
-        bits = _decode_radix(lp, n_info, k)
+        bits = _kernel.decode(lp, k)[:, :n_info]
     return bits.reshape(lead + (n_info,))
 
 

@@ -1,2 +1,3 @@
-"""Fused GFDM kernels, the detection front end and the link's GEMM chain
-(CUDA C++ for Hopper), each with its plain torch version."""
+"""Fused GFDM kernels, the detection front end, the link's GEMM chain and
+the Viterbi decoder (CUDA C++ for Hopper), each with its plain torch
+version."""

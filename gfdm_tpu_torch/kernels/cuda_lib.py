@@ -21,10 +21,10 @@ from pathlib import Path
 import torch
 
 __all__ = ["Dims", "Consts", "Act", "LinkIO", "DetectDims", "FactoredDims", "FactoredConsts",
-           "library", "launch", "build_dir", "build_info"]
+           "ViterbiTables", "library", "launch", "build_dir", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("tx.cu", "rx.cu", "link.cu", "detect.cu", "factored.cu", "chain.cu")
+SOURCES = ("tx.cu", "rx.cu", "link.cu", "detect.cu", "factored.cu", "chain.cu", "viterbi.cu")
 HEADERS = ("gfdm_common.cuh", "link_gemm.cuh", "hopper_gemm.cuh", "fma_gemm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -97,6 +97,13 @@ class FactoredConsts(ctypes.Structure):
         "fk", "tw", "fm", "ifm", "parts", "taps", "act", "map_idx", "win",
         "pre",
     )]
+
+
+class ViterbiTables(ctypes.Structure):
+    """Mirror of ``gfdm::ViterbiTables`` in csrc/viterbi.cu: the pattern
+    index of transition (ns, j) is ``q_j[j] ^ q_ns[ns]``."""
+
+    _fields_ = [("q_j", ctypes.c_int * 16), ("q_ns", ctypes.c_int * 64)]
 
 
 _LIB = None
@@ -204,6 +211,10 @@ def library() -> ctypes.CDLL:
     lib.gfdm_factored_plan.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
     lib.gfdm_chain.argtypes = [ci, ci, ci, ci, vp, vp, vp, vp, cf, cf, cf, vp, vp, vp, vp]
     lib.gfdm_chain_int8_clusters.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.gfdm_viterbi.argtypes = [ctypes.POINTER(ViterbiTables), ci, ci, ci, vp, vp, vp, vp, vp,
+                                 vp]
+    lib.gfdm_viterbi_scratch_bytes.argtypes = [ci, ci, ctypes.POINTER(ctypes.c_size_t), vp]
+    lib.gfdm_viterbi_tables_size.argtypes = []
     lib.gfdm_peek_error.argtypes = []
     lib.gfdm_set_device.argtypes = [ci]
     for fn in (lib.gfdm_tx, lib.gfdm_tx_tile, lib.gfdm_link_stage, lib.gfdm_tf32_split,
@@ -213,7 +224,9 @@ def library() -> ctypes.CDLL:
                lib.gfdm_rx_factored, lib.gfdm_rx_estimate, lib.gfdm_rx_factored_chan,
                lib.gfdm_rx_estimate_tile,
                lib.gfdm_factored_struct_sizes, lib.gfdm_factored_plan, lib.gfdm_chain,
-               lib.gfdm_chain_int8_clusters, lib.gfdm_peek_error, lib.gfdm_set_device):
+               lib.gfdm_chain_int8_clusters, lib.gfdm_viterbi, lib.gfdm_viterbi_scratch_bytes,
+               lib.gfdm_viterbi_tables_size,
+               lib.gfdm_peek_error, lib.gfdm_set_device):
         fn.restype = ctypes.c_int
     lib.gfdm_error_string.argtypes = [ctypes.c_int]
     lib.gfdm_error_string.restype = ctypes.c_char_p
@@ -228,13 +241,13 @@ def library() -> ctypes.CDLL:
     fsizes = (ctypes.c_int * 2)()
     lib.gfdm_factored_struct_sizes(fsizes)
     c_sizes = (sizes[0], sizes[1], lib.gfdm_link_io_size(), lib.gfdm_detect_dims_size(),
-               fsizes[0], fsizes[1])
+               fsizes[0], fsizes[1], lib.gfdm_viterbi_tables_size())
     py_sizes = tuple(ctypes.sizeof(t) for t in (Dims, Consts, LinkIO, DetectDims,
-                                                FactoredDims, FactoredConsts))
+                                                FactoredDims, FactoredConsts, ViterbiTables))
     if c_sizes != py_sizes:
         raise RuntimeError(
             f"kernel struct layout mismatch (Dims, Consts, LinkIO, DetectDims, FactoredDims, "
-            f"FactoredConsts): C {c_sizes} vs ctypes {py_sizes}"
+            f"FactoredConsts, ViterbiTables): C {c_sizes} vs ctypes {py_sizes}"
         )
     _LIB = lib
     return lib

@@ -1,8 +1,10 @@
-"""Viterbi test LLRs on a dyadic grid, shared by the CPU and the card tests.
+"""Viterbi test LLRs, shared by the CPU and the card tests.
 
-Every LLR is a multiple of 1/8 in [-16, 16], so every sum the decoder
-forms is exact in float32 whatever its order: the JAX package, the port's
-CPU run and its card run must then take the same decisions, ties included.
+``dyadic_llrs``: every LLR is a multiple of 1/8 in [-16, 16], so every
+sum the decoder forms is exact in float32 whatever its order: the JAX
+package, the port's CPU run and its card run must then take the same
+decisions, ties included. ``noisy_llrs``: continuous float32 LLRs of noisy
+codewords, where the order of the sums matters.
 """
 import numpy as np
 
@@ -23,3 +25,15 @@ def dyadic_llrs(n_info: int, rows: int, seed: int):
                   -16.0, 16.0)
     llr[np.arange(rows) % 8 == 7] = 0.0
     return llr.astype(np.float32), bits
+
+
+def noisy_llrs(batch: int, T: int, seed: int, snr_db: float = 1.0) -> np.ndarray:
+    """(batch, T, 2) float32 LLRs of random zero-terminated codewords of T
+    trellis steps in AWGN at ``snr_db`` Es/N0 (4 / variance times the
+    received value)."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (batch, T - 6)).astype(np.uint8)
+    sym = 1.0 - 2.0 * conv_encode(bits).astype(np.float64)
+    var = 10 ** (-snr_db / 10)
+    y = sym + np.sqrt(var / 2) * rng.standard_normal(sym.shape)
+    return (2.0 * y / (var / 2)).astype(np.float32).reshape(batch, T, 2)

@@ -17,7 +17,7 @@ from gfdm_tpu_torch import GfdmConfig
 from gfdm_tpu_torch.entry import large_k_config, planar_payload
 from gfdm_tpu_torch.kernels import fused
 import factored_fft_emulation as emu
-from dyadic_llrs import dyadic_llrs
+from dyadic_llrs import dyadic_llrs, noisy_llrs
 
 pytestmark = pytest.mark.gpu
 
@@ -1021,7 +1021,11 @@ def _stale_error_calls(dev):
                for s in chain.CHAIN_SHAPES]
     x = torch.from_numpy(rng.standard_normal((256, 936)).astype(np.float32)).to(dev)
     cws = {v: chain.chain_weights_from_numpy(weights, v).to(dev) for v in chain.VARIANTS}
+    from gfdm_tpu_torch.coding import viterbi_decode
+
+    llrs = torch.from_numpy(dyadic_llrs(462, 65, seed=9)[0]).to(dev)
     return {
+        "viterbi": lambda: viterbi_decode(llrs, 462),
         "tx": lambda: fused.tx_frame_fused(cfg, data),
         "link": lambda: fused.link_single_fused(cfg, data)[0],
         "tf32_split": lambda: torch.stack(fused._tf32_split_cuda(x)),
@@ -1030,10 +1034,10 @@ def _stale_error_calls(dev):
 
 
 @pytest.mark.parametrize("name", ["tx", "link", "tf32_split", "chain_f32", "chain_bf16",
-                                  "chain_int8"])
+                                  "chain_int8", "viterbi"])
 def test_launchers_clear_a_stale_error(name):
     """Each launcher (csrc/tx.cu, link.cu's stage launches and tf32 split,
-    chain.cu) reports its own launch only: with an error left in the
+    chain.cu, viterbi.cu) reports its own launch only: with an error left in the
     runtime before it, the call runs, gives the bits of a clean call, and
     leaves the runtime's last error clear."""
     from gfdm_tpu_torch.kernels import cuda_lib
@@ -1085,6 +1089,128 @@ def test_viterbi_card_matches_cpu(mode, n_info):
     assert card.device.type == "cuda" and card.dtype == torch.uint8
     cpu = viterbi_decode(torch.from_numpy(llrs), n_info, mode)
     assert torch.equal(card.cpu(), cpu)
+
+
+# the Viterbi kernel (csrc/viterbi.cu) against the plain version on the CPU:
+# radix 16 at the coded cells' T = 468 and 1,404, radix 8 (T = 471), 4 (470)
+# and 2 (139: no radix divides it); dyadic LLRs (ties everywhere) and
+# continuous ones (noisy codewords at 1 dB)
+VITERBI_T = (468, 1404, 471, 470, 139)
+
+
+def _viterbi_llrs(kind, T, batch, seed):
+    if kind == "dyadic":
+        return dyadic_llrs(T - 6, batch, seed)[0]
+    return noisy_llrs(batch, T, seed).reshape(batch, 2 * T)
+
+
+@pytest.mark.parametrize("kind", ["dyadic", "continuous"])
+@pytest.mark.parametrize("batch", [1, 65, 4096])
+@pytest.mark.parametrize("T", VITERBI_T)
+@pytest.mark.parametrize("mode", VITERBI_MODES)
+def test_viterbi_kernel_matches_cpu(mode, T, batch, kind):
+    """Every mode launches the kernel once on the card, and its bits are
+    equal to the plain version's on the CPU."""
+    from gfdm_tpu_torch.coding import viterbi_decode
+    from gfdm_tpu_torch.kernels import viterbi
+
+    dev = _cuda()
+    llrs = torch.from_numpy(_viterbi_llrs(kind, T, batch, seed=T + batch))
+    if mode == "radix" and T == 139:
+        with pytest.raises(ValueError, match="no radix"):
+            viterbi_decode(llrs.to(dev), T - 6, mode)
+        return
+    before = viterbi.LAUNCHES["viterbi"]
+    card = viterbi_decode(llrs.to(dev), T - 6, mode)
+    assert viterbi.LAUNCHES["viterbi"] == before + 1
+    assert card.device.type == "cuda" and card.dtype == torch.uint8
+    assert torch.equal(card.cpu(), viterbi_decode(llrs, T - 6, mode))
+
+
+# past ~3,200 steps a block's decisions outgrow shared memory and the
+# kernel keeps them in a global scratch: T = 3,600 just past that at radix
+# 16, and 37,440, the codeword of `rx --fec conv -K 1024 -M 15
+# --constellation qam64` (k = 4; "full" runs it one step a step)
+@pytest.mark.parametrize("T", [3600, 37440])
+@pytest.mark.parametrize("mode", VITERBI_MODES)
+def test_viterbi_kernel_decodes_long_codewords(mode, T):
+    """Codewords whose decisions the kernel keeps in global memory decode
+    in one launch to the CPU's bits, in every mode."""
+    from gfdm_tpu_torch.coding import viterbi_decode
+    from gfdm_tpu_torch.kernels import viterbi
+
+    dev = _cuda()
+    assert viterbi._scratch_bytes(T, 4, dev) > 0 and viterbi._scratch_bytes(T, 1, dev) > 0
+    assert viterbi._scratch_bytes(1404, 4, dev) == 0
+    llrs = torch.from_numpy(_viterbi_llrs("continuous", T, 3, seed=T))
+    before = viterbi.LAUNCHES["viterbi"]
+    card = viterbi_decode(llrs.to(dev), T - 6, mode)
+    assert viterbi.LAUNCHES["viterbi"] == before + 1
+    assert torch.equal(card.cpu(), viterbi_decode(llrs, T - 6, mode))
+
+
+@pytest.mark.parametrize("mode", ["auto", "full", "windowed"])
+def test_viterbi_kernel_matches_cpu_on_nonfinite_llrs(mode):
+    """NaN, infinite and huge LLRs: the kernel keeps torch's choices (the
+    first NaN, else the first maximum) and gives the CPU's bits."""
+    from gfdm_tpu_torch.coding import viterbi_decode
+
+    dev = _cuda()
+    llrs = _viterbi_llrs("continuous", 468, 65, seed=5)
+    rng = np.random.default_rng(6)
+    for value in (np.nan, np.inf, -np.inf, 3e38, -3e38):
+        llrs.reshape(-1)[rng.choice(llrs.size, 40, replace=False)] = value
+    llrs = torch.from_numpy(llrs)
+    assert torch.equal(viterbi_decode(llrs.to(dev), 462, mode).cpu(),
+                       viterbi_decode(llrs, 462, mode))
+
+
+def test_viterbi_on_card_runs_no_torch_op_loop(monkeypatch):
+    """A CUDA call never enters the plain version's ACS, pattern sums or
+    traceback, in any mode."""
+    from gfdm_tpu_torch import coding
+
+    dev = _cuda()
+    llrs = torch.from_numpy(dyadic_llrs(462, 65, seed=4)[0])
+    want = {mode: coding.viterbi_decode(llrs, 462, mode) for mode in VITERBI_MODES}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the torch-op decoder ran on a CUDA tensor")
+
+    for name in ("_pattern_sums", "_forward", "_traceback"):
+        monkeypatch.setattr(coding, name, refuse)
+    for mode in VITERBI_MODES:
+        assert torch.equal(coding.viterbi_decode(llrs.to(dev), 462, mode).cpu(), want[mode])
+
+
+def test_viterbi_kernel_takes_a_view_off_16_bytes():
+    """LLRs one float into their storage (the kernel reads 16-byte
+    vectors): the wrapper decodes a copy, with the CPU's bits."""
+    from gfdm_tpu_torch.kernels import viterbi
+
+    dev = _cuda()
+    x = torch.from_numpy(_viterbi_llrs("continuous", 468, 65, seed=8)).reshape(65, 468, 2)
+    flat = torch.empty(x.numel() + 1, device=dev)
+    flat[1:] = x.reshape(-1).to(dev)
+    lp = flat[1:].view(65, 468, 2)
+    assert lp.data_ptr() % 16
+    assert torch.equal(viterbi.decode(lp, 4).cpu(), viterbi.decode(x, 4))
+
+
+def test_viterbi_kernel_refuses_other_inputs():
+    """The wrapper raises ValueError on CUDA LLRs that are not float32,
+    contiguous, (B, T, 2) with k dividing T, or options of another shape."""
+    from gfdm_tpu_torch.kernels import viterbi
+
+    dev = _cuda()
+    lp = torch.zeros(8, 468, 2, device=dev)
+    for bad, k, kw in ((lp.double(), 4, {}), (lp.transpose(0, 1), 4, {}),
+                       (lp[..., :1].contiguous(), 4, {}), (lp.reshape(8, 936), 4, {}),
+                       (lp[:, :466].contiguous(), 4, {}), (lp, 5, {}),
+                       (lp, 4, {"pm0": torch.zeros(8, 32, device=dev)}),
+                       (lp, 4, {"from_argmax": torch.zeros(8, device=dev)})):
+        with pytest.raises(ValueError):
+            viterbi.decode(bad, k, **kw)
 
 
 @pytest.mark.parametrize("name", ["qpsk", "qam16", "qam64"])

@@ -328,10 +328,12 @@ def test_serve_spans_every_phase_once_a_batch(case, tmp_path):
         if p != "stage":
             assert len(ranges[f"gfdm.service.{p}"]) == n_batches, p
     assert len(ranges["gfdm.service.pull"]) == n_batches + 1
-    if case == "conv":  # the decoder's LLRs, ACS and traceback inside its span
+    if case == "conv":  # the decoder's LLRs and Viterbi inside its span; on the
+        # CPU (the plain path) the Viterbi's ACS and traceback inside that
         children = {"gfdm.fec.llr": "gfdm.service.decode",
-                    "gfdm.fec.acs": "gfdm.service.decode",
-                    "gfdm.fec.traceback": "gfdm.service.decode"}
+                    "gfdm.fec.viterbi": "gfdm.service.decode",
+                    "gfdm.fec.acs": "gfdm.fec.viterbi",
+                    "gfdm.fec.traceback": "gfdm.fec.viterbi"}
     else:
         children = {}
     children.update({f"gfdm.service.{c}": "gfdm.service.step" for c in STEP_CHILDREN
