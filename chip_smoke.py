@@ -1,33 +1,37 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's main paths on one CUDA card and check them.
+"""Run the PyTorch port's main paths end to end on one CUDA card and check them.
 
     python3 chip_smoke.py    # canonical config: link B = 65,536 bursts,
                              # service 4,096 chunks x 2,048 samples
 
-Phases, one line each (any failure exits non-zero and prints no result):
+The card's integration run: each kernel against its plain version at the
+main paths' shapes, then each public path at full width, with its launches
+counted. tests/test_torch_gpu.py (pytest -m gpu) holds the kernels at the
+other shapes and options; gfdm_tpu_torch/benchmarks/kernels.py times them
+(its table of checks is phase 3's, its timer and card line the timed lines
+here take). Phases, one line each or more, numbered as the documents cite
+them (no phase 5); any failure exits non-zero and prints no result:
 
 1. device  - requires CUDA; prints the card's name and power limit.
-2. build   - compiles the CUDA kernels of gfdm_tpu_torch/csrc with nvcc.
-3. check   - each kernel against its plain torch version on the same CUDA
-             inputs: the Tx at a ragged batch (4,099) and shifts (0, 4), at
-             the canonical config and at n_data = 130 (K = 32, 26 active,
-             M = 5: an xi plane 520 bytes into a row), with its bit-equality
-             printed, then at the full batch; the staged
-             receiver on noisy bursts (AWGN 20 dB) and the staged link,
-             both IC modes, at the full batch and a ragged one (4,099); both
-             detection kernels on the service's 4,096 friendly chunks, on
-             37 chunks of a T that is not 128-aligned and on
-             entry._dynamic_range_chunks (power steps of 60 dB, an all-zero
-             chunk, a burst after silence).
+2. build   - compiles the CUDA kernels of gfdm_tpu_torch/csrc with nvcc;
+             ptxas's registers and spills of each kernel.
+3. check   - benchmarks.kernels.checks: each kernel through its public
+             wrapper on card tensors, against its plain version on the same
+             inputs, at the shapes benchmarks/kernels.py times: Tx, receiver
+             (conv and matmul IC, the metrics, its launches, the bursts
+             unwritten), link (matmul, conv, bf16 stacks) and CDD Tx at
+             65,536 bursts; the factored Tx and receiver at K = 256, 512,
+             1,024 (and 512 at M = 5), the estimator receiver and its GEMM at
+             K = 128; the four superseded receivers at 65,536; both detection
+             kernels on the service's 4,096 chunks and the sp = 2 service's
+             8,192 windows (traces, starts, peak fields); the chain in f32,
+             bf16 and int8 at 65,536 rows; the Viterbi kernel at 4,096
+             codewords of T = 468 and 1,404 against the CPU, bit for bit.
 4. main    - the entry step (link_single_fused, matmul IC) and
              link_step_fused (Tx kernel -> the receiver's stages) at full
-             batch, with the launch counters reset just before; EVM against
-             the plain versions and the planar torch-op link.
-5. time    - each link kernel and its plain version, CUDA events after
-             warm-up; beside the Tx, a note with the time of its core's three
-             products as torch.mm (TF32 off), the plain version's SGEMMs
-             without the framing; the link's and the receiver's time a
-             stage.
+             batch, with the launch counters reset just before (the link
+             fused.link_launches, the receiver fused.rx_launches); EVM
+             against the plain versions and the planar torch-op link.
 6. service - StreamingReceiver(engine="fused") on the synthetic service
              streams (entry.service_stream, seed 0): friendly (20 dB AWGN,
              one burst a chunk, k = 1) under DETECT_IMPL "pallas2" (lean
@@ -37,85 +41,26 @@ Phases, one line each (any failure exits non-zero and prints no result):
              runs once under torch's sync debug mode, which fails on any
              host sync inside it; then once with the launch counters reset
              just before, through StreamingReceiver.step: found fraction,
-             device-step samples/s (CUDA events), the device's busy time a
-             step and the receiver's part of it (torch.profiler), launches,
-             and on the
-             friendly stream the EVM of the found slots against the sent
-             payload; then the detection kernels' times with a note of
-             conv1d's (cuDNN, TF32 off) for their cross-correlation alone
-             at the same shape, the receiver's time a stage at the
-             service's 4,096 slots, and one serve() loop (batch 256,
-             super-batch 1,024, pipeline depth 2).
-7. large K - the factored kernels (entry.large_k_config, the crossover
-             study's M = 9 configs): at K = 256, 512 (B = 4,096) and 1,024
-             (B = 2,048) the Tx kernel and the receiver kernel with the
-             channel read (estimator="fast"), at K = 128, B = 4,096 the
-             receiver with its own dense estimator (two launches: the
-             estimator GEMM, then the receiver kernel on its channel), each
-             against its plain version on noisy bursts (AWGN 20 dB); the
-             staged dense receiver and link at K = 128, 256 and 512
-             (128-burst tiles). Then the large-K link link_step_factored
-             (Tx kernel -> torch-op estimate -> receiver kernel -> demap) at
-             K = 512, B = 4,096 and the estimator="fused" link at K = 128,
-             each with the launch counters reset just before and read just
-             after: hard decisions against the payload, EVM against the
-             plain versions' and the torch-op method="fast" chain's. Last,
-             kernel vs plain (with the bound counting the K-point stage as
-             an FFT, the direct DFT's beside it) and the link (kernels,
-             plain versions, torch-op chain) timed at those K, the
-             estimator="fused" receiver (both launches) at K = 128 and its
-             estimator GEMM alone (beside torch.mm of the same product, TF32
-             off, and its error against a float64 product); a note with
-             torch.fft.fft's (cuFFT)
-             time for the K-point stage alone; the link's device time a
-             stage (Tx, torch-op estimate, receiver, demap and EVM) at K =
-             512 and 1,024.
-
-8. options - the receiver's stages against their plain version (summed in
-             float64, as the stages sum) at B = 16,384
-             noisy bursts for each option combination the JAX package's
-             tests cover: (mmse, qpsk), (mmse_cnr, qpsk), (mmse_cnr, qam16),
-             (mmse, qam64), phase compensation on a 0.1 rad rotation of the
-             data section, qam16 under the matmul IC. Bursts whose IC
-             decisions differ between kernel and plain version (a decision
-             within float rounding of a level boundary; found by running
-             both at 0 and 1 IC iterations) are counted and left out of the
-             max-abs check; beside that count, the same count against the
-             float32 plain version (printed, no limit); the receiver's
-             launches (the phase stage included) and each product stage
-             against the plain stage on its own inputs under each equalizer.
-             The link kernel at qam16,
-             qam64 and bf16 stacks.
-             Then, with the launch counters reset just before, the service
-             (fused engine vs the torch-op xla engine) on 4,096-chunk qam16
-             (mmse_cnr, 30 dB) and qam64 (mmse, 36 dB) streams.
-9. cdd, variants - tx_cdd_fused against its plain version at B = 65,536
-             with shifts (0, 2) and at a ragged B with (0, 3, 7), with its
-             bit-equality printed; with the
-             counters reset, the two-antenna CDD link (entry.cdd_link: the
-             example's taps) at 34 dB, no symbol error allowed, and at 28 dB
-             beside its plain version; each superseded receiver (rx_core,
-             rx_ic, rx_full, rx_hybrid; IC at 2 iterations) against its
-             plain version at B = 65,536, called once with the counters
-             reset, each with exactly fused.variant_launches launches; the
-             device time of each of their stages (CUDA events around each
-             launch); rx_core's two Gauss products as six torch.mm (TF32
-             off), the yardstick of a part; then kernel and plain times of
-             the CDD Tx and the four receivers.
-10. chain  - the link's GEMM chain (benchmarks/int8_gauss.py's shapes,
-             (B, 936) -> 1152 -> 1152 -> 1152) at B = 65,536 with the
-             benchmark's inputs (gfdm_tpu_torch.benchmarks.int8_gauss): with
-             the launch counters reset just before, one chain step in each
-             of f32, bf16 and int8; each against its plain version (f32
-             max |d| / max |ref| <= 1e-5, bf16 <= 1e-2, int8 bit for bit)
-             and against a float64 chain; then kernel, plain and library
-             times (three torch.mm with TF32 off; three torch.mm with
-             float32 output; torch._int_mm with torch-op quantization
-             between); the int8 call's device time a launch (x's pass,
-             three stages) and the clusters its stages run as; torch._int_mm
-             x3 on operands quantized beforehand (the GEMMs alone); and
-             torch.linalg.multi_dot's time as a note (it reassociates: not
-             the chain's function).
+             device-step samples/s (CUDA events), launches (one receiver
+             call a step), and on the friendly stream the EVM of the found
+             slots against the sent payload; then one serve() loop (batch
+             256, super-batch 1,024, pipeline depth 2).
+7. large K - the large-K link link_step_factored (Tx kernel -> torch-op
+             estimate -> receiver kernel -> demap) at K = 512, B = 4,096
+             and the estimator="fused" link at K = 128, each with the launch
+             counters reset just before and read just after: hard decisions
+             against the payload, EVM against the plain versions' and the
+             torch-op method="fast" chain's.
+8. service - the service (fused engine vs the torch-op xla engine) on
+             4,096-chunk qam16 (mmse_cnr, 30 dB) and qam64 (mmse, 36 dB)
+             streams, with the launch counters reset just before.
+9. cdd     - with the counters reset, the two-antenna CDD link
+             (entry.cdd_link: the example's taps) at 34 dB, no symbol error
+             allowed, and at 28 dB beside its plain version.
+10. chain  - the link's GEMM chain (benchmarks/int8_gauss.py's shapes and
+             inputs) at B = 65,536: with the launch counters reset just
+             before, one chain step in each of f32, bf16 and int8, each
+             with chain._KERNELS launches.
 11. coded  - the coded modem through both services: a seeded payload of
              4,096 coded QPSK bursts framed by cli.payload_to_symbols(fec=
              "conv"), StreamingTransmitter(cycle_samples=2,048).serve (one
@@ -126,25 +71,16 @@ Phases, one line each (any failure exits non-zero and prints no result):
              4,096).serve, under the default DETECT_IMPL, "pallas2" and
              "pallas", each with the launch counters reset just before and
              read just after: found >= 0.999, CRC-clean share >= 0.99, the
-             clean payloads equal to those sent; and once more as coded
-             64-QAM (constellation="qam64", 4 IC passes, 25 dB; T = 1,404)
-             under the default DETECT_IMPL. The kernels JSON's Viterbi rows
-             take their launches from these runs at the default
-             DETECT_IMPL (T = 468 and 1,404). Then
-             eval.sensitivity.modem_sensitivity at 4,096 bursts a point (4
-             and 10 dB: found >= 0.999, CRC >= 0.9 / 0.95, not lower at 10
-             dB); the Viterbi decoder card against CPU in every mode on
-             dyadic LLRs (bit for bit) and on the found slots' real LLRs (the
-             share of slots differing, <= 1e-3), the soft bits card against
-             CPU (1e-5 relative); the coded and the uncoded service step
-             (CUDA events, friendly stream, default DETECT_IMPL), the
-             decoder alone and its share, their launches (torch.profiler),
-             the decoder's parts (the Viterbi kernel beside its plain
-             version's on the card) and StreamingTransmitter.step at 4,096
-             bursts. Last, the Viterbi kernel alone at 4,096 codewords of T
-             = 468 and 1,404 (radix 16) on noisy LLRs: no row differing from
-             the plain version on the CPU, kernel and plain times (the
-             torch-op decoder on the card) in turns.
+             clean payloads equal to those sent, one decoder launch a
+             batch; and once more as coded 64-QAM (constellation="qam64", 4
+             IC passes, 25 dB; T = 1,404) under the default DETECT_IMPL.
+             Then eval.sensitivity.modem_sensitivity at 4,096 bursts a point
+             (4 and 10 dB: found >= 0.999, CRC >= 0.9 / 0.95, not lower at
+             10 dB); the found slots' soft bits card against CPU (1e-5
+             relative) and their decoded bits (the share of slots differing,
+             <= 1e-3); the coded and the uncoded service step (CUDA events,
+             friendly stream, default DETECT_IMPL) with the decoder's share,
+             and their launches (torch.profiler).
 12. live   - the live-ring modem at the canonical config: 4,096 seeded QPSK
              bursts, one a 2,048-sample cycle. (a) StreamingTransmitter(
              batch_bursts=256).serve into a native StreamBuffer holding the
@@ -210,9 +146,7 @@ Phases, one line each (any failure exits non-zero and prints no result):
              only at a sub-chunk boundary), extra found slots under 1% of
              the chunks; each step's time against sp = 1's (CUDA events)
              and a StageTimer split (windows, detect, extract, refine,
-             receive); both detection kernels against their plain versions
-             on the 8,192 sub-chunk windows (1,024 + 768 samples, n_valid
-             1,024). (b) parallel.detect_bursts_sharded on eight copies of
+             receive). (b) parallel.detect_bursts_sharded on eight copies of
              the card (dp = 2, sp = 4) at tests/test_parallel.py's four
              scenarios, complex and planar, k = 1 and 2, against the same
              call on the CPU. (c) entry.dryrun_multichip(8) on the card.
@@ -223,139 +157,48 @@ Phases, one line each (any failure exits non-zero and prints no result):
              (multichip_sharding in its own process, dryrun_multihost
              spawning its workers), the kernels each should launch.
 
-Then a JSON line of per-kernel results (launches on the main paths, error
-against the plain version, kernel, plain and library ms, the bound: the
-larger of the operations over the card's peak for their type - 67 TFLOP/s
-of fp32 FMA, 495 TFLOP/s of dense TF32 (three products a float32-stack
-product in the staged link and receiver), 67 TFLOP/s of FP64 tensor cores
-(the bf16 link's float64 sums; the receiver's beside its bound), 989
-TFLOP/s of dense bf16, 1,979 TOP/s of dense
-int8 - and the bytes, each input read once and each output
-written once, over 3.35 TB/s, at the timed shapes), the card line, and as
-the last line
+Then the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
 import json
-import math
 import subprocess
 import sys
 import time
 
 import numpy as np
 
+from gfdm_tpu_torch.benchmarks.kernels import card_line, ptxas_lines, reset_launches, time_ms
+from gfdm_tpu_torch.benchmarks.kernels import checks as kernel_checks
+from gfdm_tpu_torch.benchmarks.kernels import launches as read_launches
+
 B = 65536  # bursts per main-path step: 49 M samples at the canonical config
 TOL = {
     # float32 products summed in another order: bursts ~1e-6, and the
     # receiver's ZF divide and IC amplify that by < 100
     "tx": 2e-5,
-    "chan": 2e-4,
-    "symbols": 5e-4,
     "data": 1e-4,
-    "snr_rtol": 1e-3,
-    "cnr_rtol": 1e-2,
     "evm": 1e-4,
     "evm_max": 0.025,  # the clean-loopback floor is 0.018 (JAX on CPU)
-    # detection kernels vs plain: the JAX package's Pallas-vs-reference
-    # limits for traces (tests/test_detection.py), peak fields as in
-    # tests/test_torch_detect.py
-    "trace_atol": 3e-5, "trace_rtol": 3e-3,
-    "peak_atol": 1e-6, "peak_rtol": 1e-4,
     # service: found fraction floor, kernel paths vs the torch-op twostage
     "found_min": 0.999, "found_vs_twostage": 1e-3, "evm_vs_twostage": 1e-3,
-    # options: the share of bursts whose IC decisions differ between kernel
-    # and plain version (each must start from a decision within 1e-5 of a
-    # level boundary: float rounding, not a fault; qam64 measured 2.4e-4 at
-    # 20 dB and on the clean link, so 1e-3); the service's fused vs xla
-    # engines on found slots whose last IC decisions agree, and the share
-    # that differ
-    "excluded_share": 1e-3, "boundary": 1e-5, "engines_data": 2e-3,
-    "engines_flipped_share": 1e-2,
-    # bf16 stacks: float32 sums in another order can leave an activation on
-    # the other side of a bf16 rounding boundary, which moves its burst's
-    # outputs by up to ~5e-3 (CPU: the plain version against JAX's)
-    "bf16_data": 1e-2,
-    # ... and so moves a decision up to ~2e-2 level units from a boundary to
-    # the other side, in a burst of a few hundred (the CPU's one in eight
-    # bursts of JAX vs plain); those bursts are left out, at most 2%
-    "bf16_boundary": 2e-2, "bf16_excluded_share": 2e-2,
-    # the bf16 link kernels sum the products whose outputs are rounded to
-    # bf16 next (Tx, estimate) in float64, so they are held to the plain
-    # version summed in float64 (sum64); besides, each product stage against
-    # the plain stage on the kernel's own inputs, relative to the stage's
-    # largest magnitude
-    "stages": 1e-5,
-    # row 6's estimator GEMM against a float64 product, relative to its
-    # largest output: float32 sums over 4K = 512 terms in order (~1e-6)
-    "estimate64": 1e-5,
+    # the service's fused vs xla engines on found slots whose last IC
+    # decisions agree, and the share that differ
+    "engines_data": 2e-3, "engines_flipped_share": 1e-2,
     # phase 11, the coded services link at CODED_SNR_DB: the share of sent
     # bursts whose CRC-clean payload comes back; the share of found slots
     # whose decoded bits differ between the card and the CPU on the same
     # LLRs (equal branch sums, so only an argmax over a float tie could)
     "crc_min": 0.99, "decode_differ": 1e-3,
 }
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 FMA (no TF32), HBM3
-# H100 SXM dense tensor cores (NVIDIA's data sheet; FP64 tensor cores 67 TFLOP/s)
-PEAK_TF32, PEAK_BF16, PEAK_FP64_TC = 495e12, 989e12, 67e12
-# the chain modes' operations run at their own dense peaks (H100 SXM)
-# the Viterbi kernel's adds and compares: one a fp32 lane a clock, half the FMA peak
-PEAK_OPS = {"chain_bf16": PEAK_BF16, "chain_int8": 1979e12,
-            "viterbi_t468": PEAK_FLOPS / 2, "viterbi_t1404": PEAK_FLOPS / 2}
-N_RAGGED_LINK = 4099  # phase 3: not a multiple of the stages' 128-burst tile
-LINK_K = (128, 256, 512)  # phase 7: the dense receiver and link at larger K, B = B_LARGE_K
 N_CHUNKS = 4096  # service batch: 8.4 M owned samples a step
 CHUNK_LEN = 2048
-N_RAGGED, RAGGED_TRIM = 37, 5  # chunks of T - 5 samples: not 128-aligned
 CODED_SNR_DB = 10.0  # phase 11's services link
 QAM64_SNR_DB = 25.0  # phase 11's coded 64-QAM services link (4 IC passes)
-VITERBI_T = (468, 1404)  # phase 11: the coded QPSK and 64-QAM trellis lengths
-SOURCES = {
-    "tx": ("tx_frame_fused", "gfdm_tpu_torch/csrc/tx.cu",
-           "gfdm_tpu/kernels/fused.py:1662"),
-    "tx_cdd": ("tx_cdd_fused", "gfdm_tpu_torch/csrc/tx.cu",
-               "gfdm_tpu/kernels/fused.py:1709"),
-    "rx": ("rx_receiver_fused", "gfdm_tpu_torch/csrc/link.cu",
-           "gfdm_tpu/kernels/fused.py:343"),
-    "link": ("link_single_fused", "gfdm_tpu_torch/csrc/link.cu",
-             "gfdm_tpu/kernels/fused.py:1403"),
-    "detect_front": ("detect_front_fused", "gfdm_tpu_torch/csrc/detect.cu",
-                     "gfdm_tpu/kernels/detect.py:71"),
-    "detect_lean": ("detect_bursts_fused", "gfdm_tpu_torch/csrc/detect.cu",
-                    "gfdm_tpu/kernels/detect.py:164"),
-    "tx_factored": ("tx_frame_factored", "gfdm_tpu_torch/csrc/factored.cu",
-                    "gfdm_tpu/kernels/fused.py:1847"),
-    "rx_factored": ("rx_receiver_factored(estimator=fused): rx_estimate_kernel + "
-                    "rx_factored_kernel", "gfdm_tpu_torch/csrc/factored.cu",
-                    "gfdm_tpu/kernels/fused.py:849"),
-    "rx_estimate": ("rx_receiver_factored(estimator=fused)'s estimator GEMM "
-                    "(rx_estimate_kernel)", "gfdm_tpu_torch/csrc/factored.cu",
-                    "gfdm_tpu/kernels/fused.py:854"),
-    "rx_factored_chan": ("rx_receiver_factored(estimator=fast)",
-                         "gfdm_tpu_torch/csrc/factored.cu",
-                         "gfdm_tpu/kernels/fused.py:862"),
-    "rx_core": ("rx_core_fused", "gfdm_tpu_torch/csrc/rx.cu",
-                "gfdm_tpu/kernels/fused.py:143"),
-    "rx_ic": ("rx_ic_fused", "gfdm_tpu_torch/csrc/rx.cu",
-              "gfdm_tpu/kernels/fused.py:206"),
-    "rx_full": ("rx_full_fused", "gfdm_tpu_torch/csrc/rx.cu",
-                "gfdm_tpu/kernels/fused.py:684"),
-    "rx_hybrid": ("rx_receiver_hybrid", "gfdm_tpu_torch/csrc/rx.cu",
-                  "gfdm_tpu/kernels/fused.py:1074"),
-    **{f"chain_{v}": (f"gemm_chain({v})", "gfdm_tpu_torch/csrc/chain.cu",
-                      "benchmarks/int8_gauss.py:85") for v in ("f32", "bf16", "int8")},
-    # no TPU kernel: the JAX decoder is lax.scan
-    **{f"viterbi_t{T}": (f"viterbi_decode (kernels.viterbi.decode, T={T})",
-                         "gfdm_tpu_torch/csrc/viterbi.cu", None) for T in VITERBI_T},
-}
 B_CHAIN = 65536  # phase 10: the link's batch
-CHAIN_TOL = {"f32": 1e-5, "bf16": 1e-2}  # int8: bit for bit
-CHAIN_LAUNCHES = {"f32": 3, "bf16": 4, "int8": 4}  # kernels of one chain call
-B_OPTIONS = 16384  # phase 8's receiver checks
-N_RAGGED_CDD = 4099
-# phase 7: the crossover study's link points (K, B) and the full-width one;
-# estimator="fused" runs at K = 128, where its dense (4K, 2N) E is 4.7 MB
-LARGE_K = ((256, 4096), (512, 4096), (1024, 2048))
+# phase 7: the large-K link at full width; estimator="fused" runs at K = 128,
+# where its dense (4K, 2N) E is 4.7 MB
 K_FULL, K_ESTIMATOR, B_LARGE_K = 512, 128, 4096
 # phase 12: bursts of the live loop (one a 2,048-sample cycle), the transmit
 # service's batch, the receive service's batch and super-batch, the longest
@@ -395,14 +238,6 @@ PAR_TOL = {"cfo": 1e-6, "bursts": 1e-5}
 PAR_TIMEOUT_S, SP_DIFFER_SHARE, PAR_FALSE_ALARM_SHARE = 300.0, 0.01, 1e-3
 
 
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def _max_abs(a, b) -> float:
     return float((a - b).abs().max())
 
@@ -416,143 +251,9 @@ def _rel_excess(a, b, atol: float, rtol: float) -> float:
     return float(((a - b).abs() - rtol * b.abs()).max()) / atol
 
 
-def _time_ms(torch, fn, iters: int = 5) -> float:
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def _timed(torch, fn_k, fn_p):
-    """Kernel and plain times in turns (plain, kernel, kernel, plain):
-    (kernel ms, plain ms, "k1/k2", "p1/p2")."""
-    p1, k1, k2, p2 = (_time_ms(torch, f) for f in (fn_p, fn_k, fn_k, fn_p))
-    return (k1 + k2) / 2, (p1 + p2) / 2, f"{k1:.3f}/{k2:.3f}", f"{p1:.3f}/{p2:.3f}"
-
-
-def _device_busy(torch, fn, calls: int = 3):
-    """(device busy ms a call of ``fn``, the part of it in the staged
-    receiver's kernels): torch.profiler's device time of every kernel over
-    ``calls`` calls after a warm-up; None where the profiler records no
-    device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    busy = rx = 0.0
-    for ev in prof.key_averages():
-        us = ev.self_device_time_total
-        busy += us
-        if "gfdm::lg::" in ev.key:
-            rx += us
-    if busy == 0.0:
-        return None
-    return busy / 1e3 / calls, rx / 1e3 / calls
-
-
-def _noisy(torch, bursts, seed: int, snr_db: float = 20.0):
-    """bursts + AWGN at snr_db (noise drawn with numpy from ``seed``)."""
-    sig_pow = float((bursts**2).sum(dim=1).mean())  # mean |x|^2 per sample
-    sigma = (sig_pow / 10 ** (snr_db / 10) / 2) ** 0.5
-    noise = np.random.default_rng(seed).standard_normal(tuple(bursts.shape),
-                                                        dtype=np.float32)
-    return bursts + sigma * torch.from_numpy(noise).to(bursts.device)
-
-
-def _reset_launches() -> None:
-    from gfdm_tpu_torch.kernels import chain, detect, fused, viterbi
-
-    for counts in (fused.LAUNCHES, detect.LAUNCHES, chain.LAUNCHES, viterbi.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-
-
-def _launches() -> dict:
-    from gfdm_tpu_torch.kernels import chain, detect, fused, viterbi
-
-    return {**fused.LAUNCHES, **detect.LAUNCHES, **chain.LAUNCHES, **viterbi.LAUNCHES}
-
-
-def _check_traces(got, ref, names, check) -> tuple[list, float]:
-    parts, e = [], 0.0
-    for name, g, r in zip(names, got, ref):
-        if tuple(g.shape) != tuple(r.shape):
-            parts.append(check(f"{name}_shape", 1.0, 0.0))
-            continue
-        e = max(e, _max_abs(g, r))
-        parts.append(check(name, _rel_excess(g, r, TOL["trace_atol"], TOL["trace_rtol"]),
-                           1.0))
-    return parts, e
-
-
-def _check_front(cfg, s, label, check, limit: int = CHUNK_LEN, tag: str = "3") -> float:
-    """Kernel A through its wrapper against its plain version."""
-    from gfdm_tpu_torch.kernels import detect
-
-    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, limit)
-    got = detect.detect_front_fused(cfg, s, limit)
-    ref = detect._detect_front_plain(cfg, s, n_valid)
-    parts, e = _check_traces(got, ref, ("gated", "ac", "energy", "ic"), check)
-    print(f"[{tag} check] detect_front[{label}] max_abs={e:.3e} (traces: excess over "
-          f"atol {TOL['trace_atol']} + rtol {TOL['trace_rtol']}) " + " ".join(parts),
-          flush=True)
-    return e
-
-
-def _check_lean(torch, cfg, s, label, check, failures, limit: int = CHUNK_LEN,
-                tag: str = "3") -> float:
-    """Kernel B's traces and its detection dict against the plain versions."""
-    from gfdm_tpu_torch.kernels import detect
-
-    n_valid = min(s.shape[-1] - 2 * cfg.subcarriers, limit)
-    got_tr = detect._detect_lean_cuda(cfg, s, n_valid)
-    ref_tr = detect._detect_lean_plain(cfg, s, n_valid)
-    parts, e = _check_traces(got_tr, ref_tr, ("gated", "ic"), check)
-    got = detect.detect_bursts_fused(cfg, s, limit)
-    ref = detect._lean_epilogue(cfg, s, *ref_tr)
-    n_diff = int((got["start"] != ref["start"]).sum())
-    parts.append(check("start_mismatch", float(n_diff), 0.0))
-    for key in ("cfo", "scale", "strength", "ac_peak", "noise_floor"):
-        parts.append(check(key, _rel_excess(got[key], ref[key], TOL["peak_atol"],
-                                            TOL["peak_rtol"]), 1.0))
-    if not all(bool(torch.isfinite(v).all()) for v in got.values()):
-        failures.append(f"detect_lean[{label}]: non-finite outputs")
-    print(f"[{tag} check] detect_lean[{label}] max_abs={e:.3e} " + " ".join(parts),
-          flush=True)
-    return e
-
-
-def _xcorr_yardstick(torch, cfg, s, card) -> None:
-    """[6 note]: conv1d (cuDNN, TF32 off) of the detection kernels'
-    cross-correlation alone at the service's shape, 2K taps over every
-    position: one stage of their function, so not their library_ms, and the
-    port's kernels never call it."""
-    from gfdm_tpu_torch.kernels import detect
-    from gfdm_tpu_torch.ops.planar_pipeline import _conv_xcorr
-
-    w = detect._consts(cfg, s.device)["conv"]
-    ms = _time_ms(torch, lambda: _conv_xcorr(s, w))
-    print(f"[6 note] conv1d of the 2K-tap cross-correlation alone, ({s.shape[0]}, 2, "
-          f"{s.shape[-1]}) x (2, 2, {w.shape[-1]}), TF32 off: {ms:.3f} ms ({card})", flush=True)
-
-
 def _service_phase(torch, cfg, dev, streams, card, check, failures):
-    """Phase 6: the streaming receive service through StreamingReceiver.
-
-    Returns the detection kernels' launch counts from their main-path runs
-    and their (kernel, plain) times at the service's shapes."""
-    from gfdm_tpu_torch.kernels import detect, fused
+    """Phase 6: the streaming receive service through StreamingReceiver."""
+    from gfdm_tpu_torch.kernels import fused
     from gfdm_tpu_torch.ops import planar_pipeline as pp
     from gfdm_tpu_torch.runtime.service import ServiceStats, StreamingReceiver
 
@@ -561,7 +262,7 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
               ("friendly", "twostage", 1), ("impaired", "pallas", 2),
               ("impaired", "twostage", 2))
     kernel_of = {"pallas2": "detect_lean", "pallas": "detect_front"}
-    res, launches = {}, {}
+    res = {}
     samples = N_CHUNKS * CHUNK_LEN
     for stream_name, impl, k in setups:
         chunks, counts, payload = streams[stream_name]
@@ -581,13 +282,12 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        _reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         out = rx.step(chunks)  # the user's entry: copy in, step, fetch
         host_s = time.perf_counter() - t0
-        run = _launches()
-        ms = _time_ms(torch, lambda: rx._step(dev_chunks))
-        busy = _device_busy(torch, lambda: rx._step(dev_chunks))
+        run = read_launches()
+        ms = time_ms(lambda: rx._step(dev_chunks))
         found = float(out["found"].sum()) / float(counts.sum())
         fmask = out["found"]
         shapes = out["data"].shape == (N_CHUNKS * k, 2, cfg.n_data_symbols)
@@ -607,17 +307,12 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
         if stream_name == "friendly":
             d, p = out["data"][fmask], payload[fmask]
             evm = float(np.sqrt(np.sum((d - p) ** 2) / np.sum(p**2)))
-            if impl in kernel_of:
-                launches[kernel_of[impl]] = run[kernel_of[impl]]
         res[(stream_name, impl)] = (found, evm)
         print(f"[6 service] {stream_name} k={k} DETECT_IMPL={impl}: found="
               f"{int(out['found'].sum())}/{int(counts.sum())}={found:.6f} "
               + (f"evm_found={evm:.6f} " if stream_name == "friendly" else "")
               + f"device step {ms:.3f} ms = {samples / (ms / 1e3):.4e} samples/s "
-              + ("device busy not measured " if busy is None else
-                 f"device busy {busy[0]:.3f} ms (receiver {busy[1]:.3f} ms, idle "
-                 f"{1 - busy[0] / ms:.1%}) ")
-              + f"(host step incl. copies {host_s * 1e3:.1f} ms) launches="
+              f"(host step incl. copies {host_s * 1e3:.1f} ms) launches="
               f"{{detect_front: {run['detect_front']}, detect_lean: "
               f"{run['detect_lean']}, rx: {run['rx']}}} ({N_CHUNKS} chunks x "
               f"{CHUNK_LEN}, {card})", flush=True)
@@ -635,22 +330,6 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
             parts.append(check("|evm-twostage|", abs(evm - evm_ts),
                                TOL["evm_vs_twostage"]))
     print("[6 service] " + " ".join(parts), flush=True)
-
-    # detection kernels vs their plain versions at the service's shapes
-    s = torch.from_numpy(streams["friendly"][0]).to(dev)
-    times = {}
-    for key, kern, plain in (
-        ("detect_front", detect._detect_front_cuda, detect._detect_front_plain),
-        ("detect_lean", detect._detect_lean_cuda, detect._detect_lean_plain),
-    ):
-        k_ms, p_ms, ks, ps = _timed(torch, lambda: kern(cfg, s, CHUNK_LEN),
-                                    lambda: plain(cfg, s, CHUNK_LEN))
-        times[key] = (k_ms, p_ms)
-        print(f"[6 time] {key}: kernel {ks} ms, plain {ps} ms,"
-              f" kernel {N_CHUNKS * s.shape[-1] / (times[key][0] / 1e3):.4e} samples/s "
-              f"(B={N_CHUNKS}, T={s.shape[-1]}, {card})", flush=True)
-    _xcorr_yardstick(torch, cfg, s, card)
-    del s
 
     # the host loop: serve() over the friendly stream through the lean kernel
     pp.DETECT_IMPL = "pallas2"
@@ -677,7 +356,6 @@ def _service_phase(torch, cfg, dev, streams, card, check, failures):
     if stats.chunks != N_CHUNKS:
         failures.append(f"serve() received {stats.chunks} of {N_CHUNKS} chunks")
     pp.DETECT_IMPL = default_impl
-    return launches, times
 
 
 def _factored_link_plain(cfg, data, estimator: str):
@@ -692,101 +370,38 @@ def _factored_link_plain(cfg, data, estimator: str):
     return sym[..., fused._factored_consts(cfg, data.device)["demap_idx"]]
 
 
-def _large_k_phase(torch, dev, card, check, failures):
-    """Phase 7: the factored kernels and the large-K link.
-
-    Returns the factored kernels' launch counts from the main-path run,
-    their max errors against the plain versions, the dense receiver's and
-    link's errors at K = 128-512, and (kernel, plain) times at the
-    full-width points."""
+def _large_k_phase(torch, dev, check, failures) -> None:
+    """Phase 7: the large-K link through the user's entry points."""
     from gfdm_tpu_torch.entry import large_k_config, planar_payload
     from gfdm_tpu_torch.kernels import fused
     from gfdm_tpu_torch.ops.planar_pipeline import evm, link_step_planar
 
-    batch = {K_ESTIMATOR: B_LARGE_K, **dict(LARGE_K)}
+    batch = {K_FULL: B_LARGE_K, K_ESTIMATOR: B_LARGE_K}
     cfgs = {K: large_k_config(K) for K in batch}
     payload = {K: torch.from_numpy(planar_payload(cfgs[K], batch[K], seed=K)).to(dev)
                for K in batch}
-    err = {"tx_factored": 0.0, "rx_factored": 0.0, "rx_factored_chan": 0.0,
-           "rx": 0.0, "link": 0.0}
 
-    # 7a. each factored kernel against its plain version on the same inputs,
-    # at every K that 7c times
-    for K, estimator in tuple((K, "fast") for K, _b in LARGE_K) + ((K_ESTIMATOR, "fused"),):
-        cfg, data = cfgs[K], payload[K]
-        key = "rx_factored_chan" if estimator == "fast" else "rx_factored"
-        bursts = fused.tx_frame_factored(cfg, data)
-        e_tx = _max_abs(bursts, fused._tx_factored_plain(cfg, data, 0))
-        err["tx_factored"] = max(err["tx_factored"], e_tx)
-        noisy = _noisy(torch, bursts, K)
-        chan, sym = fused.rx_receiver_factored(cfg, noisy, estimator=estimator)
-        ref_chan = fused._fast_channel(cfg, noisy) if estimator == "fast" else None
-        rchan, rsym = fused._rx_factored_plain(cfg, noisy, ref_chan, 2)
-        ec, es = _max_abs(chan, rchan), _max_abs(sym, rsym)
-        err[key] = max(err[key], ec, es)
-        print(f"[7 check] K={K} B={batch[K]} " + " ".join([
-            check("tx_factored", e_tx, TOL["tx"]),
-            check(f"{key}:chan", ec, TOL["chan"]),
-            check(f"{key}:symbols", es, TOL["symbols"]),
-        ]), flush=True)
-        del bursts, noisy, chan, sym, rchan, rsym
-
-    # 7a. the staged dense receiver and link at K = 128, 256 and 512
-    # (N = 1152 .. 4608), in their 128-burst tiles
-    for K in LINK_K:
-        Bk = batch[K]
-        noisy = _noisy(torch, fused.tx_frame_fused(cfgs[K], payload[K]), K + 1).contiguous()
-        before = fused.LAUNCHES["rx"]
-        chan, sym, _met = fused.rx_receiver_fused(cfgs[K], noisy)
-        n_launch = fused.LAUNCHES["rx"] - before
-        rchan, rsym, _rmet = fused._rx_receiver_plain(cfgs[K], noisy.reshape(Bk, -1), 2, "conv")
-        ec = _max_abs(chan.reshape(Bk, -1), rchan)
-        es = _max_abs(sym.reshape(Bk, -1), rsym)
-        err["rx"] = max(err["rx"], ec, es)
-        parts = [check("rx:chan", ec, TOL["chan"]), check("rx:symbols", es, TOL["symbols"]),
-                 check("rx:launches!=plan", float(n_launch != fused.rx_launches(2)), 0.0)]
-        del noisy, chan, sym, rchan, rsym
-        for mode in ("conv", "matmul"):
-            d_hat, _snr, evm_k = fused.link_single_fused(cfgs[K], payload[K], ic_mode=mode)
-            ref, _met = fused._link_single_plain(cfgs[K], payload[K].reshape(batch[K], -1), 2,
-                                                 mode)
-            e = _max_abs(d_hat.reshape(batch[K], -1), ref)
-            err["link"] = max(err["link"], e)
-            evm_p = float(evm(ref.reshape(payload[K].shape), payload[K]))
-            parts += [check(f"link[{mode}]:data", e, TOL["data"]),
-                      check("|d_evm|", abs(float(evm_k) - evm_p), TOL["evm"]),
-                      check("evm", float(evm_k), TOL["evm_max"])]
-            del d_hat, ref
-        print(f"[7 check] dense receiver and link at K={K} B={Bk} (128-burst tiles) "
-              + " ".join(parts), flush=True)
-
-    # 7b. the large-K link through the user's entry points, each path's
-    # launches counted from zero (row 6, estimator="fused": the estimator
-    # GEMM under "rx_factored", then the receiver under "rx_factored_chan")
+    # each path's launches counted from zero (estimator="fused": the
+    # estimator GEMM under "rx_factored", then the receiver under
+    # "rx_factored_chan")
     links, runs = {}, {}
     host_s = 0.0
     for K, est in ((K_FULL, "fast"), (K_ESTIMATOR, "fused")):
-        _reset_launches()
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         links[(K, est)] = fused.link_step_factored(cfgs[K], payload[K], estimator=est)
         torch.cuda.synchronize()
         host_s += time.perf_counter() - t0
-        run = _launches()
+        run = read_launches()
         runs[est] = {key: run[key] for key in ("tx_factored", "rx_factored", "rx_factored_chan")}
     fast, fusd = runs["fast"], runs["fused"]
     row6 = {"rx_estimate_kernel": fusd["rx_factored"], "rx_factored_kernel": fusd["rx_factored_chan"]}
-    # row 7 (rx_factored_chan) is the fast link's receiver; row 6's receiver
-    # launch stands in the rx_factored entry's launches_by_kernel
-    launches = {"tx_factored": fast["tx_factored"] + fusd["tx_factored"],
-                "rx_factored": sum(row6.values()), "rx_estimate": fusd["rx_factored"],
-                "rx_factored_chan": fast["rx_factored_chan"]}
-    for key, v in launches.items():
-        if v < 1:
-            failures.append(f"kernel {key} was not launched on the large-K path")
-    if tuple(row6.values()) != (1, 1) or fast["rx_factored"] != 0:
-        failures.append(f"row 6: launches {row6} on the estimator=fused link (expected one "
-                        f"each), rx_factored {fast['rx_factored']} on the fast one")
+    if (fast["tx_factored"], fast["rx_factored_chan"], fast["rx_factored"]) != (1, 1, 0) \
+            or fusd["tx_factored"] != 1 or tuple(row6.values()) != (1, 1):
+        failures.append(f"large-K links: launches {fast} (estimator=fast) and {fusd} "
+                        f"(estimator=fused), expected one Tx and one receiver a link, the "
+                        f"estimator GEMM on the fused one only")
     for (K, est), (d_hat, evm_k) in links.items():
         data = payload[K]
         evm_k = float(evm_k)
@@ -810,393 +425,6 @@ def _large_k_phase(torch, dev, card, check, failures):
           f"{row6['rx_factored_kernel']}) host {host_s * 1e3:.1f} ms", flush=True)
     del links
 
-    # 7c. times: kernel vs plain (plain, kernel, kernel, plain) and the link
-    # through the kernels, their plain versions and the torch-op fast chain
-    times = {}
-
-    for K, Bk in LARGE_K + ((K_ESTIMATOR, B_LARGE_K),):
-        cfg, data = cfgs[K], payload[K]
-        bursts = fused.tx_frame_factored(cfg, data)
-        if K == K_ESTIMATOR:
-            runs = {"rx_factored": (
-                lambda: fused.rx_receiver_factored(cfg, bursts, estimator="fused"),
-                lambda: fused._rx_factored_plain(cfg, bursts, None, 2))}
-        else:
-            chan = fused._fast_channel(cfg, bursts)
-            runs = {
-                "tx_factored": (lambda: fused.tx_frame_factored(cfg, data),
-                                lambda: fused._tx_factored_plain(cfg, data, 0)),
-                "rx_factored_chan": (lambda: fused._rx_factored_cuda(cfg, bursts, chan, 2),
-                                     lambda: fused._rx_factored_plain(cfg, bursts, chan, 2)),
-                "link": (lambda: fused.link_step_factored(cfg, data),
-                         lambda: _factored_link_plain(cfg, data, "fast")),
-            }
-        for name, (fn_k, fn_p) in runs.items():
-            k_ms, p_ms, ks, ps = _timed(torch, fn_k, fn_p)
-            if K in (K_FULL, K_ESTIMATOR) and name != "link":
-                times[name] = (k_ms, p_ms)
-            bounds = ""
-            if name != "link":  # the restated bound, the direct DFT's beside it
-                b_ms, b_by = _bound(name, cfg, Bk)
-                d_ms = _bound(name, cfg, Bk, direct_dft=True)[0]
-                bounds = (f"; bound {b_ms:.3f} ms ({b_by}) = {b_ms / k_ms:.1%}, direct-DFT "
-                          f"bound {d_ms:.3f} ms = {d_ms / k_ms:.1%}")
-            print(f"[7 time] K={K} B={Bk} {name}: kernel {ks} ms, plain {ps} ms{bounds} "
-                  f"({card})", flush=True)
-            if name == "link":
-                chain = _time_ms(torch, lambda: link_step_planar(cfg, data, method="fast"))
-                est = _time_ms(torch, lambda: fused._fast_channel(cfg, bursts))
-                sps = Bk * cfg.frame_len
-                print(f"[7 time] K={K} B={Bk} link samples/s: kernels "
-                      f"{sps / (k_ms / 1e3):.4e}, plain {sps / (p_ms / 1e3):.4e}, "
-                      f"torch-op fast chain {sps / (chain / 1e3):.4e} ({chain:.3f} ms); "
-                      f"torch-op estimate {est:.3f} ms ({card})", flush=True)
-        if K == K_ESTIMATOR:
-            times["rx_estimate"] = _estimate_gemm_line(torch, cfg, bursts, err, check, card)
-        if K != K_ESTIMATOR:
-            _kstage_yardstick(torch, cfg, bursts, card)
-        if K in (K_FULL, 1024):
-            _factored_link_stages(torch, cfg, data, card)
-        del bursts
-    return launches, err, times, row6
-
-
-def _estimate_gemm_line(torch, cfg, bursts, err, check, card) -> tuple:
-    """[7 time] row 6's estimator GEMM alone: kernel and plain ms, torch.mm
-    of the same product (TF32 off; the yardstick, which the port never
-    calls), the bound and the largest error against a float64 product.
-    Returns (kernel, plain, torch.mm) ms; sets err["rx_estimate"] (vs plain)."""
-    from gfdm_tpu_torch.kernels import fused
-
-    B, K = bursts.shape[0], cfg.subcarriers
-    got = fused._rx_estimate_cuda(cfg, bursts)
-    err["rx_estimate"] = _max_abs(got, fused._rx_estimate_plain(cfg, bursts))
-    e_w = fused._estimator_op(cfg, bursts.device)
-    pre2 = bursts[..., cfg.cp_len : cfg.cp_len + 2 * K].reshape(B, 4 * K).contiguous()
-    ref = (pre2.double() @ e_w.double()).reshape(got.shape)
-    rel64 = _max_abs(got.double(), ref) / float(ref.abs().max())
-    del got, ref
-    k_ms, p_ms, ks, ps = _timed(torch, lambda: fused._rx_estimate_cuda(cfg, bursts),
-                                lambda: fused._rx_estimate_plain(cfg, bursts))
-    lib_ms = _time_ms(torch, lambda: torch.mm(pre2, e_w))
-    b_ms, b_by = _bound("rx_estimate", cfg, B)
-    print(f"[7 time] K={K} B={B} rx_estimate (row 6's estimator GEMM alone): kernel {ks} ms, "
-          f"plain {ps} ms, torch.mm(pre2, E_W) TF32 off {lib_ms:.3f} ms; bound {b_ms:.3f} ms "
-          f"({b_by}) = {b_ms / k_ms:.1%}; vs plain max |d| {err['rx_estimate']:.3e}, "
-          + check("vs float64 max |d| / max |H|", rel64, TOL["estimate64"]) + f" ({card})",
-          flush=True)
-    return k_ms, p_ms, lib_ms
-
-
-def _kstage_yardstick(torch, cfg, bursts, card) -> None:
-    """[7 note]: torch.fft.fft (cuFFT) of the factored kernels' K-point stage
-    alone, on the bursts' payload rows as (B, M, K) complex64 (row n1 holds
-    samples M n2 + n1); not the kernels' whole function, so not their
-    library_ms, and the port never calls it."""
-    B, K, M, n = bursts.shape[0], cfg.subcarriers, cfg.timeslots, cfg.block_len
-    fs = cfg.preamble_len + cfg.cp_len
-    x = bursts[..., fs : fs + n]
-    rows = torch.complex(x[:, 0], x[:, 1]).reshape(B, K, M).transpose(1, 2).contiguous()
-    ms = _time_ms(torch, lambda: torch.fft.fft(rows, dim=-1))
-    print(f"[7 note] K={K} B={B}: torch.fft.fft (cuFFT) of the K-point stage alone, "
-          f"({B}, {M}, {K}) complex64 rows: {ms:.3f} ms ({card})", flush=True)
-
-
-def _factored_link_stages(torch, cfg, data, card, reps: int = 3) -> None:
-    """[7 stages]: link_step_factored's device time a stage (CUDA events
-    around each, as the link runs them): the Tx kernel, the torch-op
-    channel estimate, the receiver kernel, demap and EVM; the mean of
-    ``reps`` calls after a warm-up."""
-    from gfdm_tpu_torch.kernels import fused
-    from gfdm_tpu_torch.ops.planar_pipeline import evm
-
-    demap = fused._factored_consts(cfg, data.device)["demap_idx"]
-    stages = (
-        ("tx", lambda s: fused.tx_frame_factored(cfg, data)),
-        ("estimate", lambda s: (s, fused._fast_channel(cfg, s))),
-        ("rx", lambda s: fused._rx_factored_cuda(cfg, s[0], s[1], 2)[1]),
-        ("demap+evm", lambda s: evm(s[..., demap], data)),
-    )
-
-    def run(events):
-        state = None
-        for _name, fn in stages:
-            if events is not None:
-                events.append(torch.cuda.Event(enable_timing=True))
-                events[-1].record()
-            state = fn(state)
-        if events is not None:
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-
-    names, ms = _stage_ms(run, [(name, None, 0) for name, _fn in stages], reps)
-    print(f"[7 stages] link_step_factored K={cfg.subcarriers} B={data.shape[0]}: "
-          + " ".join(f"{n} {t:.3f}" for n, t in zip(names, ms))
-          + f" = {sum(ms):.3f} ms ({card})", flush=True)
-
-
-def _stage_ms(run, plan, reps: int = 3) -> tuple[list, list]:
-    """(stage names, device ms of each launch) of ``run(events)``, which
-    records a CUDA event before each launch of ``plan`` and after the last:
-    the mean of ``reps`` calls after a warm-up."""
-    run(None)
-    ms = [0.0] * len(plan)
-    for _ in range(reps):
-        ev = []
-        run(ev)
-        ev[-1].synchronize()
-        for i in range(len(plan)):
-            ms[i] += ev[i].elapsed_time(ev[i + 1]) / reps
-    return [name if name != "ic" else f"ic{it}" for name, _s, it in plan], ms
-
-
-def _tx_yardstick(torch, cfg, flat, tx_ms: float, card) -> None:
-    """[5 note]: the Tx core's three products alone, as the plain version
-    runs them (three torch.mm, TF32 off: cuBLAS's SGEMM), without the
-    framing; not the Tx's whole function, so not its library_ms."""
-    from gfdm_tpu_torch.kernels import fused
-
-    nd = cfg.n_data_symbols
-    tg = fused._kernel_consts(cfg, flat.device)["T_G"]
-    xr, xi = flat[:, :nd].contiguous(), flat[:, nd:].contiguous()
-    s = xr + xi
-    w1, w2, w3 = tg[:nd], tg[nd : 2 * nd], tg[2 * nd :]
-    mm_ms = _time_ms(torch, lambda: (torch.mm(xr, w1), torch.mm(xi, w2), torch.mm(s, w3)))
-    print(f"[5 note] tx core as three torch.mm ({flat.shape[0]}, {nd}) @ ({nd}, "
-          f"{cfg.block_len}), TF32 off: {mm_ms:.3f} ms; the tx kernel {tx_ms:.3f} ms = "
-          f"{mm_ms / tx_ms:.1%} of their rate with the framing ({card})", flush=True)
-
-
-def _link_stage_times(torch, cfg, flat, card) -> None:
-    """Phase 5: the link's device time a stage (CUDA events around each
-    launch) at the main path's batch, both IC modes and both stack dtypes,
-    and what an IC iteration costs."""
-    from gfdm_tpu_torch.kernels import fused
-
-    ic = {}
-    for dtype_name in ("float32", "bfloat16"):
-        for mode in ("matmul", "conv"):
-            opts = fused._rx_options(2, mode)
-            names, ms = _stage_ms(
-                lambda ev: fused._link_single_cuda(cfg, flat, opts, dtype_name, events=ev),
-                fused._link_plan(opts.ic_iterations))
-            ic[(mode, dtype_name)] = sum(ms[len(fused.LINK_STAGES):]) / opts.ic_iterations
-            print(f"[5 stages] link[{mode},{dtype_name}] B={flat.shape[0]}: "
-                  + " ".join(f"{n} {t:.3f}" for n, t in zip(names, ms))
-                  + f" = {sum(ms):.3f} ms ({card})", flush=True)
-    for dtype_name in ("float32", "bfloat16"):
-        print(f"[5 stages] one IC iteration ({dtype_name} stacks): matmul "
-              f"{ic[('matmul', dtype_name)]:.3f} ms (bf16 operator on tensor cores), conv "
-              f"{ic[('conv', dtype_name)]:.3f} ms (M-tap stencil); entry() runs matmul "
-              f"({card})", flush=True)
-
-
-def _rx_stage_times(cfg, flat, card, phase: str) -> None:
-    """The receiver's device time a stage (CUDA events around each launch)
-    on the burst rows ``flat``, both IC modes and, with the conv IC, the
-    phase stage."""
-    from gfdm_tpu_torch.kernels import fused
-
-    for mode, comp in (("conv", False), ("matmul", False), ("conv", True)):
-        opts = fused._rx_options(2, mode, phase_compensation=comp)
-        names, ms = _stage_ms(lambda ev: fused._rx_receiver_cuda(cfg, flat, opts, events=ev),
-                              fused._rx_plan(opts.ic_iterations, comp))
-        label = mode + (",phase" if comp else "")
-        print(f"[{phase} stages] rx[{label}] B={flat.shape[0]}: "
-              + " ".join(f"{n} {t:.3f}" for n, t in zip(names, ms))
-              + f" = {sum(ms):.3f} ms ({card})", flush=True)
-
-
-def _rx_bound(cfg, batch: int, ic_mode: str = "conv",
-              fp64: bool = False) -> tuple[float, str, float]:
-    """The staged receiver's bound, stated as the link's: its four
-    float32-stack Gauss products (estimate, preamble DFT, block DFT, demod)
-    as three TF32 products each at 495 TFLOP/s (the card's fastest
-    float32-accurate products; ``fp64``: at the FP64 tensor cores' 67
-    TFLOP/s, where the kernel sums them), the bf16 IC operator at 989
-    TFLOP/s or the conv IC's taps at the fp32 FMA rate, against its bytes
-    (bursts in, channel, symbols and metrics out, constants once). Returns
-    (bound ms, what bounds it, ms of the design's intermediates: Y, D0, the
-    decisions and the preamble power, each written once and read by each
-    stage that takes it)."""
-    from gfdm_tpu_torch.kernels import fused
-
-    n, half, M, fl = cfg.block_len, 2 * cfg.subcarriers, cfg.timeslots, cfg.frame_len
-    met_w, it = fused._met_layout(cfg)[1], 2
-    stacks = 6.0 * batch * (half * n + half * half + 2 * n * n)
-    t_ops = stacks / PEAK_FP64_TC if fp64 else 3 * stacks / PEAK_TF32
-    if ic_mode == "matmul":
-        t_ops += it * 6.0 * batch * n * n / PEAK_BF16
-        ic_bytes = 2 * 3 * n * n
-    else:
-        t_ops += it * 8.0 * batch * M * n / PEAK_FLOPS
-        ic_bytes = 4 * 2 * M
-    wbytes = 4 * 3 * (half * n + half * half + 2 * n * n)
-    t_bytes = (4.0 * batch * (2 * fl + 4 * n + met_w) + wbytes + ic_bytes) / PEAK_BYTES
-    inter = 4.0 * batch * (2 * 2 * n + (1 + it) * 2 * n + 2 * it * 2 * n + 2 * half)
-    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            1e3 * inter / PEAK_BYTES)
-
-
-def _link_bound(cfg, batch: int, ic_mode: str = "matmul",
-                dtype_name: str = "float32") -> tuple[float, str, float]:
-    """The staged link's bound: its operations at the tensor-core rate of
-    their type - each float32-stack Gauss product as three TF32 products at
-    495 TFLOP/s, the bf16 IC operator and the bf16 stacks at 989 TFLOP/s but
-    those of the Tx and estimate stages, which sum in float64, at the FP64
-    tensor cores' 67 TFLOP/s, the conv IC's taps at the fp32 FMA rate -
-    against its bytes (payload, outputs
-    and constants once). Returns (bound ms, what bounds it, ms of the
-    design's intermediates: F, Y, D0, the decisions, each burst's preamble
-    window and its power, each written once and read by each stage that
-    takes it)."""
-    from gfdm_tpu_torch.kernels import fused
-
-    n, nd, half, M = cfg.block_len, cfg.n_data_symbols, 2 * cfg.subcarriers, cfg.timeslots
-    met_w, it = fused._met_layout(cfg)[1], 2
-    rounded = 6.0 * batch * (nd * n + half * n + n * n)  # Tx, estimate + DFT
-    stacks = rounded + 6.0 * batch * (half * half + n * n)  # + preamble DFT, demod
-    bf16 = dtype_name == "bfloat16"
-    t_ops = (rounded / PEAK_FP64_TC + (stacks - rounded) / PEAK_BF16 if bf16
-             else 3 * stacks / PEAK_TF32)
-    if ic_mode == "matmul":
-        t_ops += it * 6.0 * batch * n * n / PEAK_BF16
-        ic_bytes = 2 * 3 * n * n
-    else:
-        t_ops += it * 8.0 * batch * M * n / PEAK_FLOPS
-        ic_bytes = 4 * 2 * M
-    wbytes = (2 if bf16 else 4) * 3 * (nd * n + half * n + half * half + 2 * n * n)
-    t_bytes = (4.0 * batch * (4 * nd + met_w) + wbytes + ic_bytes) / PEAK_BYTES
-    inter = 4.0 * batch * (2 * 2 * n * 2 + 2 * n * (1 + it) + 2 * n * 2 * it + 2 * half
-                           + 3 * 2 * half)
-    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            1e3 * inter / PEAK_BYTES)
-
-
-def _ols_flops(taps: int) -> float:
-    """Operations an output of a ``taps``-tap complex cross-correlation as
-    overlap-save FFTs: a forward and an inverse N-point FFT (5 N log2 N
-    each) and N complex products (6 N) per N - taps + 1 outputs, at the
-    best power-of-two N."""
-    return min((10.0 * n * math.log2(n) + 6.0 * n) / (n - taps + 1)
-               for n in (2 ** k for k in range(1, 24)) if n > taps)
-
-
-def _work(key: str, cfg, batch: int, ic_mode: str = "conv", ports: int = 1,
-          T: int = 0, n_valid: int = 0, direct_dft: bool = False,
-          detect_form: str = "least") -> tuple[float, float]:
-    """(fp32 operations, bytes) of one call of kernel ``key`` at these
-    shapes: the kernel's sums as written (a real MAC is 2 operations, a
-    complex MAC 8; a Gauss product of an (a, b) operator 3 a b real MACs),
-    each input read once (constants included) and each output written once.
-    The factored kernels' K-point stage counts as an FFT's 5 M K log2 K for K
-    a power of two (what the kernels run), else, or with ``direct_dft``, as
-    the direct DFT's 8 M K^2 (the count the kernels' bound used before they
-    ran the FFT). The detection kernels' ``detect_form``: "least" counts the
-    2K-tap cross-correlation at each gated position in its cheaper form,
-    overlap-save FFTs (which the kernels do not run) or the direct FIR, and
-    the other traces as window sums; "fir" the direct FIR (what the kernels
-    run); "old" every sum taken anew at every position, as a kernel of one
-    position a thread would."""
-    from gfdm_tpu_torch.kernels import chain, fused
-
-    if key.startswith("viterbi_"):  # radix 16 (k = 4), T trellis steps a codeword
-        # a collapsed step: 2^(2k+1) - 2 pattern-sum adds, 64 x 2^k candidate
-        # adds and 64 x (2^k - 1) compares; the LLRs in, the bits out, once
-        k = 4
-        return (batch * (T // k) * ((1 << (2 * k + 1)) - 2 + 64 * ((2 << k) - 1)),
-                batch * (8.0 * T + T))
-    if key.startswith("chain_"):  # x in, out, the weights once (4, 2 or 1 B)
-        wbytes = {"chain_f32": 4, "chain_bf16": 2, "chain_int8": 1}[key]
-        shapes = chain.CHAIN_SHAPES
-        return (2.0 * batch * sum(a * b for a, b in shapes),
-                4.0 * batch * (shapes[0][0] + shapes[-1][1])
-                + wbytes * sum(a * b for a, b in shapes))
-
-    n, nd, K, M, L = (cfg.block_len, cfg.n_data_symbols, cfg.subcarriers,
-                      cfg.timeslots, cfg.overlap)
-    half, fl, f4 = 2 * K, cfg.frame_len, 4
-    met_w = fused._met_layout(cfg)[1]
-
-    def g(a, b):  # operations and bytes of a float32 Gauss product
-        return 6.0 * a * b, 12.0 * a * b
-
-    conv_ic = 2 * 8.0 * M * n  # 2 iterations, M complex taps an output
-    ic = (2 * g(n, n)[0], 6.0 * n * n) if ic_mode == "matmul" else (conv_ic, 8.0 * M)
-    est, dft2, dft, bfd, tx = g(half, n), g(half, half), g(n, n), g(n, n), g(nd, n)
-    rx_ops = est[0] + dft2[0] + dft[0] + bfd[0] + ic[0]
-    rx_const = est[1] + dft2[1] + dft[1] + bfd[1] + ic[1]
-    if key in ("tx", "tx_cdd"):
-        return batch * tx[0], f4 * batch * (2 * nd + ports * 2 * fl) + tx[1]
-    if key == "rx":
-        return batch * rx_ops, f4 * batch * (2 * fl + 4 * n + met_w) + rx_const
-    if key == "link":
-        return batch * (tx[0] + rx_ops), f4 * batch * (4 * nd + met_w) + tx[1] + rx_const
-    if key in ("rx_core", "rx_ic"):
-        ops = dft[0] + bfd[0] + (conv_ic if key == "rx_ic" else 0.0)
-        return batch * ops, f4 * batch * 6 * n + dft[1] + bfd[1]
-    if key == "rx_full":
-        ops = est[0] + dft[0] + bfd[0] + conv_ic
-        return batch * ops, f4 * batch * (2 * fl + 2 * n) + est[1] + dft[1] + bfd[1]
-    if key == "rx_hybrid":
-        ops = est[0] + dft[0] + 8.0 * n * (L + M) + conv_ic
-        return batch * ops, f4 * batch * (2 * fl + 4 * n) + est[1] + dft[1]
-    if key == "rx_estimate":  # (B, 4K) @ (4K, 2N): bursts' windows, E_W, chan
-        return 2.0 * batch * 4 * K * 2 * n, f4 * (batch * (4 * K + 2 * n) + 4 * K * 2 * n)
-    fft = (K & (K - 1)) == 0 and not direct_dft
-    kstage = 5.0 * M * K * math.log2(K) if fft else 8.0 * M * K * K
-    if key in ("rx_factored", "rx_factored_chan"):
-        ops = kstage + 8.0 * n * (2 * M + L) + conv_ic
-        io = 2 * fl + 4 * n  # bursts in; chan in or out; symbols out
-        if key == "rx_factored":
-            return batch * (ops + 16.0 * K * n), f4 * batch * io + 32.0 * K * n
-        return batch * ops, f4 * batch * io
-    if key == "tx_factored":
-        return batch * (kstage + 8.0 * n * (2 * M + L)), f4 * batch * (2 * nd + 2 * fl)
-    if key in ("detect_front", "detect_lean"):
-        # cc at each gated position: 2K complex MACs (16K operations) or
-        # overlap-save FFTs, whichever is less; at every position p, e and ic as window sums, a
-        # term in and a term out each (conj(a) b 6, |s|^2 3, in and out 6,
-        # 2 / e and ac 3, |ac| 4, ic 3), |cc| / 2K and the gating 6: 31
-        n_ac = T - 2 * K
-        pos = n_ac if key == "detect_front" else n_valid
-        out = 4 * n_ac + n_valid if key == "detect_front" else 2 * n_valid
-        nbytes = f4 * batch * (2 * T + out)
-        if detect_form == "old":
-            return batch * pos * 32.0 * K, nbytes
-        xc = 16.0 * K if detect_form == "fir" else min(16.0 * K, _ols_flops(2 * K))
-        return batch * (n_valid * xc + pos * 31.0), nbytes
-    raise KeyError(key)
-
-
-def _bound(key: str, cfg, batch: int, **kw) -> tuple[float, str]:
-    """The least time (ms) the card could take, and what bounds it."""
-    ops, nbytes = _work(key, cfg, batch, **kw)
-    t_ops, t_bytes = ops / PEAK_OPS.get(key, PEAK_FLOPS), nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def _points_payload(torch, cfg, name: str, batch: int, seed: int, dev):
-    """(batch, 2, n_data) planar payload of the constellation's points."""
-    from gfdm_tpu_torch.ops.rx import constellation_points
-
-    pts = constellation_points(name)
-    idx = np.random.default_rng(seed).integers(0, pts.size, (batch, cfg.n_data_symbols))
-    sym = np.stack([pts[idx].real, pts[idx].imag], axis=1).astype(np.float32)
-    return torch.from_numpy(sym).to(dev)
-
-
-def _rotate_data(torch, bursts, start: int, phi: float):
-    """The burst's samples from ``start`` on rotated by ``phi`` (a common
-    phase offset of the data section; the preamble estimate absorbs a
-    rotation of the whole burst)."""
-    c, s = np.cos(phi), np.sin(phi)
-    out = bursts.clone()
-    re, im = bursts[:, 0, start:], bursts[:, 1, start:]
-    out[:, 0, start:] = c * re - s * im
-    out[:, 1, start:] = s * re + c * im
-    return out
-
 
 def _levels(torch, x, name: str):
     """Per-axis decision levels of planar symbols (torch or numpy): the
@@ -1207,195 +435,14 @@ def _levels(torch, x, name: str):
     return fused._ic_level(t, name)
 
 
-def _boundary_distance(u, name: str):
-    """Distance of each decision input to its nearest level boundary, in
-    level units (QPSK: |u|; qam: of (u scale - 1) / 2 to a half-integer)."""
-    from gfdm_tpu_torch.kernels import fused
-
-    if name == "qpsk":
-        return u.abs()
-    scale, _lim = fused._QAM_LEVELS[name]
-    t = (u * scale - 1.0) / 2.0
-    return (t - t.floor() - 0.5).abs()
-
-
-def _flipped_bursts(runs, name: str, near_tol: float, mask=None, phase: bool = False):
-    """Bursts whose IC decisions differ between kernel and plain version.
-
-    ``runs``: (kernel rows, plain rows) after 0 and after 1 of the 2 IC
-    iterations, (B, 2 n) each; ``mask`` (2 n) zeroes the inactive symbols.
-    The output is d0 minus the interference of the last iteration's
-    decisions (made on the rows after 1 iteration), so a burst is flipped
-    where those differ, or, with phase compensation (whose rotation the
-    first decisions set), where the first ones do. Returns the flipped mask
-    and whether each flipped burst is explained by decisions within
-    ``near_tol`` of a level boundary, at the last iteration or at the first
-    (whose flip moves the inputs of the last)."""
-    from gfdm_tpu_torch.kernels import fused
-
-    diff, expl = [], []
-    for s_k, s_p in runs:
-        d = fused._ic_level(s_k, name) != fused._ic_level(s_p, name)
-        if mask is not None:
-            d &= mask != 0
-        diff.append(d.any(dim=1))
-        expl.append((~d | (_boundary_distance(s_k, name) < near_tol)).all(dim=1))
-    flipped = diff[1] | diff[0] if phase else diff[1]
-    explained = (diff[1] & expl[1]) | (diff[0] & expl[0]) | ~flipped
-    return flipped, bool(explained.all())
-
-
-def _options_phase(torch, cfg, dev, card, check, failures):
-    """Phase 8: every receiver and link option through the kernels, and the
-    fused-engine service at qam16 / qam64. Returns the rx and link errors
-    and the rx launches of the service run."""
+def _options_phase(torch, cfg, dev, card, check, failures) -> None:
+    """Phase 8: the fused-engine service at qam16 / qam64 against the
+    torch-op xla engine."""
     from gfdm_tpu_torch.entry import service_stream
     from gfdm_tpu_torch.kernels import fused
     from gfdm_tpu_torch.runtime.service import StreamingReceiver
 
-    Bo = B_OPTIONS
-    act = fused._kernel_consts(cfg, dev)["act"]
-    act2 = torch.cat([act, act])
-    err = {"rx": 0.0, "link": 0.0}
-    staged = {}
-    cases = (("mmse", "qpsk", False, "conv"), ("mmse_cnr", "qpsk", False, "conv"),
-             ("mmse_cnr", "qam16", False, "conv"), ("mmse", "qam64", False, "conv"),
-             ("zf", "qpsk", True, "conv"), ("zf", "qam16", False, "matmul"))
-    for ci, (eq, name, phase, mode) in enumerate(cases):
-        data = _points_payload(torch, cfg, name, Bo, 80 + ci, dev)
-        bursts = fused.tx_frame_fused(cfg, data)
-        if phase:
-            bursts = _rotate_data(torch, bursts, cfg.preamble_len, 0.1)
-        noisy = _noisy(torch, bursts, 90 + ci).contiguous()
-        flat = noisy.reshape(Bo, -1)
-        kw = dict(constellation=name, equalizer=eq, phase_compensation=phase)
-        before = fused.LAUNCHES["rx"]
-        chan, sym, met = fused.rx_receiver_fused(cfg, noisy, ic_mode=mode, **kw)
-        n_launch = fused.LAUNCHES["rx"] - before
-        # the plain version summed in float64, as the kernels sum their
-        # float32-stack products
-        rchan, rsym, rmet = fused._rx_receiver_plain(cfg, flat, 2, mode, gdot=fused._gdot64,
-                                                     **kw)
-        # bursts whose decisions of iteration 0 or 1 differ
-        runs = [(fused.rx_receiver_fused(cfg, noisy, ic_iterations=it, ic_mode=mode,
-                                         **kw)[1].reshape(Bo, -1),
-                 fused._rx_receiver_plain(cfg, flat, it, mode, gdot=fused._gdot64, **kw)[1])
-                for it in (0, 1)]
-        differ, explained = _flipped_bursts(runs, name, TOL["boundary"], act2, phase)
-        # beside it, the same count against the float32 plain version, which
-        # sums at float32 level in cuBLAS's order (no limit: ~1e-3 of noisy
-        # qam64 bursts, tests/test_torch_rx_tc.py)
-        runs32 = [(k, fused._rx_receiver_plain(cfg, flat, it, mode, **kw)[1])
-                  for it, (k, _p) in enumerate(runs)]
-        differ32, explained32 = _flipped_bursts(runs32, name, TOL["boundary"], act2, phase)
-        del runs, runs32
-        keep = ~differ
-        n_ex, n_ex32 = int(differ.sum()), int(differ32.sum())
-        if not (explained and explained32):
-            failures.append(f"rx[{eq},{name}]: a decision differs away from a boundary")
-        ec = _max_abs(chan.reshape(Bo, -1), rchan)
-        es = _max_abs(sym.reshape(Bo, -1)[keep], rsym[keep])
-        err["rx"] = max(err["rx"], ec, es)
-        label = f"{eq},{name}" + (",phase 0.1 rad" if phase else "") + f",{mode}"
-        print(f"[8 check] rx[{label}] B={Bo} vs plain(sum64) excluded={n_ex} " + " ".join([
-            check("excluded_share", n_ex / Bo, TOL["excluded_share"]),
-            check("chan", ec, TOL["chan"]),
-            check("symbols", es, TOL["symbols"]),
-            check("snr_rel", _max_rel(met[:, 0], rmet[:, 0]), TOL["snr_rtol"]),
-            check("launches-plan", abs(n_launch - fused.rx_launches(2, phase)), 0.0),
-        ]) + f" launches={n_launch}; vs plain(f32) excluded={n_ex32} "
-            f"share={n_ex32 / Bo:.3e} at_boundary={explained32}", flush=True)
-        if eq not in staged:  # the product stages on the kernel's own inputs
-            staged[eq] = max(float(v.max()) for v in fused._rx_stage_errors(cfg, flat, eq)
-                             .values())
-            print(f"[8 check] rx stages[{eq}] on their own inputs "
-                  + check("stages", staged[eq], TOL["stages"]), flush=True)
-        if phase:  # the correction must matter: off, the symbols stay rotated
-            idx = fused._kernel_consts(cfg, dev)["demap_idx"]
-            e = {}
-            for on in (True, False):
-                d = fused.rx_receiver_fused(cfg, bursts, ic_mode=mode, constellation=name,
-                                            equalizer=eq, phase_compensation=on)[1]
-                e[on] = float((d[..., idx] - data).abs().max())
-            print(f"[8 check] phase compensation on the clean rotated bursts: max "
-                  f"|d - payload| on {e[True]:.4f} off {e[False]:.4f} "
-                  + check("on/off", e[True] / e[False], 0.5), flush=True)
-        del noisy, flat, chan, sym, rchan, rsym
-    for name, dtype_name in (("qam16", "float32"), ("qam64", "float32"),
-                             ("qpsk", "bfloat16"), ("qam16", "bfloat16")):
-        data = _points_payload(torch, cfg, name, Bo, 70, dev)
-        flat = data.reshape(Bo, -1)
-        lkw = dict(constellation=name, dtype_name=dtype_name)
-        bf16 = dtype_name == "bfloat16"
-        pkw = dict(dtype_name=dtype_name, sum64=bf16)
-        d_hat, _snr, evm_k = fused.link_single_fused(cfg, data, ic_mode="matmul", **lkw)
-        ref, _met = fused._link_single_plain(cfg, flat, 2, "matmul", name, **pkw)
-        runs = [(fused.link_single_fused(cfg, data, ic_iterations=it, ic_mode="matmul",
-                                         **lkw)[0].reshape(Bo, -1),
-                 fused._link_single_plain(cfg, flat, it, "matmul", name, **pkw)[0])
-                for it in (0, 1)]
-        differ, explained = _flipped_bursts(
-            runs, name, TOL["bf16_boundary"] if bf16 else TOL["boundary"])
-        del runs
-        if not explained:
-            failures.append(f"link[{name},{dtype_name}]: a decision differs away from a "
-                            "boundary")
-        extra = []
-        if bf16:  # the product stages on the kernel's own inputs
-            stage = max(float(v.max()) for v in
-                        fused._link_stage_errors(cfg, flat, dtype_name).values())
-            extra = [check("stages", stage, TOL["stages"])]
-        keep = ~differ
-        n_ex = int(differ.sum())
-        e = _max_abs(d_hat.reshape(Bo, -1)[keep], ref[keep])
-        err["link"] = max(err["link"], e)
-        evm_p = float(((ref - flat) ** 2).sum() / (flat**2).sum()) ** 0.5
-        tol = TOL["data"] if dtype_name == "float32" else TOL["bf16_data"]
-        # the clean loopback's own decision errors (qam64 has a floor): the
-        # kernel's must be the plain version's
-        wrong = int((_levels(torch, d_hat, name) != _levels(torch, data, name)).sum())
-        wrong_p = int((_levels(torch, ref.reshape(data.shape), name)
-                       != _levels(torch, data, name)).sum())
-        over = int(((d_hat.reshape(Bo, -1) - ref).abs().amax(dim=1) > TOL["data"]).sum())
-        print(f"[8 check] link[{name},{dtype_name},matmul] B={Bo} evm={float(evm_k):.6f} "
-              f"plain{'(sum64)' if bf16 else ''}={evm_p:.6f} excluded={n_ex} bursts over {TOL['data']}: {over} "
-              f"wrong decisions {wrong} plain {wrong_p} "
-              + " ".join([check("excluded_share", n_ex / Bo,
-                                TOL["bf16_excluded_share" if bf16 else "excluded_share"]),
-                          check("data", e, tol),
-                          check("|d_evm|", abs(float(evm_k) - evm_p), TOL["evm"]),
-                          check("|d_wrong|", float(abs(wrong - wrong_p)),
-                                0.01 * wrong_p + 2), *extra]), flush=True)
-        del data, flat, d_hat, ref
-
-    # option costs at B_OPTIONS (plain, kernel, kernel, plain): the receiver
-    # at mmse_cnr / qam16 beside zf / qpsk, the link with bf16 stacks beside
-    # float32
-    data = _points_payload(torch, cfg, "qam16", Bo, 60, dev)
-    noisy = _noisy(torch, fused.tx_frame_fused(cfg, data), 61).contiguous()
-    flat, nflat = data.reshape(Bo, -1), noisy.reshape(Bo, -1)
-    runs = {
-        "rx[zf,qpsk]": (lambda: fused.rx_receiver_fused(cfg, noisy),
-                        lambda: fused._rx_receiver_plain(cfg, nflat, 2, "conv")),
-        "rx[mmse_cnr,qam16]": (
-            lambda: fused.rx_receiver_fused(cfg, noisy, equalizer="mmse_cnr",
-                                            constellation="qam16"),
-            lambda: fused._rx_receiver_plain(cfg, nflat, 2, "conv", equalizer="mmse_cnr",
-                                             constellation="qam16")),
-        "link[float32,matmul]": (
-            lambda: fused.link_single_fused(cfg, data, ic_mode="matmul"),
-            lambda: fused._link_single_plain(cfg, flat, 2, "matmul")),
-        "link[bfloat16,matmul]": (
-            lambda: fused.link_single_fused(cfg, data, ic_mode="matmul", dtype_name="bfloat16"),
-            lambda: fused._link_single_plain(cfg, flat, 2, "matmul", dtype_name="bfloat16")),
-    }
-    for label, (fn_k, fn_p) in runs.items():
-        _k, _p, ks, ps = _timed(torch, fn_k, fn_p)
-        print(f"[8 time] {label}: kernel {ks} ms, plain {ps} ms (B={Bo}, {card})", flush=True)
-    del data, noisy, flat, nflat, runs
-
-    # the service at qam16 / qam64: fused engine vs the torch-op xla engine
-    rx_launches, samples = 0, N_CHUNKS * CHUNK_LEN
+    samples = N_CHUNKS * CHUNK_LEN
     for name, eq, snr_db in (("qam16", "mmse_cnr", 30.0), ("qam64", "mmse", 36.0)):
         chunks, counts, payload = service_stream(cfg, N_CHUNKS, CHUNK_LEN, snr_db, False,
                                                  np.random.default_rng(0), name)
@@ -1410,15 +457,15 @@ def _options_phase(torch, cfg, dev, card, check, failures):
         dev_chunks = torch.from_numpy(chunks).to(dev)
         fused_rx._step(dev_chunks)  # warm-up
         torch.cuda.synchronize()
-        _reset_launches()
+        reset_launches()
         out = fused_rx.step(chunks)
-        run = _launches()
-        rx_launches = run["rx"]
-        if run["rx"] < 1:
-            failures.append(f"kernel rx was not launched on the service path ({name})")
+        run = read_launches()
+        if run["rx"] != fused.rx_launches(2):
+            failures.append(f"service[{name}]: {run['rx']} receiver launches a step, expected "
+                            f"{fused.rx_launches(2)} (one receiver call)")
         ref = xla_rx.step(chunks)
-        ms = _time_ms(torch, lambda: fused_rx._step(dev_chunks))
-        ms_x = _time_ms(torch, lambda: xla_rx._step(dev_chunks))
+        ms = time_ms(lambda: fused_rx._step(dev_chunks))
+        ms_x = time_ms(lambda: xla_rx._step(dev_chunks))
         f = out["found"]
         found = float(f.sum()) / float(counts.sum())
         both = f & ref["found"]
@@ -1446,12 +493,11 @@ def _options_phase(torch, cfg, dev, card, check, failures):
                                 0.01 * wrong_x + 2)])
               + f" ({N_CHUNKS} chunks x {CHUNK_LEN}, {card})", flush=True)
         del dev_chunks, out, ref
-    return err, rx_launches
 
 
-def _cdd_variants_phase(torch, cfg, dev, data, noisy, card, check, failures):
-    """Phase 9: the CDD transmitter and two-antenna link, and the four
-    superseded receivers. Returns launches, errors and (kernel, plain) ms."""
+def _cdd_phase(torch, dev, data, check, failures) -> None:
+    """Phase 9: the two-antenna CDD link (the CDD transmitter kernel, then
+    the receiver's stages)."""
     from gfdm_tpu_torch import GfdmConfig
     from gfdm_tpu_torch.entry import cdd_channel, cdd_link
     from gfdm_tpu_torch.kernels import fused
@@ -1459,29 +505,12 @@ def _cdd_variants_phase(torch, cfg, dev, data, noisy, card, check, failures):
     Bc = data.shape[0]
     flat = data.reshape(Bc, -1)
     cfg_c = GfdmConfig(cyclic_shifts=(0, 2))
-    err, launches, times = {}, {}, {}
-    got = fused.tx_cdd_fused(cfg_c, data)
-    e1 = _max_abs(got.reshape(Bc, -1), fused._tx_cdd_plain(cfg_c, flat).reshape(Bc, -1))
-    cfg_r = GfdmConfig(cyclic_shifts=(0, 3, 7))
-    small = data[:N_RAGGED_CDD].contiguous()
-    got_r = fused.tx_cdd_fused(cfg_r, small)
-    e2 = _max_abs(got_r.reshape(N_RAGGED_CDD, -1),
-                  fused._tx_cdd_plain(cfg_r, small.reshape(N_RAGGED_CDD, -1))
-                  .reshape(N_RAGGED_CDD, -1))
-    err["tx_cdd"] = max(e1, e2)
-    print(f"[9 check] " + " ".join([check(f"tx_cdd[B={Bc},shifts=(0,2)]", e1, TOL["tx"]),
-                                    check(f"tx_cdd[B={N_RAGGED_CDD},shifts=(0,3,7)]", e2,
-                                          TOL["tx"])])
-          + f" bit_equal={e1 == e2 == 0.0}", flush=True)
-    del got, got_r
-
     # the two-antenna link through the user's entry point, launches counted
-    _reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     d34 = cdd_link(cfg_c, data, 34.0, 9)
     torch.cuda.synchronize()
-    run = _launches()
-    launches["tx_cdd"] = run["tx_cdd"]
+    run = read_launches()
     for key in ("tx_cdd", "rx"):
         if run[key] < 1:
             failures.append(f"kernel {key} was not launched on the CDD link")
@@ -1508,190 +537,29 @@ def _cdd_variants_phase(torch, cfg, dev, data, noisy, card, check, failures):
                                      0.01 * wrong_p + 2), flush=True)
     del d34, rx_k, d_k, rx_p, sym_p, d_p
 
-    # the superseded receivers, each launched once with the counters reset
-    fs, n = cfg.preamble_len + cfg.cp_len, cfg.block_len
-    nflat = noisy.reshape(Bc, -1)
-    chan = fused._rx_receiver_plain(cfg, nflat, 0, "conv")[0]
-    frames = noisy[..., fs : fs + n].contiguous()
-    fflat, chan3 = frames.reshape(Bc, -1), chan.reshape(Bc, 2, n)
-    amp = 2.0**-0.5
-    kern = {
-        "rx_core": lambda: fused.rx_core_fused(cfg, frames, chan3),
-        "rx_ic": lambda: fused.rx_ic_fused(cfg, frames, chan3),
-        "rx_full": lambda: fused.rx_full_fused(cfg, noisy),
-        "rx_hybrid": lambda: fused.rx_receiver_hybrid(cfg, noisy),
-    }
-    plain = {
-        "rx_core": lambda: fused._rx_variant_plain("rx_core", cfg, fflat, chan, 0, amp),
-        "rx_ic": lambda: fused._rx_variant_plain("rx_ic", cfg, fflat, chan, 2, amp),
-        "rx_full": lambda: fused._rx_variant_plain("rx_full", cfg, nflat, None, 2, amp),
-        "rx_hybrid": lambda: fused._rx_variant_plain("rx_hybrid", cfg, nflat, None, 2, amp),
-    }
-    depth = {"rx_core": 0, "rx_ic": 2, "rx_full": 2, "rx_hybrid": 2}
-    _reset_launches()
-    torch.cuda.synchronize()
-    outs = {key: fn() for key, fn in kern.items()}
-    torch.cuda.synchronize()
-    run = _launches()
-    parts = []
-    for key, out in outs.items():
-        launches[key] = run[key]
-        if run[key] != fused.variant_launches(key, depth[key]):
-            failures.append(f"kernel {key}: {run[key]} launches, not "
-                            f"{fused.variant_launches(key, depth[key])}")
-        ref_chan, ref_sym = plain[key]()
-        if key == "rx_hybrid":
-            ec = _max_abs(out[0].reshape(Bc, -1), ref_chan)
-            parts.append(check(f"{key}:chan", ec, TOL["chan"]))
-            out = out[1]
-        else:
-            ec = 0.0
-        es = _max_abs(out.reshape(Bc, -1), ref_sym)
-        err[key] = max(ec, es)
-        parts.append(check(f"{key}:symbols", es, TOL["symbols"]))
-        if not bool(torch.isfinite(out).all()):
-            failures.append(f"{key}: non-finite symbols")
-    print(f"[9 check] B={Bc} launches={ {k: run[k] for k in kern} } " + " ".join(parts),
-          flush=True)
-    del outs
 
-    # each stage of each superseded receiver, and rx_core's two products as
-    # six torch.mm (TF32 off): the yardstick of a part, not of the function
-    inputs = {"rx_core": (fflat, chan), "rx_ic": (fflat, chan), "rx_full": (nflat, None),
-              "rx_hybrid": (nflat, None)}
-    for key, (x, c) in inputs.items():
-        names, ms = _stage_ms(
-            lambda ev, key=key, x=x, c=c: fused._rx_variant_cuda(key, cfg, x, c, depth[key], amp,
-                                                                 events=ev),
-            fused._variant_plan(key, depth[key]))
-        print(f"[9 stages] {key} B={Bc} ic={depth[key]}: "
-              + " ".join(f"{nm} {t:.3f}" for nm, t in zip(names, ms))
-              + f" = {sum(ms):.3f} ms ({card})", flush=True)
-    k = fused._kernel_consts(cfg, dev)
-    y = fused._rx_variant_plain("rx_core", cfg, fflat, chan, 0, amp)[1]  # any (B, 2N) rows
-    mm_args = []
-    for x, g in ((fflat, k["F_G"]), (y, k["Bfd_G"])):
-        xr, xi = x[:, :n].contiguous(), x[:, n:].contiguous()
-        mm_args += [(xr, g[:n]), (xi, g[n : 2 * n]), (xr + xi, g[2 * n :])]
-    mm_ms = _time_ms(torch, lambda: [torch.mm(a, w) for a, w in mm_args])
-    times["rx_core_mm"] = mm_ms
-    print(f"[9 library] rx_core's two Gauss products as six torch.mm ({Bc}, {n}) @ ({n}, "
-          f"{n}), TF32 off: {mm_ms:.3f} ms (cuBLAS's SGEMM; no ZF, adds or intermediates) "
-          f"({card})", flush=True)
-    del y, mm_args
-
-    # times (plain, kernel, kernel, plain)
-    runs = {"tx_cdd": (lambda: fused.tx_cdd_fused(cfg_c, data),
-                       lambda: fused._tx_cdd_plain(cfg_c, flat))}
-    runs.update({key: (kern[key], plain[key]) for key in kern})
-    for key, (fn_k, fn_p) in runs.items():
-        k_ms, p_ms, ks, ps = _timed(torch, fn_k, fn_p)
-        times[key] = (k_ms, p_ms)
-        print(f"[9 time] {key}: kernel {ks} ms, plain {ps} ms (B={Bc}, {card})", flush=True)
-    return launches, err, times
-
-
-def _chain_library(torch, variant: str, x, cw):
-    """The chain as PyTorch's own calls, the yardstick, the same products in
-    the same order: three torch.mm with TF32 off (f32: cuBLAS's SGEMMs),
-    three torch.mm with float32 output (bf16), three torch._int_mm with
-    torch-op int8 quantization between (int8)."""
-    from gfdm_tpu_torch.benchmarks.chain_int8 import int_mm_chain
-    from gfdm_tpu_torch.kernels import chain
-
-    if variant == "f32":
-        with chain._no_tf32(x.device):
-            return torch.mm(torch.mm(torch.mm(x, cw.w[0]), cw.w[1]), cw.w[2])
-    if variant == "int8":
-        return int_mm_chain(x, cw)
-    a = x
-    for w in cw.w:
-        a = torch.mm(a.to(torch.bfloat16), w, out_dtype=torch.float32)
-    return a
-
-
-def _chain_phase(torch, dev, card, check, failures):
-    """Phase 10: the link's GEMM chain in f32, bf16 and int8. Returns the
-    kernels' launches on the main path, max errors against the plain
-    versions, and (kernel, plain, library) ms."""
+def _chain_phase(torch, dev, failures) -> None:
+    """Phase 10: one chain step of the link's GEMM chain in each of f32,
+    bf16 and int8, on benchmarks/int8_gauss.py's inputs."""
     from gfdm_tpu_torch.benchmarks import int8_gauss as bench
     from gfdm_tpu_torch.kernels import chain
 
     weights, x_np, scales = bench.make_inputs(B_CHAIN, 2)
     x = torch.from_numpy(x_np).to(dev)
     cws = {v: chain.chain_weights_from_numpy(weights, v).to(dev) for v in chain.VARIANTS}
-    _reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     outs = {v: bench.chain_step(x, scales[1], cws[v]) for v in chain.VARIANTS}
     torch.cuda.synchronize()
-    run = _launches()
-    launches = {f"chain_{v}": run[f"chain_{v}"] for v in chain.VARIANTS}
-    for v, n in CHAIN_LAUNCHES.items():
-        if launches[f"chain_{v}"] != n:
-            failures.append(f"chain_{v}: {launches[f'chain_{v}']} launches on the main "
-                            f"path, expected {n}")
-    print(f"[10 main] B={B_CHAIN} chain step in each mode: launches={launches}", flush=True)
-    xs = x * float(scales[1])  # the main path's input
-    w64 = [torch.from_numpy(np.asarray(w, dtype=np.float64)).to(dev) for w in weights]
-    ref64 = xs.double() @ w64[0] @ w64[1] @ w64[2]
-    del w64
-    err, times = {}, {}
-    for v in chain.VARIANTS:
-        got, cw = outs[v], cws[v]
-        plain = chain._chain_plain(xs, cw)
+    run = read_launches()
+    counts = {f"chain_{v}": run[f"chain_{v}"] for v in chain.VARIANTS}
+    for v, got in outs.items():
+        if counts[f"chain_{v}"] != chain._KERNELS[v]:
+            failures.append(f"chain_{v}: {counts[f'chain_{v}']} launches on the main path, "
+                            f"expected {chain._KERNELS[v]}")
         if tuple(got.shape) != (B_CHAIN, 1152) or not bool(torch.isfinite(got).all()):
             failures.append(f"chain_{v}: outputs shape {tuple(got.shape)} / not finite")
-        err[f"chain_{v}"] = _max_abs(got, plain)
-        rel = err[f"chain_{v}"] / float(plain.abs().max())
-        rel64 = float((got.double() - ref64).abs().max() / ref64.abs().max())
-        if v == "int8":
-            part = check("int8:values_differing", float((got != plain).sum()), 0.0)
-        else:
-            part = check(f"{v}:rel", rel, CHAIN_TOL[v])
-        lib = _chain_library(torch, v, xs, cw)
-        print(f"[10 check] chain_{v} vs plain max_abs={err[f'chain_{v}']:.3e} rel={rel:.3e} "
-              f"{part} | rel-err vs float64 chain: kernel {rel64:.3e} | library vs plain "
-              f"{float((lib - plain).abs().max() / plain.abs().max()):.3e}", flush=True)
-        del plain, lib
-    del outs, ref64
-    for v in chain.VARIANTS:
-        cw = cws[v]
-        k_ms, p_ms, ks, ps = _timed(torch, lambda: chain.gemm_chain(xs, cw),
-                                    lambda: chain._chain_plain(xs, cw))
-        lib_ms = _time_ms(torch, lambda: _chain_library(torch, v, xs, cw))
-        times[f"chain_{v}"] = (k_ms, p_ms, lib_ms)
-        bound_ms, bound_by = _bound(f"chain_{v}", None, B_CHAIN)
-        ops = _work(f"chain_{v}", None, B_CHAIN)[0]
-        print(f"[10 time] chain_{v}: kernel {ks} ms = {ops / (k_ms * 1e-3) / 1e12:.1f} "
-              f"TF(OP)/s, plain {ps} ms, library {lib_ms:.3f} ms, bound {bound_ms:.3f} ms "
-              f"({bound_by}) = {bound_ms / k_ms:.1%} of it (B={B_CHAIN}, {card})", flush=True)
-    # the int8 call launch by launch, and PyTorch's int8 GEMM alone on
-    # operands quantized beforehand: the yardstick of a part
-    from gfdm_tpu_torch.benchmarks.chain_int8 import quantized_operands
-
-    cw = cws["int8"]
-    names = chain.INT8_LAUNCHES
-    _names, ms = _stage_ms(lambda ev: chain._chain_cuda(xs, cw, events=ev),
-                           [(n, None, 0) for n in names])
-    cl = chain.int8_clusters(dev)
-    print(f"[10 stages] chain_int8 B={B_CHAIN}: " + " ".join(f"{n} {t:.3f}" for n, t in
-                                                             zip(names, ms))
-          + f" = {sum(ms):.3f} ms; stages 1-2 as {cl['active_clusters']} clusters of "
-          f"{cl['cluster']} CTAs at once ({card})", flush=True)
-    qs = quantized_operands(xs, cw)
-    pre_ms = _time_ms(torch, lambda: [torch._int_mm(q, w) for q, w in zip(qs, cw.w)])
-    times["chain_int8_int_mm"] = pre_ms
-    print(f"[10 library] chain_int8: torch._int_mm x3 on operands quantized beforehand "
-          f"{pre_ms:.3f} ms (the GEMMs alone); with torch-op quantization between "
-          f"{times['chain_int8'][2]:.3f} ms (the function, library_ms) (B={B_CHAIN}, {card})",
-          flush=True)
-    del qs
-    cw = cws["f32"]
-    md_ms = _time_ms(torch, lambda: torch.linalg.multi_dot([xs, *cw.w]))
-    print(f"[10 note] chain_f32: torch.linalg.multi_dot {md_ms:.3f} ms, not a yardstick: it "
-          f"reassociates (W1 W2 W3 first, then one GEMM over the batch), 30% of the chain's "
-          f"operations (B={B_CHAIN}, {card})", flush=True)
-    return launches, err, times
+    print(f"[10 main] B={B_CHAIN} chain step in each mode: launches={counts}", flush=True)
 
 
 def _launch_counts(torch, fn):
@@ -1712,98 +580,6 @@ def _launch_counts(torch, fn):
                 and ev.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                                 "cuLaunchKernelEx"))
     return (kernels, calls) if kernels else None
-
-
-def _span_ms(torch, fn, iters: int = 3) -> tuple[float, float]:
-    """(host ms to enqueue ``fn``, ms from the first event to the last on
-    the card) a call, after a warm-up: where the two are close, the host's
-    launches set the pace."""
-    fn()
-    torch.cuda.synchronize()
-    host = span = 0.0
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        fn()
-        host += time.perf_counter() - t0
-        stop.record()
-        stop.synchronize()
-        span += start.elapsed_time(stop)
-    return host * 1e3 / iters, span / iters
-
-
-def _decoder_stages(torch, rx, data, snr, card) -> None:
-    """[11 stages]: the decoder's parts at the service's slots, each timed
-    alone (host enqueue and event span): the LLRs and deinterleave, the
-    Viterbi kernel, and beside it its plain version's parts on the card
-    (the branch pattern sums, the forward ACS steps, the traceback)."""
-    from gfdm_tpu_torch import coding
-    from gfdm_tpu_torch.kernels import viterbi
-    from gfdm_tpu_torch.ops import softbits
-
-    n, T = data.shape[0], rx.fec_info_bits + coding.CONV_TAIL_BITS
-    k = next(kk for kk in (4, 3, 2) if T % kk == 0)
-    nv = 1.0 / torch.clamp_min(snr, 1e-6)
-
-    def llr():
-        return softbits.maxlog_llrs_planar(data, rx._fec_points, nv[:, None]).reshape(
-            n, -1).index_select(1, rx._fec_inv)
-
-    lp = llr().reshape(n, T, 2).contiguous()
-    lt = lp.reshape(n, T // k, 2 * k).transpose(0, 1)
-    pat = coding._pattern_sums(lt)
-    idx = coding.device_const(("pattern", k), data.device, lambda: coding._pattern_index(k))
-    pm0 = coding._initial_metrics(n, data.device)
-    decs = coding._forward(pat, idx, k, pm0)[1]
-    state = torch.zeros(n, dtype=torch.int64, device=data.device)
-    parts = (("llrs+deinterleave", llr), ("viterbi kernel", lambda: viterbi.decode(lp, k)),
-             ("plain: pattern sums", lambda: coding._pattern_sums(lt)),
-             (f"forward ({T // k} steps)", lambda: coding._forward(pat, idx, k, pm0)),
-             (f"traceback ({T // k - 1} steps)", lambda: coding._traceback(decs, state, k)))
-    line = []
-    for name, fn in parts:
-        host, span = _span_ms(torch, fn)
-        line.append(f"{name} host {host:.3f} / card {span:.3f} ms")
-    print(f"[11 stages] decoder at {n} slots, radix-{1 << k}: " + "; ".join(line)
-          + f" ({card})", flush=True)
-
-
-def _viterbi_llrs(batch: int, T: int, seed: int, snr_db: float = 1.0) -> np.ndarray:
-    """(batch, T, 2) float32 LLRs of random zero-terminated codewords in
-    AWGN at ``snr_db`` Es/N0 (4 / variance times the received value)."""
-    from gfdm_tpu_torch.coding import CONV_TAIL_BITS, conv_encode
-
-    rng = np.random.default_rng(seed)
-    bits = rng.integers(0, 2, (batch, T - CONV_TAIL_BITS)).astype(np.uint8)
-    var = 10 ** (-snr_db / 10)
-    y = 1.0 - 2.0 * conv_encode(bits) + np.sqrt(var / 2) * rng.standard_normal((batch, 2 * T))
-    return (2.0 * y / (var / 2)).astype(np.float32).reshape(batch, T, 2)
-
-
-def _viterbi_times(torch, dev, card, check):
-    """[11 time] the Viterbi kernel alone at N_CHUNKS codewords of each
-    VITERBI_T (radix 16) on noisy LLRs, its rows differing from the plain
-    version's on the CPU, and kernel and plain (the torch-op decoder on the
-    card) times in turns. Returns (rows differing, times) by key."""
-    from gfdm_tpu_torch.kernels import viterbi
-
-    err, times = {}, {}
-    for T in VITERBI_T:
-        key = f"viterbi_t{T}"
-        cpu = torch.from_numpy(_viterbi_llrs(N_CHUNKS, T, seed=T))
-        lp = cpu.to(dev)
-        got = viterbi.decode(lp, 4).cpu()
-        err[key] = float((got != viterbi._decode_plain(cpu, 4)).any(dim=1).sum())
-        k_ms, p_ms, ks, ps = _timed(torch, lambda: viterbi.decode(lp, 4),
-                                    lambda: viterbi._decode_plain(lp, 4))
-        times[key] = (k_ms, p_ms)
-        print(f"[11 time] viterbi B={N_CHUNKS} T={T} radix 16: kernel {ks} ms, plain (torch "
-              f"ops on the card) {ps} ms "
-              + check(f"viterbi[T={T}]:rows_differing_vs_cpu", err[key], 0.0)
-              + f" ({card})", flush=True)
-    return err, times
 
 
 def _coded_link(torch, cfg, dev, impl, payload, noise, delay, constellation="qpsk"):
@@ -1829,7 +605,7 @@ def _coded_link(torch, cfg, dev, impl, payload, noise, delay, constellation="qps
     rx = StreamingReceiver(cfg, chunk_len=CHUNK_LEN, batch_chunks=N_CHUNKS,
                            engine="fused", fec="conv", device=dev, **opts)
     halo = cfg.frame_len + cfg.cp_len
-    _reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     syms, n_bursts = payload_to_symbols(cfg, payload, constellation, fec="conv")
     planar = np.stack([syms.real, syms.imag], axis=1).astype(np.float32)
@@ -1845,16 +621,16 @@ def _coded_link(torch, cfg, dev, impl, payload, noise, delay, constellation="qps
     src = iter([(chunks, 0)])
     rx.serve(lambda: next(src, None), outs.append)
     torch.cuda.synchronize()
-    run = _launches()
+    run = read_launches()
     pp.DETECT_IMPL = default_impl
     return outs, run, n_bursts
 
 
-def _coded_phase(torch, cfg, dev, streams, card, check, failures):
+def _coded_phase(torch, cfg, dev, streams, card, check, failures) -> None:
     """Phase 11: the coded modem through both services (see the module
     docstring)."""
     from gfdm_tpu_torch.cli import burst_capacity_bytes, payload_to_symbols
-    from gfdm_tpu_torch.coding import CONV_TAIL_BITS, conv_encode, viterbi_decode
+    from gfdm_tpu_torch.coding import viterbi_decode
     from gfdm_tpu_torch.eval.sensitivity import modem_sensitivity
     from gfdm_tpu_torch.kernels import fused
     from gfdm_tpu_torch.ops import planar_pipeline as pp
@@ -1882,7 +658,7 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
                        noise * np.float32(10 ** ((CODED_SNR_DB - QAM64_SNR_DB) / 20)),
                        QAM64_SNR_DB)}
     kernel_of = {"pallas2": "detect_lean", "pallas": "detect_front"}
-    results, viterbi_launches = {}, {}
+    results = {}
     for impl, qam in ((pp.DETECT_IMPL, "qpsk"), ("pallas2", "qpsk"), ("pallas", "qpsk"),
                       (pp.DETECT_IMPL, "qam64")):
         lcap, lpay, lnoise, snr_db = links[qam]
@@ -1891,7 +667,6 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
         name = impl if qam == "qpsk" else f"{impl},{qam}"
         ic = 4 if qam == "qam64" else 2
         found, bits = out["found"], out["bits"]
-        n_info = bits.shape[1]
         ok = np.zeros(n_bursts, bool)
         same = True
         for i in range(n_bursts):
@@ -1906,15 +681,14 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
         for key in need:
             if run[key] < 1:
                 failures.append(f"kernel {key} was not launched on the coded path ({name})")
-        if run["tx"] != 1 or run["rx"] != fused.rx_launches(ic):
-            failures.append(f"coded path ({name}): launches {run}, expected tx 1 and rx "
-                            f"{fused.rx_launches(ic)}")
+        if run["tx"] != 1 or run["rx"] != fused.rx_launches(ic) or run["viterbi"] != len(outs):
+            failures.append(f"coded path ({name}): launches {run}, expected tx 1, rx "
+                            f"{fused.rx_launches(ic)} and one decoder launch a batch "
+                            f"({len(outs)})")
         if not same:
             failures.append(f"coded path ({name}): a CRC-clean payload differs from the sent one")
         if len(set(lag.tolist())) > 1:
             failures.append(f"coded path ({name}): detections off the cycle grid {set(lag)}")
-        if impl == pp.DETECT_IMPL:  # the main path's decoder launches, by trellis length
-            viterbi_launches[f"viterbi_t{n_info + CONV_TAIL_BITS}"] = run["viterbi"]
         if qam == "qpsk":
             results[impl] = out
         print(f"[11 main] services link DETECT_IMPL={impl}: StreamingTransmitter.serve "
@@ -1944,25 +718,10 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
               check("crc@4-crc@10", float(cr[0] - cr[1]), 0.0),
           ]) + f" ({card})", flush=True)
 
-    # 3. the decoder and the soft bits on the card against the CPU, at the
-    # QPSK links' codeword (T = 468)
-    n_info = results[pp.DETECT_IMPL]["bits"].shape[1]
-    drng = np.random.default_rng(16)
-    info = drng.integers(0, 2, (N_CHUNKS, n_info)).astype(np.uint8)
-    sym = 1.0 - 2.0 * conv_encode(info).astype(np.float64)
-    sd = drng.choice([0.0, 0.5**0.5, (10**0.2 / 2) ** 0.5], (N_CHUNKS, 1))
-    dy = np.clip(np.round(4.0 * (sym + sd * drng.standard_normal(sym.shape)) * 8) / 8,
-                 -16.0, 16.0).astype(np.float32)
-    dy[::64] = 0.0  # all-zero rows: every candidate ties
-    parts = []
-    for mode in ("auto", "radix", "full", "sm", "windowed"):
-        card_bits = viterbi_decode(torch.from_numpy(dy).to(dev), n_info, mode).cpu()
-        cpu_bits = viterbi_decode(torch.from_numpy(dy), n_info, mode)
-        parts.append(check(f"{mode}:rows_differing", float(
-            (card_bits != cpu_bits).any(dim=1).sum()), 0.0))
-    print(f"[11 check] viterbi card vs CPU on dyadic LLRs ({N_CHUNKS} x {2 * (n_info + 6)}, "
-          f"{N_CHUNKS // 64} all-zero rows): " + " ".join(parts), flush=True)
+    # 3. the found slots' soft bits and decoded bits on the card against the
+    # CPU (the QPSK links' codeword, T = 468)
     out = results[pp.DETECT_IMPL]
+    n_info = out["bits"].shape[1]
     rx = StreamingReceiver(cfg, chunk_len=CHUNK_LEN, batch_chunks=N_CHUNKS, engine="fused",
                            fec="conv", device=dev)
     f = out["found"]
@@ -1999,59 +758,24 @@ def _coded_phase(torch, cfg, dev, streams, card, check, failures):
         torch.cuda.set_sync_debug_mode(0)
     coded = rx._step(chunks)
     data, snr = coded["data"], coded["snr_lin"]
-    u1, c1, c2, u2 = (_time_ms(torch, fn) for fn in (
+    u1, c1, c2, u2 = (time_ms(fn) for fn in (
         lambda: rx_plain._step(chunks), lambda: rx._step(chunks),
         lambda: rx._step(chunks), lambda: rx_plain._step(chunks)))
     coded_ms, plain_ms = (c1 + c2) / 2, (u1 + u2) / 2
-    dec_ms = _time_ms(torch, lambda: rx._fec_decode(data, snr))
-    llrs = softbits.maxlog_llrs_planar(data, rx._fec_points, (1.0 / torch.clamp_min(
-        snr, 1e-6))[:, None]).reshape(N_CHUNKS, -1).index_select(1, rx._fec_inv)
-    vit_ms = _time_ms(torch, lambda: viterbi_decode(llrs, n_info))
+    dec_ms = time_ms(lambda: rx._fec_decode(data, snr))
     n_coded = _launch_counts(torch, lambda: rx._step(chunks))
     n_plain = _launch_counts(torch, lambda: rx_plain._step(chunks))
     n_dec = _launch_counts(torch, lambda: rx._fec_decode(data, snr))
-    busy = _device_busy(torch, lambda: rx._step(chunks))
     print(f"[11 time] coded step {c1:.3f}/{c2:.3f} ms = {samples / (coded_ms / 1e3):.4e} "
           f"coded samples/s, uncoded step {u1:.3f}/{u2:.3f} ms = "
-          f"{samples / (plain_ms / 1e3):.4e} samples/s (DETECT_IMPL={pp.DETECT_IMPL}, "
-          f"{N_CHUNKS} chunks x {CHUNK_LEN}, friendly stream seed 0, {card})", flush=True)
-    print(f"[11 time] decoder (LLRs + deinterleave + Viterbi) {dec_ms:.3f} ms = "
-          f"{dec_ms / coded_ms:.1%} of the coded step, of it the Viterbi decoder alone "
-          f"{vit_ms:.3f} ms; coded - uncoded {coded_ms - plain_ms:.3f} ms; "
-          + ("device busy not measured" if busy is None else
-             f"coded step device busy {busy[0]:.3f} ms (idle {1 - busy[0] / coded_ms:.1%})")
-          + f" ({card})", flush=True)
-    _decoder_stages(torch, rx, data, snr, card)
+          f"{samples / (plain_ms / 1e3):.4e} samples/s; the decoder (LLRs + deinterleave + "
+          f"Viterbi) {dec_ms:.3f} ms = {dec_ms / coded_ms:.1%} of the coded step "
+          f"(DETECT_IMPL={pp.DETECT_IMPL}, {N_CHUNKS} chunks x {CHUNK_LEN}, friendly stream "
+          f"seed 0, {card})", flush=True)
     fmt = lambda c: "not measured" if c is None else f"{c[0]} kernels, {c[1]} launch calls"  # noqa: E731
     print(f"[11 launches] coded step {fmt(n_coded)}; uncoded step {fmt(n_plain)}; decoder "
           f"alone {fmt(n_dec)} (torch.profiler, one step after a warm-up, {card})", flush=True)
-    del chunks, coded, data, snr, llrs
-
-    # the transmit service's step at N_CHUNKS bursts
-    tx = StreamingTransmitter(cfg, cycle_samples=CHUNK_LEN, device=dev)
-    syms = streams["friendly"][2][:N_CHUNKS]
-    dev_syms = torch.from_numpy(syms).to(dev)
-    ref = fused._tx_frame_plain(cfg, dev_syms.reshape(N_CHUNKS, -1), 0)
-    got = tx.step(syms)
-    e = float(np.abs(got.reshape(N_CHUNKS, -1) - ref.cpu().numpy()).max())
-    tx.step(syms)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        tx.step(syms)
-    host_ms = (time.perf_counter() - t0) / 5 * 1e3
-    dev_ms = _time_ms(torch, lambda: tx._tx(dev_syms))
-    print(f"[11 time] StreamingTransmitter.step B={N_CHUNKS}: host {host_ms:.3f} ms (copies "
-          f"in and out), device {dev_ms:.3f} ms (the Tx kernel and the scale), "
-          + check("vs plain", e, TOL["tx"]) + f" bit_equal={e == 0.0} ({card})", flush=True)
-
-    # the Viterbi kernel alone at the coded services' trellis lengths; the
-    # launches are the main path's (the QPSK and 64-QAM services links above)
-    err, times = _viterbi_times(torch, dev, card, check)
-    missing = sorted(set(times) - set(viterbi_launches))
-    if missing:
-        failures.append(f"no services link ran the decoder at {missing}")
-    return viterbi_launches, err, times
+    del chunks, coded, data, snr
 
 
 class _Timed:
@@ -2146,14 +870,12 @@ def _live_checks(cfg, label, got, payload, cycle, launches, detect_key, check) -
 
 
 def _live_device_ms(torch, tx, rx, payload_dev, chunks):
-    """CUDA-event ms of the loop's device work, (Tx, receive, busy): the Tx
-    kernel over every batch, the receive step over every super-batch (one
-    timed, scaled), and one step's device busy ms with its receiver part."""
-    tx_ms = _time_ms(torch, lambda: tx._tx(payload_dev)) * (N_LIVE // LIVE_TX_BATCH)
+    """CUDA-event ms of the loop's device work, (Tx, receive): the Tx kernel
+    over every batch, the receive step over every super-batch (one timed,
+    scaled)."""
+    tx_ms = time_ms(lambda: tx._tx(payload_dev)) * (N_LIVE // LIVE_TX_BATCH)
     t = torch.from_numpy(chunks).to(rx.device)
-    rx_ms = _time_ms(torch, lambda: rx._step(t)) * (N_LIVE / chunks.shape[0])
-    busy = _device_busy(torch, lambda: rx._step(t))
-    return tx_ms, rx_ms, busy
+    return tx_ms, time_ms(lambda: rx._step(t)) * (N_LIVE / chunks.shape[0])
 
 
 def _live_phase(torch, cfg, dev, streams, card, check, failures):
@@ -2179,7 +901,7 @@ def _live_phase(torch, cfg, dev, streams, card, check, failures):
     ring = native.StreamBuffer(capacity=capacity, chunk_len=CHUNK_LEN, halo=halo)
     tx = StreamingTransmitter(cfg, batch_bursts=LIVE_TX_BATCH, device=dev)
     push = _Timed(ring, keep=True)
-    _reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tx.serve(batches(), push)
@@ -2189,14 +911,14 @@ def _live_phase(torch, cfg, dev, streams, card, check, failures):
     default_impl = pp.DETECT_IMPL
     pp.DETECT_IMPL = "pallas2"
     rx, got, rx_wall = _live_rx(torch, cfg, dev, pull)
-    launches = _launches()
+    launches = read_launches()
     line = _live_checks(cfg, "ring", got, payload, tx.cycle_samples, launches, "detect_lean",
                         check)
     if tx.cycle_samples != CHUNK_LEN or rx.stats.dropped_ring:
         failures.append(f"ring loopback: cycle {tx.cycle_samples}, dropped {rx.stats.dropped_ring}")
     print(f"[12 live] ring loopback B={N_LIVE} DETECT_IMPL=pallas2 {line} "
           f"dropped={rx.stats.dropped_ring}", flush=True)
-    tx_ms, rx_ms, busy = _live_device_ms(torch, tx, rx, torch.from_numpy(
+    tx_ms, rx_ms = _live_device_ms(torch, tx, rx, torch.from_numpy(
         payload[:LIVE_TX_BATCH]).to(dev), pull.kept[0])
     pp.DETECT_IMPL = default_impl
     loop_s = tx_wall + rx_wall
@@ -2205,9 +927,7 @@ def _live_phase(torch, cfg, dev, streams, card, check, failures):
           f"pull {pull.seconds * 1e3:.1f}); live loop {samples / loop_s:.4e} samples/s; card: "
           f"Tx kernel {tx_ms:.3f} ms, receive steps {rx_ms:.3f} ms (CUDA events, "
           f"{N_LIVE // LIVE_RX_MAX} steps of {LIVE_RX_MAX} chunks), "
-          + ("device busy not measured" if busy is None else
-             f"a step's device busy {busy[0]:.3f} ms, receiver kernels {busy[1]:.3f}")
-          + f"; card share of the loop {(tx_ms + rx_ms) / (loop_s * 1e3):.2%} ({card})",
+          + f"card share of the loop {(tx_ms + rx_ms) / (loop_s * 1e3):.2%} ({card})",
           flush=True)
     stream_blocks = push.kept
     del pull, rx, got
@@ -2242,7 +962,7 @@ def _live_phase(torch, cfg, dev, streams, card, check, failures):
     tx = StreamingTransmitter(cfg, batch_bursts=LIVE_TX_BATCH, scale=0.5, device=dev)
     sink = UdpSink(ing.port, samples_per_datagram=spd)
     paced = _PacedUdp(sink, ring, slice_samples)
-    _reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tx.serve(batches(), paced)
@@ -2260,7 +980,7 @@ def _live_phase(torch, cfg, dev, streams, card, check, failures):
     pp.DETECT_IMPL = "pallas"
     rx, got, rx_wall = _live_rx(torch, cfg, dev, pull)
     pp.DETECT_IMPL = default_impl
-    launches = _launches()
+    launches = read_launches()
     line = _live_checks(cfg, "udp", got, payload, tx.cycle_samples, launches, "detect_front",
                         check)
     print(f"[12 live] UDP loopback B={N_LIVE} DETECT_IMPL=pallas {line} "
@@ -2283,7 +1003,7 @@ def _live_phase(torch, cfg, dev, streams, card, check, failures):
     s = (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
     s_dev = torch.from_numpy(s).to(dev)
     card_out = receiver.receive_stream(cfg, s_dev)
-    cuda_ms = _time_ms(torch, lambda: receiver.receive_stream(cfg, s_dev), iters=3)
+    cuda_ms = time_ms(lambda: receiver.receive_stream(cfg, s_dev), iters=3)
     t0 = time.perf_counter()
     cpu_out = receiver.receive_stream(cfg, s, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -2449,7 +1169,7 @@ def _app_cli(torch, cfg, dev, work, card, check, failures) -> None:
                                  ).to(dev)
         pts = cli._constellation(constellation)[0]
         ic = cli.default_ic_iterations(constellation)
-        rs_ms = _time_ms(torch, lambda: receive_stream(cfg, s_dev, ic_iterations=ic,
+        rs_ms = time_ms(lambda: receive_stream(cfg, s_dev, ic_iterations=ic,
                                                        constellation=pts), iters=3)
         print(f"[13 cli] {name} {fmt} payload={APP_PAYLOAD} B bursts={rx_stats['bursts']} "
               f"(framed {bursts}) samples={stream.size} payload_equal={equal} "
@@ -2519,7 +1239,7 @@ def _app_phase(torch, cfg, dev, card, check, failures):
         _app_cli(torch, cfg, dev, work, card, check, failures)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    _reset_launches()
+    reset_launches()
 
     # (c) simulate at tests/test_cli.py's settings, 4,096 bursts
     sims = {}
@@ -2573,7 +1293,7 @@ def _app_phase(torch, cfg, dev, card, check, failures):
     bits = np.random.default_rng(0).integers(0, 2, (APP_BURSTS, cfg.n_data_symbols, 2))
     bits_dev = torch.from_numpy(bits).to(dev)
     noise = ber._unit_normal(gen, (APP_BURSTS, 2, cfg.frame_len), dev)
-    point_ms = _time_ms(torch, lambda: one(9.0, bits_dev, noise), iters=5)
+    point_ms = time_ms(lambda: one(9.0, bits_dev, noise), iters=5)
     print(f"[13 time] ber point qpsk B={APP_BURSTS} ({APP_BURSTS * cfg.frame_len} samples): "
           f"card {point_ms:.3f} ms (CUDA events, bits and noise on the card) ({card})",
           flush=True)
@@ -2590,8 +1310,8 @@ def _app_phase(torch, cfg, dev, card, check, failures):
         0, 2, (APP_BURSTS, n_info)).astype(np.uint8))[..., perm]
     cb_dev = torch.from_numpy(cb).to(dev)
     llrs = llrs_fn(3.0, cb_dev, noise)
-    coded_ms = _time_ms(torch, lambda: fn(3.0, cb_dev, noise), iters=3)
-    dec_ms = _time_ms(torch, lambda: coded.viterbi_decode(llrs, n_info), iters=3)
+    coded_ms = time_ms(lambda: fn(3.0, cb_dev, noise), iters=3)
+    dec_ms = time_ms(lambda: coded.viterbi_decode(llrs, n_info), iters=3)
     print(f"[13 coded] B={APP_BURSTS} ebn0_db={ebn0} coded_ber={cvu['coded_ber'].tolist()} "
           f"uncoded_ber={cvu['uncoded_ber'].tolist()} "
           + check("points>=3dB_with_coded>uncoded", float(len(worse)), 0.0)
@@ -2650,7 +1370,7 @@ def _app_phase(torch, cfg, dev, card, check, failures):
         exact = torch.from_numpy(grid.astype(np.complex128) @ legacy._legacy_operator(
             cfg, fft_len).T)
         scale = float(exact.abs().max())  # ~29: the legacy taps are not normalized
-        ms = _time_ms(torch, lambda: legacy.modulate_oversampled(cfg, grid_dev, fft_len))
+        ms = time_ms(lambda: legacy.modulate_oversampled(cfg, grid_dev, fft_len))
         parts.append(f"fft_len={fft_len} max|y|={scale:.2f} "
                      + check("card_vs_cpu_rel", _max_abs(got, ref) / scale, TOL["tx"]) + " "
                      + check("card_vs_f64_rel", _max_abs(got.to(exact.dtype), exact) / scale,
@@ -2678,7 +1398,7 @@ def _app_phase(torch, cfg, dev, card, check, failures):
     print(f"[13 spectrum] B={APP_BURSTS} oob_db={oob} papr_median_db={papr} "
           f"ordered={ordered} card vs CPU: " + check("rel", rel, 1e-6) + " "
           + check("ccdf", ccdf, 1e-6) + f"; host {card_s:.2f} s ({card})", flush=True)
-    launches = {k: v for k, v in _launches().items() if v}
+    launches = {k: v for k, v in read_launches().items() if v}
     print(f"[13 main] the port's kernels launched by (c)-(h): {launches or 'none'} (the "
           f"complex chain and the planar torch-op link; the coded BER's decoder); phase 13 "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -2706,9 +1426,9 @@ def _sp_service(torch, cfg, dev, chunks, card, check, failures) -> None:
         two = StreamingReceiver(cfg, sp_shards=SP_SHARDS, mesh=mesh, **kw)
         two._step(dev_chunks)  # warm-up
         torch.cuda.synchronize()
-        _reset_launches()
+        reset_launches()
         o2 = two.step(chunks)
-        run = _launches()
+        run = read_launches()
         o1 = one.step(chunks)
         f1, f2 = o1["found"], o2["found"].reshape(N_CHUNKS, SP_SHARDS)
         start2 = o2["start"].reshape(N_CHUNKS, SP_SHARDS) + np.arange(SP_SHARDS) * sub
@@ -2741,8 +1461,8 @@ def _sp_service(torch, cfg, dev, chunks, card, check, failures) -> None:
                             f"expected {fused.rx_launches(2)} (one receiver call)")
         if impl in kernel_of and run[kernel_of[impl]] != 1:
             failures.append(f"sp service [{impl}]: {run[kernel_of[impl]]} detection launches")
-        ms2 = _time_ms(torch, lambda: two._step(dev_chunks))
-        ms1 = _time_ms(torch, lambda: one._step(dev_chunks))
+        ms2 = time_ms(lambda: two._step(dev_chunks))
+        ms1 = time_ms(lambda: one._step(dev_chunks))
         print(f"[14 sp] DETECT_IMPL={impl}: sp=2 found={int(f2.sum())} sp=1 found="
               f"{int(f1.sum())} of {N_CHUNKS} chunks; matched={int(matched.sum())} "
               f"(start_abs equal {int(exact.sum())}, moved at a sub-chunk boundary "
@@ -2802,12 +1522,6 @@ def _sp_service(torch, cfg, dev, chunks, card, check, failures) -> None:
                           0.0)
                   + f" ({card})", flush=True)
     pp.DETECT_IMPL = default_impl
-
-    # rows 12-13 against their plain versions at the sub-chunk windows
-    windows = dev_chunks.unfold(-1, sub + halo, sub).transpose(1, 2).reshape(-1, 2, sub + halo)
-    label = f"B={windows.shape[0]},T={sub + halo},n_valid={sub}"
-    _check_front(cfg, windows, label, check, limit=sub, tag="14")
-    _check_lean(torch, cfg, windows, label, check, failures, limit=sub, tag="14")
 
 
 def _par_scenarios(cfg) -> dict:
@@ -2897,7 +1611,7 @@ def _parallel_examples(torch, cfg, dev, root, card, check, failures) -> None:
     )
     res = {}
     for name, fn, kernels in runs:
-        _reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         try:
             res[name] = fn()
@@ -2905,7 +1619,7 @@ def _parallel_examples(torch, cfg, dev, root, card, check, failures) -> None:
             failures.append(f"example {name}: {exc}")
             continue
         wall = time.perf_counter() - t0
-        run = _launches()
+        run = read_launches()
         for key in kernels:
             if run[key] < 1:
                 failures.append(f"kernel {key} was not launched by example {name}")
@@ -2949,7 +1663,7 @@ def _parallel_examples(torch, cfg, dev, root, card, check, failures) -> None:
                         f"{proc.stderr[-800:]}")
     print(f"[14 example] multichip_sharding (own process, {time.perf_counter() - t0:.1f} s): "
           f"{line} ({card})", flush=True)
-    _reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     r = dryrun_multihost(PAR_PROCS, device=dev)
     shutil.rmtree(r.pop("out_dir"), ignore_errors=True)
@@ -2974,9 +1688,9 @@ def _parallel_phase(torch, cfg, dev, streams, card, check, failures) -> None:
     # (b) the sharded detection on a virtual card mesh vs the CPU
     _sharded_detection(torch, cfg, dev, card, check)
     # (c) the eight-device dry run on the card
-    _reset_launches()
+    reset_launches()
     res = dryrun_multichip(PAR_DP * PAR_SP, device=dev)
-    run = _launches()
+    run = read_launches()
     if run["rx"] < 1:
         failures.append("dryrun_multichip launched no receiver kernel")
     print(f"[14 dryrun] multichip {res} launches={{rx: {run['rx']}}} "
@@ -3029,8 +1743,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from gfdm_tpu_torch import GfdmConfig
-    from gfdm_tpu_torch.entry import (_dynamic_range_chunks, entry, large_k_config,
-                                      planar_payload, service_stream)
+    from gfdm_tpu_torch.entry import entry, planar_payload, service_stream
     from gfdm_tpu_torch.kernels import cuda_lib, fused
     from gfdm_tpu_torch.ops.planar_pipeline import evm, link_step_planar
 
@@ -3038,7 +1751,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
-    card = _card_line()
+    card = card_line()
     failures: list[str] = []
 
     def check(name: str, value: float, limit: float) -> str:
@@ -3053,106 +1766,24 @@ def main() -> int:
 
     # 2. build
     info = cuda_lib.build_info()
-    regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
     print(f"[2 build] {info['seconds']:.1f} s nvcc, cached={info['cached']}, "
           f"{info['path']}", flush=True)
-    for ln in regs:
+    for ln in ptxas_lines():
         print(f"    ptxas: {ln}")
 
-    # 3. kernels vs plain versions on the same CUDA inputs
-    cfg = GfdmConfig()
-    cfg_s = GfdmConfig(cyclic_shifts=(0, 4))
-    data = torch.from_numpy(planar_payload(cfg, B, seed=0)).to(dev)
-    flat = data.reshape(B, -1)
-    err = {"tx": 0.0, "rx": 0.0, "link": 0.0}
-    parts = []
-    small = data[: min(B, N_RAGGED_LINK)]
-    # n_data = 130: an xi plane 520 bytes into a row, a ragged k-tile
-    cfg_u = GfdmConfig(subcarriers=32, active_subcarriers=26, timeslots=5, cp_len=8,
-                       cs_len=8, cyclic_shifts=(0, 4))
-    data_u = torch.from_numpy(planar_payload(cfg_u, N_RAGGED_LINK, seed=2)).to(dev)
-    tx_cases = [(cfg_s, small, si, "") for si in range(len(cfg_s.cyclic_shifts))]
-    tx_cases += [(cfg_u, data_u, si, "n_data=130,") for si in range(len(cfg_u.cyclic_shifts))]
-    for c_tx, d_tx, si, tag in tx_cases:
-        got = fused.tx_frame_fused(c_tx, d_tx, shift_index=si)
-        ref = fused._tx_frame_plain(c_tx, d_tx.reshape(d_tx.shape[0], -1), si)
-        e = _max_abs(got.reshape(ref.shape), ref)
-        err["tx"] = max(err["tx"], e)
-        parts.append(check(f"tx[{tag}B={d_tx.shape[0]},shift={c_tx.cyclic_shifts[si]}]",
-                           e, TOL["tx"]))
-    bursts = fused.tx_frame_fused(cfg, data)
-    e = _max_abs(bursts.reshape(B, -1), fused._tx_frame_plain(cfg, flat, 0))
-    err["tx"] = max(err["tx"], e)
-    parts.append(check(f"tx[B={B},shift=0]", e, TOL["tx"]))
-    print("[3 check] " + " ".join(parts) + f" bit_equal={err['tx'] == 0.0}", flush=True)
-    del data_u
-
-    noisy = _noisy(torch, bursts, 1)
-    noisy_flat = noisy.reshape(B, -1)
-    sent = noisy.clone()
-    n_cnr = fused._met_layout(cfg)[0]
-    for mode in ("conv", "matmul"):
-        parts = []
-        for nb in (B, N_RAGGED_LINK):
-            before = fused.LAUNCHES["rx"]
-            chan, sym, met = fused.rx_receiver_fused(cfg, noisy[:nb], ic_mode=mode)
-            n_launch = fused.LAUNCHES["rx"] - before
-            rchan, rsym, rmet = fused._rx_receiver_plain(cfg, noisy_flat[:nb], 2, mode)
-            ec = _max_abs(chan.reshape(nb, -1), rchan)
-            es = _max_abs(sym.reshape(nb, -1), rsym)
-            err["rx"] = max(err["rx"], ec, es)
-            parts += [
-                check(f"chan[B={nb}]", ec, TOL["chan"]),
-                check(f"symbols[B={nb}]", es, TOL["symbols"]),
-                check("snr_rel", _max_rel(met[:, 0], rmet[:, 0]), TOL["snr_rtol"]),
-                check("cnr_rel", _max_rel(met[:, 1 : 1 + n_cnr], rmet[:, 1 : 1 + n_cnr]),
-                      TOL["cnr_rtol"]),
-                check("pad", float(met[:, 1 + n_cnr :].abs().max()), 0.0),
-                check("launches!=plan", float(n_launch != fused.rx_launches(2)), 0.0),
-            ]
-            del chan, sym, met, rchan, rsym, rmet
-        print(f"[3 check] rx[{mode}] " + " ".join(parts), flush=True)
-    if not torch.equal(noisy, sent):
-        failures.append("rx_receiver_fused wrote into its bursts")
-    del sent
-    ragged = data[:N_RAGGED_LINK]
-    for mode in ("conv", "matmul"):
-        d_hat, _snr, _evm = fused.link_single_fused(cfg, data, ic_mode=mode)
-        ref, _met = fused._link_single_plain(cfg, flat, 2, mode)
-        e = _max_abs(d_hat.reshape(B, -1), ref)
-        d_r = fused.link_single_fused(cfg, ragged, ic_mode=mode)[0]
-        e_r = _max_abs(d_r.reshape(N_RAGGED_LINK, -1),
-                       fused._link_single_plain(cfg, flat[:N_RAGGED_LINK], 2, mode)[0])
-        err["link"] = max(err["link"], e, e_r)
-        print(f"[3 check] link[{mode}] " + check(f"data[B={B}]", e, TOL["data"]) + " "
-              + check(f"data[B={N_RAGGED_LINK}]", e_r, TOL["data"]), flush=True)
-        del d_hat, ref, d_r
-
-    # 3. detection kernels vs plain on the service's friendly chunks
-    streams = {
-        name: service_stream(cfg, N_CHUNKS, CHUNK_LEN, 20.0, impaired,
-                             np.random.default_rng(0))
-        for name, impaired in (("friendly", False), ("impaired", True))
-    }
-    friendly_dev = torch.from_numpy(streams["friendly"][0]).to(dev)
-    ragged = friendly_dev[:N_RAGGED, :, : friendly_dev.shape[-1] - RAGGED_TRIM]
-    ragged = ragged.contiguous()
-    dynamic = torch.from_numpy(_dynamic_range_chunks(cfg, CHUNK_LEN,
-                                                     np.random.default_rng(11))).to(dev)
-    err["detect_front"] = err["detect_lean"] = 0.0
-    for label, s_in in ((f"B={N_CHUNKS},T={friendly_dev.shape[-1]}", friendly_dev),
-                        (f"B={N_RAGGED},T={ragged.shape[-1]}", ragged),
-                        (f"B={dynamic.shape[0]},60dB_steps", dynamic)):
-        err["detect_front"] = max(err["detect_front"],
-                                  _check_front(cfg, s_in, label, check))
-        err["detect_lean"] = max(err["detect_lean"],
-                                 _check_lean(torch, cfg, s_in, label, check, failures))
+    # 3. each kernel against its plain version at the main paths' shapes
+    for c in kernel_checks(dev):
+        print(f"[3 check] {c.label}: max_abs={c.err:.3e} "
+              + " ".join(check(f"{c.key}:{n}", v, lim) for n, v, lim in c.parts), flush=True)
+    torch.cuda.empty_cache()
 
     # 4. the main path at full batch, through the user's entry points
+    cfg = GfdmConfig()
+    data = torch.from_numpy(planar_payload(cfg, B, seed=0)).to(dev)
+    flat = data.reshape(B, -1)
     step, (example,) = entry(dev)
     _d, _s, evm_example = step(example)
-    _reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d_hat, snr, evm_link = step(data)
@@ -3197,75 +1828,28 @@ def main() -> int:
           ]), flush=True)
     del d_hat, d_split, ref_link, sym_plain, split_plain
 
-    # 5. times at the main path's shapes (plain, kernel, kernel, plain)
-    runs = {
-        "tx": (lambda: fused.tx_frame_fused(cfg, data),
-               lambda: fused._tx_frame_plain(cfg, flat, 0)),
-        "rx": (lambda: fused.rx_receiver_fused(cfg, noisy, ic_mode="conv"),
-               lambda: fused._rx_receiver_plain(cfg, noisy_flat, 2, "conv")),
-        "rx_matmul": (lambda: fused.rx_receiver_fused(cfg, noisy, ic_mode="matmul"),
-                      lambda: fused._rx_receiver_plain(cfg, noisy_flat, 2, "matmul")),
-        "link": (lambda: fused.link_single_fused(cfg, data, ic_mode="matmul"),
-                 lambda: fused._link_single_plain(cfg, flat, 2, "matmul")),
-        "link_conv": (lambda: fused.link_single_fused(cfg, data, ic_mode="conv"),
-                      lambda: fused._link_single_plain(cfg, flat, 2, "conv")),
-        "link_bf16": (lambda: fused.link_single_fused(cfg, data, ic_mode="matmul",
-                                                      dtype_name="bfloat16"),
-                      lambda: fused._link_single_plain(cfg, flat, 2, "matmul",
-                                                       dtype_name="bfloat16")),
+    # 6. the streaming receive service
+    streams = {
+        name: service_stream(cfg, N_CHUNKS, CHUNK_LEN, 20.0, impaired,
+                             np.random.default_rng(0))
+        for name, impaired in (("friendly", False), ("impaired", True))
     }
-    times = {}
-    for name, (kern, plain) in runs.items():
-        k_ms, p_ms, ks, ps = _timed(torch, kern, plain)
-        times[name] = (k_ms, p_ms)
-        rate = B * cfg.frame_len / (k_ms / 1e3)
-        print(f"[5 time] {name}: kernel {ks} ms, plain {ps} ms, kernel {rate:.4e} "
-              f"samples/s (B={B}, {card})", flush=True)
-        if name == "tx":
-            _tx_yardstick(torch, cfg, flat, k_ms, card)
-    _link_stage_times(torch, cfg, flat, card)
-    _rx_stage_times(cfg, noisy_flat, card, "5")
+    _service_phase(torch, cfg, dev, streams, card, check, failures)
 
-    # 6. the streaming receive service; the receiver's stages at its 4,096
-    # slots (the friendly stream's)
-    svc_launches, det_times = _service_phase(torch, cfg, dev, streams, card,
-                                             check, failures)
-    _rx_stage_times(cfg, noisy_flat[:N_CHUNKS], card, "6")
-    launches.update(svc_launches)
-    times.update(det_times)
+    # 7. the large-K factored link
+    _large_k_phase(torch, dev, check, failures)
 
-    # 7. the large-K factored path
-    lk_launches, lk_err, lk_times, row6 = _large_k_phase(torch, dev, card, check, failures)
-    launches.update(lk_launches)
-    times.update(lk_times)
-    for key, e in lk_err.items():
-        err[key] = max(err.get(key, 0.0), e)
+    # 8. the service at qam16 / qam64
+    _options_phase(torch, cfg, dev, card, check, failures)
 
-    # 8. receiver and link options, the service at qam16 / qam64
-    opt_err, svc_rx = _options_phase(torch, cfg, dev, card, check, failures)
-    for key, e in opt_err.items():
-        err[key] = max(err[key], e)
-
-    # 9. the CDD transmitter and link, the superseded receivers
-    cv_launches, cv_err, cv_times = _cdd_variants_phase(torch, cfg, dev, data, noisy, card,
-                                                        check, failures)
-    launches.update(cv_launches)
-    err.update(cv_err)
-    times.update(cv_times)
+    # 9. the CDD link
+    _cdd_phase(torch, dev, data, check, failures)
 
     # 10. the link's GEMM chain at f32, bf16 and int8
-    ch_launches, ch_err, ch_times = _chain_phase(torch, dev, card, check, failures)
-    launches.update(ch_launches)
-    err.update(ch_err)
-    times.update(ch_times)
+    _chain_phase(torch, dev, failures)
 
-    # 11. the coded modem through the transmit and receive services; the
-    # Viterbi kernel alone
-    vit_launches, vit_err, vit_times = _coded_phase(torch, cfg, dev, streams, card, check,
-                                                    failures)
-    launches.update(vit_launches)
-    err.update(vit_err)
-    times.update(vit_times)
+    # 11. the coded modem through the transmit and receive services
+    _coded_phase(torch, cfg, dev, streams, card, check, failures)
 
     # 12. the live-ring modem over the ring and a real socket, the complex chain
     _live_phase(torch, cfg, dev, streams, card, check, failures)
@@ -3281,79 +1865,6 @@ def main() -> int:
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    # the bound at each kernel's timed shapes
-    lk = {K: large_k_config(K) for K in (K_FULL, K_ESTIMATOR)}
-    shapes = {
-        "tx": (cfg, B, {}), "tx_cdd": (GfdmConfig(cyclic_shifts=(0, 2)), B, {"ports": 2}),
-        "rx": (cfg, B, {}), "link": (cfg, B, {"ic_mode": "matmul"}),
-        "detect_front": (cfg, N_CHUNKS, {"T": CHUNK_LEN + cfg.frame_len + cfg.cp_len,
-                                         "n_valid": CHUNK_LEN}),
-        "detect_lean": (cfg, N_CHUNKS, {"T": CHUNK_LEN + cfg.frame_len + cfg.cp_len,
-                                        "n_valid": CHUNK_LEN}),
-        "tx_factored": (lk[K_FULL], B_LARGE_K, {}),
-        "rx_factored": (lk[K_ESTIMATOR], B_LARGE_K, {}),
-        "rx_estimate": (lk[K_ESTIMATOR], B_LARGE_K, {}),
-        "rx_factored_chan": (lk[K_FULL], B_LARGE_K, {}),
-        "rx_core": (cfg, B, {}), "rx_ic": (cfg, B, {}), "rx_full": (cfg, B, {}),
-        "rx_hybrid": (cfg, B, {}),
-        **{f"chain_{v}": (None, B_CHAIN, {}) for v in ("f32", "bf16", "int8")},
-        **{f"viterbi_t{T}": (None, N_CHUNKS, {"T": T}) for T in VITERBI_T},
-    }
-    kernels = []
-    for key, (name, source, replaces) in SOURCES.items():
-        kcfg, kb, kw = shapes[key]
-        bound_ms, bound_by = _bound(key, kcfg, kb, **kw)
-        extra, note = {}, ""
-        if key == "rx":  # restated as the link's; fp32 FMA and FP64 beside it
-            extra["fma_bound_ms"] = bound_ms
-            bound_ms, bound_by, inter_ms = _rx_bound(kcfg, kb)
-            mm_ms, mm_by, _ = _rx_bound(kcfg, kb, "matmul")
-            f64_ms = _rx_bound(kcfg, kb, fp64=True)[0]
-            note = (f" (conv IC); fp32 FMA bound {extra['fma_bound_ms']:.3f} ms; FP64 tensor "
-                    f"cores {f64_ms:.3f} ms; the design's intermediates {inter_ms:.3f} ms; "
-                    f"matmul IC {mm_ms:.3f} ms ({mm_by}) against rx_matmul "
-                    f"{times['rx_matmul'][0]:.3f} ms = {mm_ms / times['rx_matmul'][0]:.1%}")
-        if key in ("tx_factored", "rx_factored", "rx_factored_chan"):  # and the direct DFT's
-            extra["dft_bound_ms"], dft_by = _bound(key, kcfg, kb, direct_dft=True)
-            note = (f"; with the K-point stage as the direct DFT "
-                    f"{extra['dft_bound_ms']:.3f} ms ({dft_by}) = "
-                    f"{extra['dft_bound_ms'] / times[key][0]:.1%}")
-        if key in ("detect_front", "detect_lean"):  # the FIR's and the old count beside it
-            extra["fir_bound_ms"], fir_by = _bound(key, kcfg, kb, detect_form="fir", **kw)
-            extra["old_bound_ms"] = _bound(key, kcfg, kb, detect_form="old", **kw)[0]
-            note = (f" (the cross-correlation as overlap-save FFTs, not run); as the direct "
-                    f"FIR the kernels run {extra['fir_bound_ms']:.3f} ms ({fir_by}) = "
-                    f"{extra['fir_bound_ms'] / times[key][0]:.1%}; every sum anew at every "
-                    f"position {extra['old_bound_ms']:.3f} ms")
-        if key == "rx_factored":  # two launches: the estimator GEMM, the receiver
-            extra["launches_by_kernel"] = row6
-        if key == "rx_core":  # its two products as six torch.mm: a part's yardstick
-            extra["mm_yardstick_ms"] = times["rx_core_mm"]
-            note = (f"; its two Gauss products as six torch.mm "
-                    f"{extra['mm_yardstick_ms']:.3f} ms")
-        if key == "chain_int8":  # PyTorch's int8 GEMMs alone: a part's yardstick
-            extra["int_mm_yardstick_ms"] = times["chain_int8_int_mm"]
-            note = (f"; torch._int_mm x3 on operands quantized beforehand "
-                    f"{extra['int_mm_yardstick_ms']:.3f} ms")
-        if key == "link":  # tensor-core bound; the fp32 FMA one as PRs 1-6 gave it
-            extra["fma_bound_ms"] = bound_ms
-            bound_ms, bound_by, inter_ms = _link_bound(kcfg, kb, **kw)
-            bf_ms, bf_by, _ = _link_bound(kcfg, kb, dtype_name="bfloat16", **kw)
-            note = (f"; fp32 FMA bound {extra['fma_bound_ms']:.3f} ms; the design's "
-                    f"intermediates {inter_ms:.3f} ms; with bf16 stacks {bf_ms:.3f} ms "
-                    f"({bf_by}) against link_bf16 {times['link_bf16'][0]:.3f} ms")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
-            "max_abs_err": err[key], "ms": times[key][0],
-            "plain_ms": times[key][1], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": times[key][2] if len(times[key]) > 2 else None, **extra,
-        })
-        print(f"[bound] {key}: {bound_ms:.3f} ms ({bound_by}) at B={kb}; kernel "
-              f"{times[key][0]:.3f} ms = {bound_ms / times[key][0]:.1%} of the bound{note} "
-              f"({card})", flush=True)
-    print(f"[8 main] service launches rx={svc_rx}", flush=True)
-    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

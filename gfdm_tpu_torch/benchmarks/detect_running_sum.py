@@ -6,7 +6,7 @@ slide the next R - 1 (the entering term added, the leaving one subtracted).
 After a 60 dB power step that keeps the rounding error of the louder past.
 This script computes ac so in NumPy float32 on the chunks of
 ``entry._dynamic_range_chunks`` (seed 11, the canonical config) and prints
-its largest excess over the limits chip_smoke.py holds the kernels' traces
+its largest excess over the limits tests/test_torch_gpu.py holds the kernels' traces
 to against the plain version (atol 3e-5, rtol 3e-3; <= 1 passes). The
 kernels' own schedule meets the limits on the same chunks
 (tests/test_torch_detect_tiles.py).

@@ -5,10 +5,12 @@ link's chain shapes, (B, 936) -> 1152 -> 1152 -> 1152, through the CUDA
 chain kernels (:mod:`gfdm_tpu_torch.kernels.chain`), one mode at a time.
 The inputs are the script's ``default_rng(0)`` draws (the three weights,
 then x), and each iteration scales x by its own s = 1 + 1e-6 i, as the
-script varies its input. Times are CUDA events around ``iters`` calls
-after a warm-up call, not the script's host fetch. Each mode prints one
-line: ms, TF(OP)/s and the max error relative to the f32 output, as the
-script does; then the card's name and power limit.
+script varies its input (the scales taken in turn). Times are CUDA events
+around ``iters`` calls after two warm-up calls
+(:func:`gfdm_tpu_torch.benchmarks.kernels.time_ms`), not the script's host
+fetch. Each mode prints one line: ms, TF(OP)/s and the max error relative
+to the f32 output (of a call at the last scale), as the script does; then
+the card's name and power limit.
 
     python -m gfdm_tpu_torch.benchmarks.int8_gauss [batch] [iters]   # 32768 10
 
@@ -16,13 +18,14 @@ It needs a CUDA device and exits 1 without one.
 """
 from __future__ import annotations
 
-import subprocess
+import itertools
 import sys
 
 import numpy as np
 import torch
 
 from ..kernels.chain import CHAIN_SHAPES, VARIANTS, chain_weights_from_numpy, gemm_chain
+from .kernels import card_line, time_ms
 
 
 def make_inputs(batch: int, iters: int):
@@ -42,15 +45,6 @@ def chain_step(x: torch.Tensor, s, weights):
     return gemm_chain(x * float(s), weights)
 
 
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     batch = int(argv[0]) if len(argv) > 0 else 32768
@@ -67,16 +61,9 @@ def main(argv=None) -> int:
     for variant in VARIANTS:
         try:
             cw = chain_weights_from_numpy(weights, variant).to(dev)
-            out = chain_step(xd, scales[0], cw)  # build + warm-up
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for i in range(iters):
-                out = chain_step(xd, scales[i], cw)
-            stop.record()
-            stop.synchronize()
-            ms = start.elapsed_time(stop) / iters
+            s = itertools.cycle(scales)
+            ms = time_ms(lambda: chain_step(xd, next(s), cw), iters)
+            out = chain_step(xd, scales[-1], cw)
             if variant == "f32":
                 ref, err = out, 0.0
             else:

@@ -174,13 +174,13 @@ def test_benchmark_inputs_are_the_scripts_draws():
 
 
 def test_chip_smoke_counts_the_wrappers_launches():
-    """chip_smoke.py's phase 10 expects the launches the wrapper counts for
-    one call (f32 3, bf16 4, int8 4: x's pass and three stages); importing
-    it needs no card."""
+    """The launches chip_smoke.py's phase 10 holds the main path's chain
+    steps to are the wrapper's own count for one call, ``chain._KERNELS``:
+    f32 3, bf16 4, int8 4 (x's pass and three stages, the launches
+    ``chain.INT8_LAUNCHES`` names and benchmarks/kernels.py times one by
+    one); importing chip_smoke needs no card."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    assert smoke.CHAIN_LAUNCHES == chain._KERNELS
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
     assert chain._KERNELS == {"f32": 3, "bf16": 4, "int8": 4}
     assert len(chain.INT8_LAUNCHES) == chain._KERNELS["int8"]
 

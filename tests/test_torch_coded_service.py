@@ -5,7 +5,7 @@ their plain versions on CPU tensors, the JAX package's Pallas receiver runs
 in interpret mode), modem_sensitivity, and StreamingTransmitter on the same
 numpy-seeded inputs: decoded bits of found slots equal, every payload
 CRC-clean, the transmitter's samples within TOL["tx"] (2e-5, as
-chip_smoke.py holds the Tx kernel). The counterparts of
+tests/test_torch_gpu.py holds the Tx kernel). The counterparts of
 tests/test_stream_eval.py's device-FEC tests and tests/test_transmit_service.py.
 """
 import numpy as np

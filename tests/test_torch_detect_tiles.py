@@ -16,7 +16,7 @@ then every trace staged by thread and stored by the kernel's coalesced
 mapping into outputs pre-filled with NaN, each position counted so that it
 is written exactly once. The traces must agree with the plain versions
 (``detect._detect_front_plain`` / ``_detect_lean_plain``) within the
-limits chip_smoke.py holds the kernels to (atol 3e-5, rtol 3e-3), with
+limits tests/test_torch_gpu.py holds the kernels to (atol 3e-5, rtol 3e-3), with
 the detected starts equal. Inputs: 37 friendly chunks of
 ``entry.service_stream`` at trims 0 and 5 and ``entry._dynamic_range_chunks``
 (power steps of 60 dB, an all-zero chunk, a burst after silence), at the

@@ -4,8 +4,12 @@ Imports torch and the port only, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py tests/test_torch_entry.py
 
-Without a CUDA device every test skips. chip_smoke.py runs the same
-comparisons at the main path's full batch.
+Without a CUDA device every test skips. These hold each kernel to its
+plain version at the shapes and options around the main paths: ragged and
+small batches, other configs, every option. chip_smoke.py's phase 3 holds
+them at the main paths' own shapes (65,536 bursts, the service's 4,096
+chunks) through gfdm_tpu_torch/benchmarks/kernels.py's table of checks,
+which that script also times.
 """
 import ctypes
 
@@ -113,6 +117,11 @@ def test_rx_kernel_matches_plain(ic_mode, name):
     assert _max_err(sym, rsym) < 5e-4
     rel = ((met[:, 0] - rmet[:, 0]).abs() / rmet[:, 0].abs()).max()
     assert float(rel) < 1e-3
+    # the active subcarriers' CNRs after the SNR, then zero padding
+    n_cnr = fused._met_layout(cfg)[0]
+    cnr, rcnr = met[:, 1 : 1 + n_cnr], rmet[:, 1 : 1 + n_cnr]
+    assert float(((cnr - rcnr).abs() / (rcnr.abs() + 1e-12)).max()) < 1e-2
+    assert not met[:, 1 + n_cnr :].any()
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

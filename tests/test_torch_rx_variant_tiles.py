@@ -10,7 +10,7 @@ epilogue; the IC pass with its neighbour wrap; the hybrid's fold, IDFTs
 and IC. The replay is held against the plain versions (_rx_variant_plain)
 and against the JAX package's Pallas kernels in interpret mode (one block
 of the whole batch) on the same numpy-seeded float32 inputs, with the
-kernels' card limits (chip_smoke.py TOL): channel 2e-4, symbols 5e-4. The
+kernels' card limits (tests/test_torch_gpu.py): channel 2e-4, symbols 5e-4. The
 configs: the canonical one (N = 576, nine column tiles) and K = 32, M = 5
 (N = 160: a ragged last column tile); the batch, 67, is ragged too.
 """
